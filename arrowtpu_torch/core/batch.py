@@ -30,6 +30,10 @@ class RecordBatch:
     def length(self) -> int:
         return self.columns[0].length if self.columns else 0
 
+    @property
+    def device(self):
+        return self.columns[0].device
+
     def column(self, name_or_idx) -> col.Column:
         if isinstance(name_or_idx, str):
             return self.columns[self.schema.index_of(name_or_idx)]

@@ -43,16 +43,17 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tile_rank.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRounds = 16;
-constexpr int kTile = kThreads * kRounds;  // rows per block
-constexpr int kMaxPlanes = 16;
-constexpr unsigned kFull = 0xffffffffu;
-
-static_assert(kRounds * kWarps == 4 * 32, "warp 0 scans 4 counts per lane");
+using arrowtpu::kFull;
+using arrowtpu::kMaxPlanes;
+using arrowtpu::kRounds;
+using arrowtpu::kThreads;
+using arrowtpu::kTile;
+using arrowtpu::kWarps;
+using arrowtpu::PlanePtrs;
 
 __device__ __forceinline__ int nonzero_bytes(uint32_t w) {
   w |= w >> 4;
@@ -90,70 +91,20 @@ tile_counts_kernel(const uint8_t* __restrict__ keep, int64_t n,
 }
 
 template <typename T>
-struct PlanePtrs {
-  const T* in[kMaxPlanes];
-  T* out[kMaxPlanes];
-};
-
-// Row order inside a tile is (round, warp, lane): row = tile + r*256 + tid,
-// so a warp touches 32 consecutive rows of every plane in each round.
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 3)
 compact_scatter_kernel(const uint8_t* __restrict__ keep, int64_t n,
                        const int64_t* __restrict__ offs, int num_planes,
                        const __grid_constant__ PlanePtrs<T> planes,
                        int64_t out_rows) {
-  __shared__ __align__(16) uint8_t tile_keep[kTile];
-  __shared__ int counts[kRounds * kWarps];
-  __shared__ int prefix[kRounds * kWarps];
+  __shared__ arrowtpu::TileRanks ranks;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t tile = static_cast<int64_t>(blockIdx.x) * kTile;
 
-  // 1. the tile's keep bytes into shared memory: one 16-byte load a thread
-  {
-    const int64_t first = tile + static_cast<int64_t>(threadIdx.x) * 16;
-    uint8_t* mine = tile_keep + threadIdx.x * 16;
-    if (first + 16 <= n && (reinterpret_cast<uintptr_t>(keep) & 15) == 0) {
-      *reinterpret_cast<uint4*>(mine) =
-          *reinterpret_cast<const uint4*>(keep + first);
-    } else {
-      for (int i = 0; i < 16; ++i) mine[i] = first + i < n ? keep[first + i] : 0;
-    }
-  }
-  __syncthreads();
-
-  // 2. ranks: a ballot per (round, warp), then an exclusive scan of the 128
-  //    (round, warp) counts in row order by warp 0
+  // 1-2. the tile's kept rows ranked (tile_rank.cuh)
   unsigned ballots[kRounds];
-#pragma unroll
-  for (int r = 0; r < kRounds; ++r) {
-    ballots[r] = __ballot_sync(kFull, tile_keep[r * kThreads + threadIdx.x]);
-    if (lane == 0) counts[r * kWarps + warp] = __popc(ballots[r]);
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int v[4];
-    int own = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      v[i] = counts[lane * 4 + i];
-      own += v[i];
-    }
-    int incl = own;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int t = __shfl_up_sync(kFull, incl, d);
-      if (lane >= d) incl += t;
-    }
-    int run = incl - own;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      prefix[lane * 4 + i] = run;
-      run += v[i];
-    }
-  }
-  __syncthreads();
+  arrowtpu::rank_tile(keep, n, tile, ranks, ballots);
+  const int* prefix = ranks.prefix;
 
   // 3. each row's destination: a kept row goes to its rank, a dropped row
   //    writes a zero at count + its rank among dropped rows.  loc is the

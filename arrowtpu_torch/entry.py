@@ -1,6 +1,6 @@
-"""The flagship step: fused predicate -> filter -> grouped aggregation.
+"""The driver entry points: the flagship step and the distributed step.
 
-Counterpart of `__graft_entry__.entry()`:
+`step` is the counterpart of `__graft_entry__.entry()`:
 
     mask     = (a > b) AND (c % 7 == 0)       Kleene nulls (BASELINE config 2)
     filtered = filter_record_batch(batch, mask)               (config 1)
@@ -11,19 +11,28 @@ package's seed order (a, b, c, k, v), so with `null_density=0` the values
 equal `__graft_entry__._example_batch`; the null masks are drawn after the
 values (`null_density` on a, b and v, half of it on c, as BASELINE's
 configs 2 and 4 use).  `key_card` is the number of distinct keys.
+
+`join_step` is one rank's part of `__graft_entry__.dryrun_multichip`'s
+step (config 5): hash-partition exchange of both sides, hash join, and a
+two-phase group-by.  `example_join_shards` draws a rank's shards as the
+dryrun does, `join_oracle` / `check_join_output` hold the step's output to
+a host oracle, and `dryrun_multichip(n)` runs the dryrun on n ranks.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
 from . import ops
 from .config import resolve_device
 from .core import batch as bt
-from .interop.numpy_bridge import batch_from_numpy
+from .interop.numpy_bridge import (batch_from_numpy, column_from_numpy,
+                                   column_to_numpy)
 from .ops import groupby as gb
+from .parallel.distributed import distributed_group_by, distributed_hash_join
+from .parallel.mesh import Group, run
 
 Arrays = Dict[str, Tuple[np.ndarray, Optional[np.ndarray]]]
 
@@ -62,3 +71,137 @@ def entry(device=None):
     """-> (step, (batch,)): the flagship step and its 4096-row example
     batch, on the card unless `device` says otherwise."""
     return step, (example_batch(device=resolve_device(device)),)
+
+
+# ---------------------------------------------------------------------------
+# the distributed step: exchange -> hash join -> two-phase group-by
+# ---------------------------------------------------------------------------
+
+
+def join_step(left: bt.RecordBatch, right: bt.RecordBatch,
+              group: Group) -> bt.RecordBatch:
+    """One rank's part of `__graft_entry__.dryrun_multichip`'s step (BASELINE
+    config 5): both sides hash-partitioned on k and joined, then sum and
+    count of rv by k in two phases."""
+    joined, _ = distributed_hash_join(left, right, ["k"], group=group)
+    return distributed_group_by(joined, ["k"], [("rv", "sum"),
+                                                ("rv", "count")],
+                                group=group)
+
+
+def example_join_shards(rank: int, world_size: int, probe_rows: int = 256,
+                        build_rows: int = 32, seed: int = 0, *,
+                        key_range: int = 200, key_nulls: float = 0.0,
+                        rv_nulls: float = 0.0, permute_build: bool = False
+                        ) -> Tuple[Arrays, Arrays]:
+    """Rank `rank`'s probe shard {k, v} and build shard {k, rv}, drawn
+    with numpy as `__graft_entry__.dryrun_multichip` draws them (the
+    defaults are its shapes, and with seed 0 its values): probe keys
+    uniform in [0, key_range), v in [-50, 50); build keys unique across
+    ranks, rank r holding [r * build_rows, (r + 1) * build_rows) (or, with
+    `permute_build`, its slice of one seeded permutation of all build
+    keys), rv in [0, 10**6).  Null masks, when asked for, are drawn after
+    the values: `key_nulls` on the probe key, `rv_nulls` on rv."""
+    r = np.random.default_rng(seed + rank)
+    k = r.integers(0, key_range, probe_rows)
+    v = r.integers(-50, 50, probe_rows)
+    k_ok = r.random(probe_rows) >= key_nulls if key_nulls else None
+    rb = np.random.default_rng(seed + 1000 + rank)
+    rv = rb.integers(0, 10**6, build_rows)
+    rv_ok = rb.random(build_rows) >= rv_nulls if rv_nulls else None
+    lo, hi = rank * build_rows, (rank + 1) * build_rows
+    if permute_build:
+        ks = np.random.default_rng(seed + 2000).permutation(
+            world_size * build_rows)[lo:hi]
+    else:
+        ks = np.arange(lo, hi, dtype=np.int64)
+    return ({"k": (k, k_ok), "v": (v, None)}, {"k": (ks, None),
+                                               "rv": (rv, rv_ok)})
+
+
+def join_oracle(shards) -> Dict[str, np.ndarray]:
+    """The step's answer from every rank's (probe, build) arrays, on the
+    host: for each key on both sides (build keys unique), count = the
+    probe rows of k with a valid key, times whether rv[k] is valid; sum =
+    count * rv[k], null where count is 0.  -> {k, sum, sum_valid, count},
+    ascending by k."""
+    pk = np.concatenate([k if ok is None else k[ok]
+                         for (k, ok) in (l["k"] for l, _ in shards)])
+    bk = np.concatenate([r["k"][0] for _, r in shards])
+    rv = np.concatenate([r["rv"][0] for _, r in shards])
+    rv_ok = np.concatenate([np.ones(len(r["rv"][0]), bool)
+                            if r["rv"][1] is None else r["rv"][1]
+                            for _, r in shards])
+    size = int(max(pk.max(initial=-1), bk.max(initial=-1))) + 1
+    if (bk < 0).any() or (pk < 0).any() or np.bincount(
+            bk, minlength=1).max() > 1:
+        raise ValueError("the oracle takes unique, non-negative build keys "
+                         "and non-negative probe keys")
+    probe_count = np.bincount(pk, minlength=size)
+    by_key = np.zeros(size, np.int64)
+    by_key[bk] = rv
+    ok_by_key = np.zeros(size, bool)
+    ok_by_key[bk] = rv_ok
+    on_build = np.zeros(size, bool)
+    on_build[bk] = True
+    keys = np.nonzero(on_build & (probe_count > 0))[0]
+    count = probe_count[keys] * ok_by_key[keys]
+    return {"k": keys, "sum": count * by_key[keys], "sum_valid": count > 0,
+            "count": count}
+
+
+def check_join_output(outputs: Sequence[bt.RecordBatch], want) -> int:
+    """Raise AssertionError unless the per-rank outputs of `join_step`
+    together equal `join_oracle`'s answer, every key on one rank only.
+    -> the number of groups."""
+    names = ["k", "sum_rv", "count_rv"]
+    parts = {n: [column_to_numpy(out[n]) for out in outputs] for n in names}
+    for out in outputs:
+        if out.schema.names != names:
+            raise AssertionError(f"output columns {out.schema.names}")
+    k = np.concatenate([v for v, _, _ in parts["k"]])
+    if len(np.unique(k)) != len(k):
+        raise AssertionError("a key was produced by two ranks")
+    order = np.argsort(k, kind="stable")
+    got = {n: (np.concatenate([v for v, _, _ in parts[n]])[order],
+               np.concatenate([ok for _, ok, _ in parts[n]])[order])
+           for n in names}
+    if not np.array_equal(got["k"][0], want["k"]):
+        extra = np.setdiff1d(got["k"][0], want["k"])[:5]
+        missing = np.setdiff1d(want["k"], got["k"][0])[:5]
+        raise AssertionError(f"group keys differ: extra={extra.tolist()} "
+                             f"missing={missing.tolist()}")
+    if not (got["k"][1].all() and got["count_rv"][1].all()):
+        raise AssertionError("a key or a count is null")
+    if not np.array_equal(got["count_rv"][0], want["count"]):
+        raise AssertionError("counts differ from the oracle")
+    if not np.array_equal(got["sum_rv"][1], want["sum_valid"]):
+        raise AssertionError("sum validity differs from the oracle")
+    ok = want["sum_valid"]
+    if not np.array_equal(got["sum_rv"][0][ok], want["sum"][ok]):
+        raise AssertionError("sums differ from the oracle")
+    return len(k)
+
+
+def _dryrun_rank(group: Group, world_size: int):
+    """One rank of `dryrun_multichip`: its shards, the step, the result
+    as host arrays."""
+    left, right = example_join_shards(group.rank, world_size)
+    out = join_step(batch_from_numpy(left, device=group.device),
+                    batch_from_numpy(right, device=group.device), group)
+    return bt.RecordBatch(out.schema, tuple(
+        column_from_numpy(*column_to_numpy(c), dtype=c.dtype, device="cpu")
+        for c in out.columns))
+
+
+def dryrun_multichip(n: int, device=None) -> int:
+    """`__graft_entry__.dryrun_multichip(n)` on n ranks (one per card, or
+    gloo processes with device="cpu"): the dryrun's tiny shards, the full
+    distributed step, the result held exactly against its host oracle.
+    -> the number of groups."""
+    outputs = run(_dryrun_rank, n, resolve_device(device), n)
+    want = join_oracle([example_join_shards(r, n) for r in range(n)])
+    groups = check_join_output(outputs, want)
+    print(f"dryrun_multichip({n}): ok, {groups} groups, values exact vs "
+          "host oracle")
+    return groups

@@ -1,13 +1,14 @@
 """Build, load and call the CUDA kernels of `csrc/`.
 
-`nvcc` compiles `csrc/compact.cu` into a shared library with a plain C
-interface under `arrowtpu_torch/_build/` (named by a hash of the source and
-flags, so an edited source rebuilds), and `ctypes` loads it.  Nothing here
-runs at import: the package imports on a machine with no CUDA toolkit, and
-only a launch on a CUDA tensor builds, and raises if the build fails.  The
-second half holds what the two compaction wrappers share: operand checks,
-output allocation, and the calls into the library on PyTorch's current
-stream, each checked for a CUDA error.
+`nvcc` compiles every `csrc/*.cu` source (one nvcc process each, all
+started together) and links them into one shared library with a plain C
+interface under `arrowtpu_torch/_build/`, named by a hash of every source,
+header and flag, so an edited file rebuilds; `ctypes` loads it.  Nothing
+here runs at import: the package imports on a machine with no CUDA
+toolkit, and only a launch on a CUDA tensor builds, and raises if the
+build fails.  The second half holds what the compaction wrappers share:
+operand checks, output allocation, and the calls into the library on
+PyTorch's current stream, each checked for a CUDA error.
 """
 
 from __future__ import annotations
@@ -24,10 +25,10 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "compact.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 
 def _nvcc() -> str:
@@ -45,21 +46,44 @@ def build(verbose: bool = False) -> tuple[Path, float, str]:
     """Compile the library if it is not built yet.  Returns (path, seconds
     spent compiling, compiler output); `verbose` adds `-Xptxas -v`, which
     reports each kernel's registers and spills."""
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    tag = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        tag.update(f.name.encode() + f.read_bytes())
     lib = BUILD_DIR / f"libcompact_{tag.hexdigest()[:16]}.so"
-    flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
     if lib.exists():
         return lib, 0.0, ""
+    flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    stem = f"{lib.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{stem}.{src.stem}.o"
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [_nvcc(), *flags, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src.name}:\n{out}")
+    tmp = BUILD_DIR / f"{stem}.tmp"
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        link = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+             *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link:\n{link.stderr}")
+        os.replace(tmp, lib)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, time.perf_counter() - t0, proc.stdout + proc.stderr
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return lib, time.perf_counter() - t0, "".join(log)
 
 
 @functools.cache
@@ -79,6 +103,9 @@ def library() -> ctypes.CDLL:
         i32, vp, i64, vp, i32, ctypes.POINTER(vp), ctypes.POINTER(vp), i64,
         vp]
     lib.arrowtpu_compact_scatter.restype = i32
+    lib.arrowtpu_compact2.argtypes = [vp, i64, i32, ctypes.POINTER(vp),
+                                      ctypes.POINTER(vp), vp, vp]
+    lib.arrowtpu_compact2.restype = i32
     if (lib.arrowtpu_compact_tile_rows(), lib.arrowtpu_compact_max_planes()) \
             != (TILE_ROWS, MAX_PLANES):
         raise RuntimeError(f"{path.name}: tile or plane limit differs from "
@@ -94,11 +121,11 @@ def _check(code: int, what: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the compaction kernels' C entry points (csrc/compact.cu)
+# the compaction kernels' C entry points (csrc/compact.cu, compact2.cu)
 # ---------------------------------------------------------------------------
 
-TILE_ROWS = 4096   # rows per block of both kernels (kTile in compact.cu)
-MAX_PLANES = 16    # planes per scatter launch (kMaxPlanes)
+TILE_ROWS = 4096   # rows per block of every kernel (kTile, tile_rank.cuh)
+MAX_PLANES = 16    # planes per launch (kMaxPlanes)
 
 
 def check_operands(planes, keep: torch.Tensor, word_bytes) -> list:
@@ -202,6 +229,33 @@ def scatter_cuda(plist, outs, keep: torch.Tensor, offs: torch.Tensor) -> None:
             plist[0].dtype.itemsize, keep.data_ptr(), keep.shape[0],
             offs.data_ptr(), P, ins, dsts, out_rows, _stream(keep)),
             "compact_scatter_kernel")
+
+
+def compact2_scratch(keep: torch.Tensor) -> torch.Tensor:
+    """Device scratch of one compact2_kernel launch: a status word per tile
+    and the tile counter (zeroed by the C entry point on every launch)."""
+    tiles = -(-keep.shape[0] // TILE_ROWS)
+    return torch.empty(tiles + 1, dtype=torch.int64, device=keep.device)
+
+
+def compact2_cuda(plist, outs, keep: torch.Tensor,
+                  scratch: torch.Tensor) -> None:
+    """One compact2_kernel launch (csrc/compact2.cu): up to MAX_PLANES (n,)
+    4-byte planes into (n,) outputs, written in full, zero tail included."""
+    P = len(plist)
+    if not 1 <= P <= MAX_PLANES or len(outs) != P:
+        raise ValueError(f"{P} planes for {len(outs)} outputs")
+    if any(o.shape[0] != keep.shape[0] for o in outs):
+        raise ValueError("compact2 writes outputs of n rows")
+    if scratch.dtype != torch.int64 or scratch.device != keep.device \
+            or scratch.numel() < -(-keep.shape[0] // TILE_ROWS) + 1:
+        raise ValueError("scratch must be compact2_scratch(keep)")
+    ins = (ctypes.c_void_p * P)(*[p.data_ptr() for p in plist])
+    dsts = (ctypes.c_void_p * P)(*[o.data_ptr() for o in outs])
+    with torch.cuda.device(keep.device):
+        _check(library().arrowtpu_compact2(
+            keep.data_ptr(), keep.shape[0], P, ins, dsts, scratch.data_ptr(),
+            _stream(keep)), "compact2_kernel")
 
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:

@@ -4,7 +4,10 @@ from .boolean import and_kleene
 from .cmp import eq, gt
 from .filter import apply_plan, build_plan, filter_, filter_record_batch
 from .groupby import group_by
+from .join import hash_join
 from .numeric import rem
+from .take import take, take_record_batch
 
 __all__ = ["and_kleene", "eq", "gt", "apply_plan", "build_plan", "filter_",
-           "filter_record_batch", "group_by", "rem"]
+           "filter_record_batch", "group_by", "hash_join", "rem", "take",
+           "take_record_batch"]

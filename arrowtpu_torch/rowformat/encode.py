@@ -47,3 +47,36 @@ def encode_columns(columns: Sequence[col.Column],
     for c, o in zip(columns, options):
         planes.extend(encode_column(c, o))
     return planes
+
+
+_U32 = 0xFFFFFFFF
+
+
+def hash_planes_of(columns: Sequence[col.Column]) -> List[torch.Tensor]:
+    """The JAX package's u32 key planes of `columns` (ascending, nulls
+    first), as int64 tensors holding values in [0, 2**32): what
+    rowformat/hashing.py hashes, so that a key hashes as it does there.
+
+    Per column: the sentinel plane (1 valid, 0 null), then for int64
+    `hi ^ 0x80000000, lo`, for a narrower signed int `value - min`, for
+    uint8 and bool the value; null rows zero their value planes."""
+    planes: List[torch.Tensor] = []
+    for c in columns:
+        if isinstance(c, col.BooleanColumn):
+            values = [c.values_bool().to(torch.int64)]
+        elif (isinstance(c, col.PrimitiveColumn)
+              and isinstance(c.dtype, st.Int)):
+            v = c.values.to(torch.int64)
+            if c.dtype.bits == 64:
+                values = [((v >> 32) & _U32) ^ 0x80000000, v & _U32]
+            elif c.dtype.signed:
+                values = [v - torch.iinfo(c.values.dtype).min]
+            else:
+                values = [v]
+        else:
+            raise st.ComputeError(
+                f"hash: unsupported key {type(c).__name__} {c.dtype}")
+        valid = c.valid_bool().to(torch.int64)
+        planes.append(valid)
+        planes.extend(p * valid for p in values)
+    return planes

@@ -61,10 +61,13 @@ def _packed_words(planes, live) -> List[torch.Tensor]:
 
 
 def sort_permutation(planes: Sequence[torch.Tensor], capacity: int,
-                     length: int) -> torch.Tensor:
-    """(capacity,) int64 permutation: live rows (rows < length) first, then
-    `planes` (at least one) ascending, ties by row index."""
-    live = bm.row_mask_bool(capacity, length, planes[0].device)
+                     length: int, live: torch.Tensor = None) -> torch.Tensor:
+    """(capacity,) int64 permutation: live rows first, then `planes` (at
+    least one) ascending, ties by row index.  Live rows are the rows below
+    `length`, or where the (capacity,) bool `live` is set (the rows
+    outside it sort last, in row order, and set no plane's range)."""
+    if live is None:
+        live = bm.row_mask_bool(capacity, length, planes[0].device)
     perm = None
     for w in reversed(_packed_words(list(planes), live)):
         if perm is None:

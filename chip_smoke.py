@@ -25,9 +25,31 @@ Phases (each raises on failure; the exit code is then non-zero):
      computes the same function.  Kernel, plain and library times are the
      device time of the kernels each call launches (CUPTI, through
      torch.profiler, mean of 30 calls); their CUDA-event medians, which
-     include the host's work, are printed beside them.
+     include the host's work, are printed beside them;
+  5. K3 (kernels/compact2.py, single pass) against its plain version and
+     against K1 (the same function), bit-exact with the zero tail, at P in
+     {1, 2, 4, 8, 16}, the five densities and both n, each case on two
+     masks in a row (the second launch must find its look-back state
+     reset);
+  6. the distributed join step (arrowtpu_torch.entry.join_step: exchange
+     -> hash join -> two-phase group-by, BASELINE config 5) at one card's
+     share of config 5's published scale, 1B x 100M rows over 16 chips:
+     62,500,000 probe rows x 6,250,000 build rows, world size 1 over NCCL
+     (the only cut: 16 chips -> 1 card).  Held exactly against a numpy
+     oracle, with the launch counts set to 0 just before and read just
+     after (K1 must have run); then its time (CUDA events, median), its
+     stages, its probing rounds, its peak memory and a torch.profiler busy
+     share;
+  7. K3's own path, its entry point compact_planes, at the shape the JAX
+     filter gave it: the flagship batch's five int64 columns as 10 u32
+     planes x 8,000,000 rows under the flagship mask, counted, then timed
+     beside its bound, its plain version, the library call and K1, and
+     again at 50 % and 96 % kept;
+  8. `dryrun_multichip(1)`: the dryrun's own tiny shapes on the card.
 
-The line before the last lists the kernels as JSON; the last line is
+The line before the last lists the kernels as JSON (`launches` from the
+flagship step for K1 and K2 and from K3's entry point for K3; every
+path's counts under `launches_by_path`); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
 with an error and prints no result.
 """
@@ -45,6 +67,13 @@ N_MAIN = 8_000_000
 CARDINALITIES = (64, 1_000_000)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 REPS = 30
+# config 5 (1B probe x 100M build rows over 16 chips), one chip's share;
+# probe keys over 1.25x the build keys, so about one probe row in five
+# misses
+PROBE_ROWS = 62_500_000
+BUILD_ROWS = 6_250_000
+PROBE_KEY_RANGE = 7_812_500
+JOIN_REPS = 10
 
 
 def log(*args):
@@ -245,6 +274,103 @@ def time_kernel(name, wrapper, plain, library, planes, keep, out_rows):
     return row
 
 
+def check_k3(k1, k3, dev) -> None:
+    """Phase 5: K3 against its plain version and K1, two masks in a row."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    info = torch.iinfo(torch.int32)
+    for n in (65_536, N_MAIN):
+        for P in (1, 2, 4, 8, 16):
+            planes = torch.randint(info.min, info.max, (P, n),
+                                   dtype=torch.int32, device=dev, generator=g)
+            for density in (0.0, 0.02, 0.5, 0.96, 1.0):
+                masks = [torch.rand(n, device=dev, generator=g) < density
+                         for _ in range(2)]
+                got = [k3.compact_planes(planes, keep) for keep in masks]
+                for i, (out, keep) in enumerate(zip(got, masks)):
+                    want = k3.compact_planes_plain(planes, keep)
+                    torch.cuda.synchronize()
+                    where = f"K3 P={P} n={n} density={density} call {i + 1}"
+                    if not torch.equal(out, want):
+                        raise AssertionError(f"{where}: differs from plain")
+                    if not torch.equal(out, k1.compact_planes(planes, keep)):
+                        raise AssertionError(f"{where}: differs from K1")
+                    if out[:, int(keep.sum()):].any():
+                        raise AssertionError(f"{where}: tail not zero")
+        log(f"K3: bit-exact against plain and K1 at n={n} (5 P x 5 "
+            "densities, two masks in a row each)")
+
+
+def join_phase(pe, k1, k2, k3, dev):
+    """Phase 6: the join step at one card's share of config 5.
+    -> the launch counts of its run."""
+    from arrowtpu_torch.interop.numpy_bridge import batch_from_numpy
+    from arrowtpu_torch.ops import join as jn
+    from arrowtpu_torch.parallel import distributed as pd
+    from arrowtpu_torch.parallel import mesh, shuffle
+
+    t0 = time.perf_counter()
+    shards = pe.example_join_shards(
+        0, 1, PROBE_ROWS, BUILD_ROWS, key_range=PROBE_KEY_RANGE,
+        key_nulls=0.05, rv_nulls=0.1, permute_build=True)
+    want = pe.join_oracle([shards])
+    left, right = (batch_from_numpy(a, device=dev) for a in shards)
+    torch.cuda.synchronize()
+    log(f"join: data and oracle in {time.perf_counter() - t0:.1f} s; "
+        f"{PROBE_ROWS} probe x {BUILD_ROWS} build rows, world size 1, "
+        "cut: 16 chips -> 1 card")
+    with mesh.process_group(0, 1, dev, mesh.free_port()) as group:
+        k1.launches = k2.launches = k3.launches = 0
+        out = pe.join_step(left, right, group)
+        torch.cuda.synchronize()
+        launches = {"K1": k1.launches, "K2": k2.launches, "K3": k3.launches}
+        if launches["K1"] <= 0:
+            raise AssertionError("K1 was not launched by the join step")
+        groups = pe.check_join_output([out], want)
+        log(f"join: {groups} groups exact against the numpy oracle; "
+            f"launches {launches}")
+
+        step_ms = median_ms(lambda: pe.join_step(left, right, group),
+                            reps=JOIN_REPS, warmup=1)
+        r_ex = shuffle.exchange(right, ["k"], group)
+        l_ex = shuffle.exchange(left, ["k"], group)
+        table = jn.build_table([r_ex["k"]])
+        match, probe_rounds = jn.probe_table(table, [l_ex["k"]])
+        joined, _ = jn.join_matches(l_ex, r_ex, ["k"], table, match)
+        aggs = [("rv", "sum"), ("rv", "count")]
+
+        def stage(fn):
+            return median_ms(fn, reps=JOIN_REPS, warmup=1)
+
+        def exchange_both():
+            shuffle.exchange(right, ["k"], group)
+            shuffle.exchange(left, ["k"], group)
+
+        stages = {
+            "exchange_ms": stage(exchange_both),
+            "build_ms": stage(lambda: jn.build_table([r_ex["k"]])),
+            "probe_ms": stage(lambda: jn.probe_table(table, [l_ex["k"]])),
+            "expand_take_ms": stage(lambda: jn.join_matches(
+                l_ex, r_ex, ["k"], table, match)),
+            "group_by_ms": stage(lambda: pd.distributed_group_by(
+                joined, ["k"], aggs, group=group)),
+        }
+        counts = {"probe_rows": l_ex.length, "build_rows": r_ex.length,
+                  "join_rows": joined.length, "groups": groups,
+                  "build_rounds": table.rounds,
+                  "probe_rounds": probe_rounds}
+        del r_ex, l_ex, table, match, joined
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        pe.join_step(left, right, group)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"join timing: step {step_ms:.3f} ms (median of {JOIN_REPS}); "
+            f"stages {stages}; {counts}; peak {peak / 2**30:.2f} GiB "
+            f"({base / 2**30:.2f} GiB held before the step)")
+        log(f"join profile: "
+            f"{profile(lambda: pe.join_step(left, right, group), reps=3)}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -254,6 +380,7 @@ def main() -> int:
     from arrowtpu_torch.core import bitmap as bm
     from arrowtpu_torch.kernels import _build
     from arrowtpu_torch.kernels import compact as k2
+    from arrowtpu_torch.kernels import compact2 as k3
     from arrowtpu_torch.kernels import compact3 as k1
     from arrowtpu_torch.ops import groupby as gb
 
@@ -370,22 +497,90 @@ def main() -> int:
             f"{c} keys {median_ms(lambda: pe.step(b)):.3f} ms"
             for c, (b, _) in main_runs.items()))
 
-    source = "arrowtpu_torch/csrc/compact.cu"
+    # phase 5
+    t0 = time.perf_counter()
+    check_k3(k1, k3, dev)
+    log(f"phase 5 (K3 vs plain and K1): {time.perf_counter() - t0:.1f} s")
+
+    # phase 6
+    t0 = time.perf_counter()
+    join_launches = join_phase(pe, k1, k2, k3, dev)
+    log(f"phase 6 (join step): {time.perf_counter() - t0:.1f} s")
+
+    # phase 7: K3's entry point on the flagship batch's int64 columns as
+    # u32 planes (lo, hi of each) under the flagship mask
+    batch = main_runs[CARDINALITIES[0]][0]
+    keep = ops.build_plan(ops.and_kleene(
+        ops.gt(batch["a"], batch["b"]),
+        ops.eq(ops.rem(batch["c"], 7), 0))).keep
+    s10 = torch.cat([batch[c].values.view(torch.int32).view(-1, 2).t()
+                     for c in ("a", "b", "c", "k", "v")]).contiguous()
+    k1.launches = k2.launches = k3.launches = 0
+    k3.compact_planes(s10, keep)
+    torch.cuda.synchronize()
+    k3_launches = {"K1": k1.launches, "K2": k2.launches, "K3": k3.launches}
+    if k3_launches["K3"] <= 0:
+        raise AssertionError("K3 was not launched by its entry point")
+    log(f"K3 path (compact2.compact_planes, {tuple(s10.shape)} u32): "
+        f"launches {k3_launches}")
+    count = int(keep.sum())
+
+    def k3_library():
+        out = torch.zeros(s10.shape, dtype=s10.dtype, device=dev)
+        out[:, :count] = s10[:, keep]
+        return out
+
+    kernels_rows["K3"] = time_kernel(
+        "K3 flagship mask", lambda: k3.compact_planes(s10, keep),
+        lambda: k3.compact_planes_plain(s10, keep), k3_library, s10, keep,
+        N_MAIN)
+    err = int((k3.compact_planes(s10, keep).to(torch.int64)
+               - k3.compact_planes_plain(s10, keep).to(torch.int64)
+               ).abs().max())
+    if err:
+        raise AssertionError("K3: differs at the main shape")
+    kernels_rows["K3"]["max_abs_err"] = float(err)
+    log(f"  K1 on the same call: device "
+        f"{device_ms(lambda: k1.compact_planes(s10, keep)):.4f} ms")
+    g = torch.Generator(device=dev).manual_seed(3)
+    for density in (0.5, 0.96):
+        dense = torch.rand(N_MAIN, device=dev, generator=g) < density
+        kept = int(dense.sum())
+        bound = bytes_bound_ms(N_MAIN + 4 * len(s10) * (kept + N_MAIN))
+        log(f"  K3 at {density:.0%} kept: device "
+            f"{device_ms(lambda: k3.compact_planes(s10, dense)):.4f} ms, "
+            f"K1 {device_ms(lambda: k1.compact_planes(s10, dense)):.4f} "
+            f"ms, bound {bound:.4f} ms")
+
+    # phase 8
+    pe.dryrun_multichip(1)
+
+    source = {"K1": "arrowtpu_torch/csrc/compact.cu",
+              "K2": "arrowtpu_torch/csrc/compact.cu",
+              "K3": "arrowtpu_torch/csrc/compact2.cu"}
     replaces = {"K1": "arrowtpu/pallas/compact3.py:126",
-                "K2": "arrowtpu/pallas/compact.py:158"}
+                "K2": "arrowtpu/pallas/compact.py:158",
+                "K3": "arrowtpu/pallas/compact2.py:93"}
     names = {"K1": "compact3 (compact_scatter_kernel, u32/u64)",
-             "K2": "compact (compact_scatter_kernel, u8/u32)"}
-    launches = main_runs[CARDINALITIES[0]][1]
+             "K2": "compact (compact_scatter_kernel, u8/u32)",
+             "K3": "compact2 (compact2_kernel, u32, single pass)"}
+    flagship = main_runs[CARDINALITIES[0]][1]
+    launches = {"K1": flagship["K1"], "K2": flagship["K2"],
+                "K3": k3_launches["K3"]}
+    by_path = {"flagship step": flagship, "join step": join_launches,
+               "compact2.compact_planes": k3_launches}
     kernels = []
-    for key in ("K1", "K2"):
+    for key in ("K1", "K2", "K3"):
         row = kernels_rows[key]
         kernels.append({
-            "name": names[key], "route": "cuda", "source": source,
+            "name": names[key], "route": "cuda", "source": source[key],
             "replaces": replaces[key], "launches": launches[key],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "ms_events": row["ms_events"], "shape": row["shape"]})
+            "ms_events": row["ms_events"], "shape": row["shape"],
+            "launches_by_path": {p: c.get(key, 0)
+                                 for p, c in by_path.items()}})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, and the port's paths on
+the card against the CPU or a numpy oracle.
 
 Marked `cuda`; each test skips where there is no CUDA device.  This file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -8,12 +9,19 @@ imports no JAX, so it runs on a machine that has only PyTorch:
 Tolerance: bit-exact (count and zero tail included).
 """
 
+import numpy as np
 import pytest
 import torch
 
-from arrowtpu_torch.entry import example_batch, step
+from arrowtpu_torch.entry import (check_join_output, dryrun_multichip,
+                                  example_batch, example_join_shards,
+                                  join_oracle, join_step, step)
+from arrowtpu_torch.interop.numpy_bridge import batch_from_numpy
 from arrowtpu_torch.kernels import compact as k2
+from arrowtpu_torch.kernels import compact2 as k3
 from arrowtpu_torch.kernels import compact3 as k1
+from arrowtpu_torch.ops.join import hash_join
+from arrowtpu_torch.parallel import mesh
 
 pytestmark = pytest.mark.cuda
 
@@ -98,3 +106,59 @@ def test_step_on_card_matches_cpu(cuda):
     got = step(example_batch(50_000, 3, 0.1, 5000, device=cuda)).to_pydict()
     want = step(example_batch(50_000, 3, 0.1, 5000, device="cpu")).to_pydict()
     assert got == want
+
+
+@pytest.mark.parametrize("n", [1, 4095, 65536, 1_000_003])
+@pytest.mark.parametrize("P", [1, 16, 17])
+def test_k3_matches_plain_and_k1_twice(cuda, P, n):
+    """K3 against its plain version and against K1 (the same function), two
+    masks in a row: the second launch finds its status words and tile
+    counter reset."""
+    planes = _planes(P, n, torch.int32, cuda, n + P)
+    for density in DENSITIES:
+        masks = [_keep(n, density, cuda, n + i) for i in range(2)]
+        k3.launches = 0
+        got = [k3.compact_planes(planes, keep) for keep in masks]
+        assert k3.launches == 2 * -(-P // 16)
+        for g, keep in zip(got, masks):
+            want = k3.compact_planes_plain(planes, keep)
+            assert torch.equal(g, want)
+            assert torch.equal(g, k1.compact_planes(planes, keep))
+            assert not g[:, int(keep.sum()):].any()
+
+
+def test_hash_join_on_card_matches_cpu(cuda):
+    """N:M join with null keys: the card's rounds and gathers give the CPU's
+    answer (which the CPU tests hold against the JAX package)."""
+    rng = np.random.default_rng(5)
+    arrays = ({"k": (rng.integers(0, 50_000, 200_000),
+                     rng.random(200_000) > 0.05),
+               "v": (rng.integers(-50, 50, 200_000), None)},
+              {"k": (rng.integers(0, 40_000, 60_000),
+                     rng.random(60_000) > 0.05),
+               "rv": (rng.integers(0, 10**6, 60_000),
+                      rng.random(60_000) > 0.1)})
+    for how in ("inner", "left", "semi", "anti"):
+        outs = []
+        for device in (cuda, "cpu"):
+            left, right = (batch_from_numpy(a, device=device) for a in arrays)
+            out, info = hash_join(left, right, ["k"], how=how)
+            outs.append((out.to_pydict(), bool(info.duplicates)))
+        assert outs[0] == outs[1], how
+
+
+def test_join_step_on_card_against_oracle(cuda):
+    """The distributed step at world size 1 over NCCL, 3M x 300k rows."""
+    shards = example_join_shards(0, 1, 3_000_000, 300_000, key_range=375_000,
+                                 key_nulls=0.05, rv_nulls=0.1,
+                                 permute_build=True)
+    left, right = (batch_from_numpy(a, device=cuda) for a in shards)
+    with mesh.process_group(0, 1, cuda, mesh.free_port()) as group:
+        k1.launches = 0
+        out = join_step(left, right, group)
+        assert k1.launches > 0
+    assert check_join_output([out], join_oracle([shards])) > 0
+
+
+def test_dryrun_multichip_on_one_card(cuda):
+    assert dryrun_multichip(1) > 0

@@ -14,21 +14,27 @@ import importlib, pkgutil, sys
 import arrowtpu_torch
 for m in pkgutil.walk_packages(arrowtpu_torch.__path__, "arrowtpu_torch."):
     importlib.import_module(m.name)
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "arrowtpu"))
-assert not bad, bad
+for name in ("kernels.compact2", "ops.join", "ops.take", "rowformat.hashing",
+             "parallel.mesh", "parallel.shuffle", "parallel.distributed"):
+    assert "arrowtpu_torch." + name in sys.modules, name
 import torch
 assert not torch.cuda.is_available()
-from arrowtpu_torch.entry import entry, example_batch
-for call in (entry, example_batch):
+from arrowtpu_torch.entry import dryrun_multichip, entry, example_batch
+from arrowtpu_torch.parallel import run
+for call in (entry, example_batch, lambda: dryrun_multichip(1),
+             lambda: run(print, 1)):
     try:
         call()
     except RuntimeError as e:
         assert "CUDA" in str(e), e
     else:
-        raise AssertionError(f"{call.__name__}() ran without a CUDA device")
+        raise AssertionError(f"{call} ran without a CUDA device")
 step, (batch,) = entry(device="cpu")
 assert step(batch).length > 0
+assert dryrun_multichip(1, device="cpu") > 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "arrowtpu"))
+assert not bad, bad
 print("ok")
 """
 
