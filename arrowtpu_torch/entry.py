@@ -17,11 +17,12 @@ step (config 5): hash-partition exchange of both sides, hash join, and a
 two-phase group-by.  `example_join_shards` draws a rank's shards as the
 dryrun does, `join_oracle` / `check_join_output` hold the step's output to
 a host oracle, and `dryrun_multichip(n)` runs the dryrun on n ranks.
+`group_by_shards` runs the two-phase group-by alone on n ranks.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -183,15 +184,34 @@ def check_join_output(outputs: Sequence[bt.RecordBatch], want) -> int:
     return len(k)
 
 
+def _to_host(out: bt.RecordBatch) -> bt.RecordBatch:
+    return bt.RecordBatch(out.schema, tuple(
+        column_from_numpy(*column_to_numpy(c), dtype=c.dtype, device="cpu")
+        for c in out.columns))
+
+
 def _dryrun_rank(group: Group, world_size: int):
     """One rank of `dryrun_multichip`: its shards, the step, the result
     as host arrays."""
     left, right = example_join_shards(group.rank, world_size)
-    out = join_step(batch_from_numpy(left, device=group.device),
-                    batch_from_numpy(right, device=group.device), group)
-    return bt.RecordBatch(out.schema, tuple(
-        column_from_numpy(*column_to_numpy(c), dtype=c.dtype, device="cpu")
-        for c in out.columns))
+    return _to_host(join_step(batch_from_numpy(left, device=group.device),
+                              batch_from_numpy(right, device=group.device),
+                              group))
+
+
+def _group_by_rank(group: Group, shards: Sequence[Arrays], keys, aggs):
+    batch = batch_from_numpy(shards[group.rank], device=group.device)
+    return _to_host(distributed_group_by(batch, keys, aggs, group=group))
+
+
+def group_by_shards(shards: Sequence[Arrays], keys: Sequence[str],
+                    aggs: Sequence[Tuple[str, str]], device=None
+                    ) -> List[bt.RecordBatch]:
+    """`distributed_group_by` on len(shards) ranks (one per card, or gloo
+    processes with device="cpu"), rank r holding `shards[r]`; -> each
+    rank's result, on the host."""
+    return run(_group_by_rank, len(shards), resolve_device(device), shards,
+               list(keys), list(aggs))
 
 
 def dryrun_multichip(n: int, device=None) -> int:

@@ -54,36 +54,29 @@ def build(verbose: bool = False) -> tuple[Path, float, str]:
         return lib, 0.0, ""
     flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
     BUILD_DIR.mkdir(exist_ok=True)
-    stem = f"{lib.stem}.{os.getpid()}"
+    srcs = sorted(CSRC.glob("*.cu"))
+    tmp = BUILD_DIR / f"{lib.stem}.{os.getpid()}.tmp"
+    objs = [tmp.with_suffix(f".{src.stem}.o") for src in srcs]
     t0 = time.perf_counter()
-    objs, procs = [], []
-    for src in sorted(CSRC.glob("*.cu")):
-        obj = BUILD_DIR / f"{stem}.{src.stem}.o"
-        objs.append(obj)
-        procs.append((src, subprocess.Popen(
-            [_nvcc(), *flags, "-c", "-o", str(obj), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    log, failed = [], []
-    for src, proc in procs:
-        out, _ = proc.communicate()
-        log.append(out)
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed on {src.name}:\n{out}")
-    tmp = BUILD_DIR / f"{stem}.tmp"
     try:
-        if failed:
-            raise RuntimeError("\n".join(failed))
-        link = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
-             *map(str, objs)], capture_output=True, text=True)
+        procs = [subprocess.Popen([_nvcc(), *flags, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(srcs, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        for src, proc, out in zip(srcs, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc failed to link:\n{link.stderr}")
         os.replace(tmp, lib)
     finally:
-        tmp.unlink(missing_ok=True)
-        for obj in objs:
-            obj.unlink(missing_ok=True)
-    return lib, time.perf_counter() - t0, "".join(log)
+        for f in (tmp, *objs):
+            f.unlink(missing_ok=True)
+    return lib, time.perf_counter() - t0, "".join(logs)
 
 
 @functools.cache

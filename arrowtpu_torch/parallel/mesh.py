@@ -9,7 +9,10 @@ exchange operator (parallel/shuffle.py) is a torch.distributed
   * `Group`: a rank's handle (rank, world size, device).  CPU tensors use
     the gloo backend, the card NCCL, one rank per card (rank r on cuda:r).
   * `process_group`: joins the default process group for the duration of
-    a `with` block, at `tcp://localhost:<port>`.
+    a `with` block.  Several ranks meet at a TCP store on localhost, which
+    `run` hosts on a port the OS picks as it binds it (no port is chosen
+    first and bound later, so no other process can take it in between);
+    one rank needs no port (an in-process store).
   * `run(fn, world_size, device, *args)`: fn(group, *args) on every rank;
     -> the per-rank results, in rank order.  One rank runs in the calling
     process; more are spawned (fresh interpreters, so fn and args go by
@@ -24,10 +27,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import multiprocessing as mp
 import pickle
 import queue
-import socket
 import time
 import traceback
 from typing import Callable, List
@@ -51,12 +54,6 @@ class Group:
     device: torch.device
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _rank_device(device: torch.device, rank: int) -> torch.device:
     if device.type == "cuda":
         return torch.device("cuda", rank)
@@ -64,15 +61,25 @@ def _rank_device(device: torch.device, rank: int) -> torch.device:
 
 
 @contextlib.contextmanager
-def process_group(rank: int, world_size: int, device, port: int):
+def process_group(rank: int, world_size: int, device, port: int = None):
     """Join the default process group as `rank` of `world_size`; yields
-    the rank's Group and leaves the group on exit."""
+    the rank's Group and leaves the group on exit.  `port` is that of the
+    TCP store the ranks meet at (`run` hosts one); a group of one rank
+    takes none."""
     device = _rank_device(torch.device(device), rank)
+    if port is None:
+        if world_size != 1:
+            raise ValueError(f"{world_size} ranks meet at a TCP store: give "
+                             "its port")
+        store = dist.HashStore()
+    else:
+        store = dist.TCPStore("localhost", port, is_master=False,
+                              timeout=datetime.timedelta(
+                                  seconds=RANK_TIMEOUT_S))
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
-                            init_method=f"tcp://localhost:{port}",
-                            world_size=world_size, rank=rank)
+                            store=store, world_size=world_size, rank=rank)
     try:
         yield Group(rank, world_size, device)
     finally:
@@ -97,15 +104,18 @@ def run(fn: Callable, world_size: int, device=None, *args) -> List:
     if device.type == "cuda" and world_size > torch.cuda.device_count():
         raise RuntimeError(f"{world_size} ranks need {world_size} CUDA "
                            f"devices; {torch.cuda.device_count()} found")
-    port = free_port()
     if world_size == 1:
-        with process_group(0, 1, device, port) as group:
+        with process_group(0, 1, device) as group:
             return [fn(group, *args)]
+    # the ranks' store, on a port the OS picks as the store binds it
+    store = dist.TCPStore("localhost", 0, is_master=True,
+                          wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, world_size, str(device), port, fn, args,
-                               results))
+                         args=(r, world_size, str(device), store.port, fn,
+                               args, results))
              for r in range(world_size)]
     for p in procs:
         p.start()

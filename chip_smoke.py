@@ -15,7 +15,9 @@ Phases (each raises on failure; the exit code is then non-zero):
      8,000,000 rows with BASELINE's null densities (10 % on a, b, v; 5 % on
      c), at 64 and at 1,000,000 keys, held exactly against a numpy oracle;
      each kernel's launch count is set to 0 just before the step and must
-     have risen just after;
+     have risen just after, and every K1 and K2 call of the step is held
+     bit for bit against the kernel's plain version on the same inputs
+     (`held_to_plain`: all of each output, zero tail included);
   4. timing: the step and its three stages at both cardinalities with
      CUDA events (warm-up, then the median of 30 runs; the step again three
      times, the cardinalities in turns, for the spread of the host's
@@ -37,7 +39,10 @@ Phases (each raises on failure; the exit code is then non-zero):
      62,500,000 probe rows x 6,250,000 build rows, world size 1 over NCCL
      (the only cut: 16 chips -> 1 card).  Held exactly against a numpy
      oracle, with the launch counts set to 0 just before and read just
-     after (K1 must have run); then its time (CUDA events, median), its
+     after (K1 must have run) and every K1 and K2 call of the step held
+     against the plain version on its own inputs, as in phase 3 (the
+     group-by's compactions of the joined batch); then its time (CUDA
+     events, median), its
      stages, its probing rounds, its peak memory and a torch.profiler busy
      share;
   7. K3's own path, its entry point compact_planes, at the shape the JAX
@@ -54,6 +59,7 @@ path's counts under `launches_by_path`); the last line is
 with an error and prints no result.
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -202,6 +208,56 @@ def check_kernels(k1, k2, dev) -> None:
 # phase 3: the main path against a numpy oracle
 # ---------------------------------------------------------------------------
 
+# the wrappers a main-path run holds to the plain version at every call:
+# (the module attribute the port calls, the plain version)
+HELD = {"K1": ("compact_planes", "compact_planes_plain"),
+        "K2": ("compact_planes_info", "compact_planes_info_plain")}
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for y in x for t in _tensors(y)]
+
+
+@contextlib.contextmanager
+def held_to_plain(modules):
+    """While active, every call of the wrappers of `modules` ({"K1": ...,
+    "K2": ...}) is computed again by the kernel's plain version on the same
+    inputs and must equal it bit for bit: every output word (the zero tail
+    and the rows past what the caller reads included) and K2's count.  The
+    plain version launches nothing, so the launch counts stay the path's.
+    Yields {kernel: [(P, n, kept, out_rows) of each call]}."""
+    seen = {name: [] for name in modules}
+    saved = []
+
+    def hold(name, mod):
+        wrapper, plain = (getattr(mod, attr) for attr in HELD[name])
+
+        def checked(planes, keep, pre=None, out_rows=None):
+            got = wrapper(planes, keep, pre, out_rows)
+            want = plain(planes, keep, out_rows)
+            a, b = _tensors(got), _tensors(want)
+            shape = (len(planes), keep.shape[0], int(keep.sum()),
+                     a[0].shape[-1])
+            if len(a) != len(b) or not all(
+                    torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"{name} call {shape} on the path "
+                                     "differs from its plain version")
+            seen[name].append(shape)
+            return got
+
+        saved.append((mod, HELD[name][0], wrapper))
+        setattr(mod, HELD[name][0], checked)
+
+    try:
+        for name, mod in modules.items():
+            hold(name, mod)
+        yield seen
+    finally:
+        for mod, attr, wrapper in saved:
+            setattr(mod, attr, wrapper)
+
 
 def oracle(arrays):
     """Kleene mask, filter, then per key sum / count / min of valid v."""
@@ -318,16 +374,19 @@ def join_phase(pe, k1, k2, k3, dev):
     log(f"join: data and oracle in {time.perf_counter() - t0:.1f} s; "
         f"{PROBE_ROWS} probe x {BUILD_ROWS} build rows, world size 1, "
         "cut: 16 chips -> 1 card")
-    with mesh.process_group(0, 1, dev, mesh.free_port()) as group:
-        k1.launches = k2.launches = k3.launches = 0
-        out = pe.join_step(left, right, group)
-        torch.cuda.synchronize()
-        launches = {"K1": k1.launches, "K2": k2.launches, "K3": k3.launches}
-        if launches["K1"] <= 0:
+    with mesh.process_group(0, 1, dev) as group:
+        with held_to_plain({"K1": k1, "K2": k2}) as calls:
+            k1.launches = k2.launches = k3.launches = 0
+            out = pe.join_step(left, right, group)
+            torch.cuda.synchronize()
+            launches = {"K1": k1.launches, "K2": k2.launches,
+                        "K3": k3.launches}
+        if launches["K1"] <= 0 or not calls["K1"]:
             raise AssertionError("K1 was not launched by the join step")
         groups = pe.check_join_output([out], want)
         log(f"join: {groups} groups exact against the numpy oracle; "
-            f"launches {launches}")
+            f"launches {launches}; calls held to plain (P, n, kept, "
+            f"out_rows): {calls}")
 
         step_ms = median_ms(lambda: pe.join_step(left, right, group),
                             reps=JOIN_REPS, warmup=1)
@@ -411,17 +470,19 @@ def main() -> int:
         batch = pe.batch_from_numpy(arrays, device=dev)
         want = oracle(arrays)
         torch.cuda.synchronize()
-        k1.launches = 0
-        k2.launches = 0
-        out = pe.step(batch)
-        torch.cuda.synchronize()
-        launches = {"K1": k1.launches, "K2": k2.launches}
+        with held_to_plain({"K1": k1, "K2": k2}) as calls:
+            k1.launches = 0
+            k2.launches = 0
+            out = pe.step(batch)
+            torch.cuda.synchronize()
+            launches = {"K1": k1.launches, "K2": k2.launches}
         for name, count in launches.items():
-            if count <= 0:
+            if count <= 0 or not calls[name]:
                 raise AssertionError(f"{name} was not launched by the step")
         check_against_oracle(out, want, bm)
         log(f"main path, {card_keys} keys: {out.length} groups exact "
-            f"against the numpy oracle; launches {launches} "
+            f"against the numpy oracle; launches {launches}; calls held "
+            f"to plain (P, n, kept, out_rows): {calls} "
             f"({time.perf_counter() - t0:.1f} s with data generation)")
         main_runs[card_keys] = (batch, launches)
 

@@ -153,7 +153,7 @@ def test_join_step_on_card_against_oracle(cuda):
                                  key_nulls=0.05, rv_nulls=0.1,
                                  permute_build=True)
     left, right = (batch_from_numpy(a, device=cuda) for a in shards)
-    with mesh.process_group(0, 1, cuda, mesh.free_port()) as group:
+    with mesh.process_group(0, 1, cuda) as group:
         k1.launches = 0
         out = join_step(left, right, group)
         assert k1.launches > 0
