@@ -147,6 +147,83 @@ class NullColumn(Column):
         return [None] * self.length
 
 
+@dataclasses.dataclass(frozen=True)
+class StringViewColumn(Column):
+    """Utf8 / Binary in the Arrow view layout, as the JAX package holds it:
+    views[i] = [byte length, first 4 bytes (little-endian), buffer index
+    (always 0: one arena), arena offset]; a string of at most 12 bytes is
+    inline, its bytes 4..12 in the last two words.  The words are the JAX
+    package's u32 bits held as int32.  `len_bound` bounds the byte length."""
+
+    views: torch.Tensor  # (capacity, 4) int32
+    arena: torch.Tensor  # (arena capacity,) uint8
+    validity: Optional[torch.Tensor]
+    length: int
+    dtype: st.DataType  # Utf8 or Binary
+    len_bound: Optional[int] = None
+
+    @property
+    def capacity(self) -> int:
+        return self.views.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.views.device
+
+    def to_pylist(self):
+        n = self.length
+        views = self.views[:n].cpu().numpy()
+        arena = self.arena.cpu().numpy()
+        valid = self._valid_list(n)
+        out = []
+        for i in range(n):
+            if valid is not None and not valid[i]:
+                out.append(None)
+                continue
+            ln = int(views[i, 0])
+            if ln <= 12:
+                raw = views[i, 1:].astype("<u4").tobytes()[:ln]
+            else:
+                off = int(views[i, 3])
+                raw = arena[off:off + ln].tobytes()
+            out.append(raw.decode("utf-8") if isinstance(self.dtype, st.Utf8)
+                       else raw)
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class DictionaryColumn(Column):
+    """Integer keys into a value column; validity and length live on the
+    keys.  `value_ranks` ((values.capacity,) int32, or None) is each
+    value's rank in the values' ascending order, which sorting a dictionary
+    column sorts its keys by."""
+
+    keys: PrimitiveColumn
+    values: Column
+    value_ranks: Optional[torch.Tensor]
+    dtype: st.Dictionary
+
+    @property
+    def capacity(self) -> int:
+        return self.keys.capacity
+
+    @property
+    def device(self) -> torch.device:
+        return self.keys.device
+
+    @property
+    def validity(self):  # type: ignore[override]
+        return self.keys.validity
+
+    @property
+    def length(self):  # type: ignore[override]
+        return self.keys.length
+
+    def to_pylist(self):
+        vals = self.values.to_pylist()
+        return [None if k is None else vals[k] for k in self.keys.to_pylist()]
+
+
 # ---------------------------------------------------------------------------
 # constructors
 # ---------------------------------------------------------------------------
@@ -236,3 +313,67 @@ def boolean(values, validity=None, length=None,
 
 def null_column(n: int, device=None) -> NullColumn:
     return NullColumn(n, round_up(max(n, 1)), resolve_device(device))
+
+
+def string_view(data, dtype: st.DataType = st.utf8,
+                device=None) -> StringViewColumn:
+    """A StringViewColumn from host strings or bytes (None for a null), laid
+    out as the JAX package's `string_view` builds it."""
+    n = len(data)
+    cap = round_up(max(n, 1))
+    views = np.zeros((cap, 4), dtype=np.uint32)
+    valid = np.zeros(cap, dtype=bool)
+    arena = bytearray()
+    for i, s in enumerate(data):
+        if s is None:
+            continue
+        valid[i] = True
+        raw = s.encode("utf-8") if isinstance(s, str) else bytes(s)
+        ln = len(raw)
+        views[i, 0] = ln
+        views[i, 1] = np.frombuffer(raw[:4].ljust(4, b"\0"), dtype="<u4")[0]
+        if ln <= 12:
+            views[i, 2:4] = np.frombuffer(raw[4:12].ljust(8, b"\0"),
+                                          dtype="<u4")
+        else:
+            views[i, 3] = len(arena)
+            arena.extend(raw)
+    arena_np = np.zeros(round_up(max(len(arena), 1)), dtype=np.uint8)
+    arena_np[:len(arena)] = np.frombuffer(bytes(arena), dtype=np.uint8)
+    device = resolve_device(device)
+    validity = (None if valid[:n].all()
+                else bm.from_numpy_bools(valid[:n], cap, device))
+    return StringViewColumn(torch.from_numpy(views.view(np.int32)).to(device),
+                            torch.from_numpy(arena_np).to(device), validity, n,
+                            dtype, int(views[:, 0].max()) if n else 0)
+
+
+def dictionary_encode_host(data, dtype: st.Dictionary = None,
+                           device=None) -> DictionaryColumn:
+    """A DictionaryColumn interning host values (None for a null key) in
+    first-seen order, with each value's rank under Python's ascending order
+    of the values (a stable argsort, as the JAX package computes it)."""
+    if dtype is None:
+        dtype = st.Dictionary(st.int32, st.utf8)
+    interned: dict = {}
+    keys = []
+    for x in data:
+        if x is not None and x not in interned:
+            interned[x] = len(interned)
+        keys.append(0 if x is None else interned[x])
+    values_list = list(interned)
+    valid = np.array([x is not None for x in data], dtype=bool)
+    keys_col = primitive(np.asarray(keys, dtype=np.int64), dtype.key,
+                         validity=None if valid.all() else valid,
+                         device=device)
+    if isinstance(dtype.value, (st.Utf8, st.Binary)):
+        values_col = string_view(values_list, dtype.value, device=device)
+    else:
+        values_col = primitive(np.asarray(values_list), dtype.value,
+                               device=device)
+    order = np.argsort(np.asarray(values_list, dtype=object), kind="stable")
+    ranks = np.zeros(values_col.capacity, dtype=np.int32)
+    ranks[:len(values_list)][order] = np.arange(len(values_list),
+                                                dtype=np.int32)
+    return DictionaryColumn(keys_col, values_col,
+                            torch.from_numpy(ranks).to(keys_col.device), dtype)

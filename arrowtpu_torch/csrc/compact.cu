@@ -39,6 +39,11 @@
 //      are n + P*w*count + P*w*out_rows.
 // None of the TPU machinery carries over: no MXU one-hot row scatter, lane
 // routing rounds, DMA window ladders or VMEM budgets.
+//
+// The scatter kernel is templated on a Stage (tile_rank.cuh) for the stage
+// ablation of the TPU probe scripts/prof_kernel.py (P8): the entry points
+// of K1 and K2 instantiate only kStageFull; arrowtpu_compact_scatter_stage runs
+// the others at 4-byte words.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -90,16 +95,41 @@ tile_counts_kernel(const uint8_t* __restrict__ keep, int64_t n,
   }
 }
 
-template <typename T>
+// kStage: a Stage of tile_rank.cuh other than kLookback (for K1 that is the
+// count pass and the cumsum, separate launches); aux: one int64 a tile for
+// kRank, else unused.  kCopy and kRank write all n rows and read no offs.
+template <typename T, int kStage>
 __global__ void __launch_bounds__(kThreads, 3)
 compact_scatter_kernel(const uint8_t* __restrict__ keep, int64_t n,
                        const int64_t* __restrict__ offs, int num_planes,
                        const __grid_constant__ PlanePtrs<T> planes,
-                       int64_t out_rows) {
+                       int64_t out_rows, int64_t* __restrict__ aux) {
   __shared__ arrowtpu::TileRanks ranks;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t tile = static_cast<int64_t>(blockIdx.x) * kTile;
+
+  if constexpr (kStage < arrowtpu::kStageKept) {
+    if constexpr (kStage == arrowtpu::kStageRank) {
+      unsigned ballots[kRounds];
+      const int aggregate = arrowtpu::rank_tile(keep, n, tile, ranks, ballots);
+      if (threadIdx.x == 0) aux[blockIdx.x] = aggregate;
+    }
+    for (int p = 0; p < num_planes; ++p) {
+      const T* __restrict__ src = planes.in[p] + tile + threadIdx.x;
+      T* __restrict__ out = planes.out[p] + tile + threadIdx.x;
+      T v[kRounds];
+#pragma unroll
+      for (int r = 0; r < kRounds; ++r) {
+        v[r] = tile + r * kThreads + threadIdx.x < n ? src[r * kThreads] : T(0);
+      }
+#pragma unroll
+      for (int r = 0; r < kRounds; ++r) {
+        if (tile + r * kThreads + threadIdx.x < n) out[r * kThreads] = v[r];
+      }
+    }
+    return;
+  }
 
   // 1-2. the tile's kept rows ranked (tile_rank.cuh)
   unsigned ballots[kRounds];
@@ -138,27 +168,30 @@ compact_scatter_kernel(const uint8_t* __restrict__ keep, int64_t n,
     }
 #pragma unroll
     for (int r = 0; r < kRounds; ++r) {
-      if (loc[r] >= 0) {
+      // kKept: the dropped rows' zeros are not stored
+      if (loc[r] >= 0 &&
+          (kStage == arrowtpu::kStageFull || ((kept_bits >> r) & 1u))) {
         out[((kept_bits >> r) & 1u ? kept_base : drop_base) + loc[r]] = v[r];
       }
     }
   }
 }
 
-template <typename T>
+template <typename T, int kStage = arrowtpu::kStageFull>
 int launch_scatter(const void* keep, int64_t n, const void* offs,
                    int num_planes, const void* const* in, void* const* out,
-                   int64_t out_rows, cudaStream_t stream) {
+                   int64_t out_rows, cudaStream_t stream,
+                   void* aux = nullptr) {
   PlanePtrs<T> planes{};
   for (int p = 0; p < num_planes; ++p) {
     planes.in[p] = static_cast<const T*>(in[p]);
     planes.out[p] = static_cast<T*>(out[p]);
   }
   const int64_t blocks = (n + kTile - 1) / kTile;
-  compact_scatter_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                              stream>>>(
+  compact_scatter_kernel<T, kStage><<<static_cast<unsigned>(blocks), kThreads,
+                                      0, stream>>>(
       static_cast<const uint8_t*>(keep), n, static_cast<const int64_t*>(offs),
-      num_planes, planes, out_rows);
+      num_planes, planes, out_rows, static_cast<int64_t*>(aux));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -207,6 +240,35 @@ int arrowtpu_compact_scatter(int word_bytes, const void* keep, int64_t n,
     case 8:
       return launch_scatter<uint64_t>(keep, n, offs, num_planes, in, out,
                                       out_rows, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The stage ablation of the u32 scatter (K1's words at 4 bytes): as
+// arrowtpu_compact_scatter with out_rows = n, for a Stage of tile_rank.cuh
+// other than kLookback; aux: (ceil(n / kTile),) int64 for kRank.  offs is
+// read by kKept and kFull only.
+int arrowtpu_compact_scatter_stage(int stage, const void* keep, int64_t n,
+                                   const void* offs, int num_planes,
+                                   const void* const* in, void* const* out,
+                                   void* aux, void* stream) {
+  if (n <= 0 || num_planes < 1 || num_planes > kMaxPlanes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (stage) {
+    case arrowtpu::kStageCopy:
+      return launch_scatter<uint32_t, arrowtpu::kStageCopy>(
+          keep, n, offs, num_planes, in, out, n, s, aux);
+    case arrowtpu::kStageRank:
+      return launch_scatter<uint32_t, arrowtpu::kStageRank>(
+          keep, n, offs, num_planes, in, out, n, s, aux);
+    case arrowtpu::kStageKept:
+      return launch_scatter<uint32_t, arrowtpu::kStageKept>(
+          keep, n, offs, num_planes, in, out, n, s, aux);
+    case arrowtpu::kStageFull:
+      return launch_scatter<uint32_t, arrowtpu::kStageFull>(
+          keep, n, offs, num_planes, in, out, n, s, aux);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -25,6 +25,11 @@
 // words read + 4*P*n words written, over 3.35 TB/s of HBM3.  The status
 // traffic is 8 bytes a tile.  None of the TPU machinery carries over: no
 // MXU one-hot scatter, no roll rounds, no DMA windows.
+//
+// The kernel is templated on a Stage (tile_rank.cuh) for the stage
+// ablation of the TPU probes (scripts/prof_v3.py:65-78, the Pallas K3's
+// `stages` bitmask): arrowtpu_compact2 instantiates only kStageFull;
+// arrowtpu_compact2_stage runs the others.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -96,16 +101,50 @@ __device__ __forceinline__ int64_t look_back(Status* status, int64_t t,
   return exclusive;
 }
 
+// The planes of tile t copied straight through (stages kCopy to kLookback):
+// every load of a thread, then its stores, as the scatter does.
+__device__ __forceinline__ void copy_tile(
+    int64_t n, int num_planes, const PlanePtrs<uint32_t>& planes,
+    int64_t tile) {
+  for (int p = 0; p < num_planes; ++p) {
+    const uint32_t* __restrict__ src = planes.in[p] + tile + threadIdx.x;
+    uint32_t* __restrict__ out = planes.out[p] + tile + threadIdx.x;
+    uint32_t v[kRounds];
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      v[r] = tile + r * kThreads + threadIdx.x < n ? src[r * kThreads] : 0u;
+    }
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      if (tile + r * kThreads + threadIdx.x < n) out[r * kThreads] = v[r];
+    }
+  }
+}
+
+// kStage: a Stage of tile_rank.cuh; aux: one int64 a tile for kRank (the
+// tile's count) and kLookback (its exclusive prefix), else unused.
+template <int kStage>
 __global__ void __launch_bounds__(kThreads, 3)
 compact2_kernel(const uint8_t* __restrict__ keep, int64_t n, int num_planes,
                 const __grid_constant__ PlanePtrs<uint32_t> planes,
                 Status* __restrict__ status,
-                unsigned* __restrict__ next_tile) {
+                unsigned* __restrict__ next_tile, int64_t* __restrict__ aux) {
   __shared__ arrowtpu::TileRanks ranks;
   __shared__ int64_t tile_id;
   __shared__ int64_t kept_before;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+
+  if constexpr (kStage < arrowtpu::kStageLookback) {
+    const int64_t tile = static_cast<int64_t>(blockIdx.x) * kTile;
+    if constexpr (kStage == arrowtpu::kStageRank) {
+      unsigned ballots[kRounds];
+      const int aggregate = arrowtpu::rank_tile(keep, n, tile, ranks, ballots);
+      if (threadIdx.x == 0) aux[blockIdx.x] = aggregate;
+    }
+    copy_tile(n, num_planes, planes, tile);
+    return;
+  }
 
   if (threadIdx.x == 0) tile_id = atomicAdd(next_tile, 1u);
   __syncthreads();
@@ -119,6 +158,11 @@ compact2_kernel(const uint8_t* __restrict__ keep, int64_t n, int num_planes,
     if (lane == 0) kept_before = e;
   }
   __syncthreads();
+  if constexpr (kStage == arrowtpu::kStageLookback) {
+    if (threadIdx.x == 0) aux[t] = kept_before;
+    copy_tile(n, num_planes, planes, tile);
+    return;
+  }
 
   // a kept row goes to kept_before + its rank in the tile; a dropped row's
   // zero to n - 1 - (its global dropped rank) = drop_top - its dropped
@@ -148,12 +192,40 @@ compact2_kernel(const uint8_t* __restrict__ keep, int64_t n, int num_planes,
     }
 #pragma unroll
     for (int r = 0; r < kRounds; ++r) {
-      if (loc[r] >= 0) {
+      // kKept: the dropped rows' zeros are not stored
+      if (loc[r] >= 0 &&
+          (kStage == arrowtpu::kStageFull || ((kept_bits >> r) & 1u))) {
         out[(kept_bits >> r) & 1u ? kept_base + loc[r] : drop_top - loc[r]] =
             v[r];
       }
     }
   }
+}
+
+template <int kStage>
+int launch_compact2(const void* keep, int64_t n, int num_planes,
+                    const void* const* in, void* const* out, void* scratch,
+                    void* aux, void* stream) {
+  if (n <= 0 || num_planes < 1 || num_planes > kMaxPlanes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t tiles = (n + kTile - 1) / kTile;
+  if (kStage >= arrowtpu::kStageLookback) {
+    cudaError_t err =
+        cudaMemsetAsync(scratch, 0, (tiles + 1) * sizeof(Status), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  PlanePtrs<uint32_t> planes{};
+  for (int p = 0; p < num_planes; ++p) {
+    planes.in[p] = static_cast<const uint32_t*>(in[p]);
+    planes.out[p] = static_cast<uint32_t*>(out[p]);
+  }
+  Status* status = static_cast<Status*>(scratch);
+  compact2_kernel<kStage><<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
+      static_cast<const uint8_t*>(keep), n, num_planes, planes, status,
+      reinterpret_cast<unsigned*>(status + tiles),
+      static_cast<int64_t*>(aux));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -167,23 +239,35 @@ extern "C" {
 int arrowtpu_compact2(const void* keep, int64_t n, int num_planes,
                       const void* const* in, void* const* out, void* scratch,
                       void* stream) {
-  if (n <= 0 || num_planes < 1 || num_planes > kMaxPlanes)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t tiles = (n + kTile - 1) / kTile;
-  cudaError_t err =
-      cudaMemsetAsync(scratch, 0, (tiles + 1) * sizeof(Status), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  PlanePtrs<uint32_t> planes{};
-  for (int p = 0; p < num_planes; ++p) {
-    planes.in[p] = static_cast<const uint32_t*>(in[p]);
-    planes.out[p] = static_cast<uint32_t*>(out[p]);
+  return launch_compact2<arrowtpu::kStageFull>(keep, n, num_planes, in, out,
+                                          scratch, nullptr, stream);
+}
+
+// The stage ablation: as arrowtpu_compact2, for a Stage of tile_rank.cuh;
+// aux: (ceil(n / kTile),) int64 for kRank and kLookback.
+int arrowtpu_compact2_stage(int stage, const void* keep, int64_t n,
+                            int num_planes, const void* const* in,
+                            void* const* out, void* scratch, void* aux,
+                            void* stream) {
+  switch (stage) {
+    case arrowtpu::kStageCopy:
+      return launch_compact2<arrowtpu::kStageCopy>(keep, n, num_planes, in, out,
+                                              scratch, aux, stream);
+    case arrowtpu::kStageRank:
+      return launch_compact2<arrowtpu::kStageRank>(keep, n, num_planes, in, out,
+                                              scratch, aux, stream);
+    case arrowtpu::kStageLookback:
+      return launch_compact2<arrowtpu::kStageLookback>(keep, n, num_planes, in,
+                                                  out, scratch, aux, stream);
+    case arrowtpu::kStageKept:
+      return launch_compact2<arrowtpu::kStageKept>(keep, n, num_planes, in, out,
+                                              scratch, aux, stream);
+    case arrowtpu::kStageFull:
+      return launch_compact2<arrowtpu::kStageFull>(keep, n, num_planes, in, out,
+                                              scratch, aux, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  Status* status = static_cast<Status*>(scratch);
-  compact2_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
-      static_cast<const uint8_t*>(keep), n, num_planes, planes, status,
-      reinterpret_cast<unsigned*>(status + tiles));
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -1,0 +1,332 @@
+// Probe kernels: the H100 counterparts of the TPU micro-probes
+// scripts/prof_*.py (P1-P7).  Each asks one question of the card: what a
+// plain stream costs (the measured copy floor), what a chain of in-row
+// rolls costs, and what each in-tile gather pattern costs over a copy.
+//
+// Replaces the pl.pallas_call bodies of
+//   * stream_kernel: P4 (scripts/prof_floor.py:35 and :82, out = x + keep,
+//     BlockSpec and manual DMA), P1's copy (prof_gather.py:51) and the
+//     "copy 256" of P2 (prof_gather256.py:61) and P3 (prof_deint.py:79);
+//   * lane_roll_kernel: P1's roll chains (prof_gather.py:55-76) and P7's
+//     roll calibration (prof_v3.py:91-102);
+//   * tile_gather_kernel: the in-tile gathers of P1 (prof_gather.py:78-141),
+//     P2 (prof_gather256.py:64-96), P3 (prof_deint.py:81-95), P5
+//     (prof_pairlayout.py:68-71) and P7 (prof_v3.py:133, :167).
+// The TPU machinery (lane rolls on the XLU, the MXU one-hot row move, DMA
+// strategies) does not carry over; the function each body computes does.
+//
+// Bound on an H100 SXM: all three move data and do next to no arithmetic,
+// so bytes over 3.35 TB/s of HBM3: each input word read once, each output
+// word written once.  The designs:
+//   * stream: a grid-stride loop of 16-byte loads and stores per plane
+//     (blockIdx.y), with scalar edges, so any n and any plane offset work;
+//   * lane_roll: a row of 128 words is one warp, 4 words a lane (words
+//     lane, lane + 32, lane + 64, lane + 96: each a coalesced 128-byte
+//     access); a roll by s is 4 shuffles and a select per word;
+//   * tile_gather: each thread writes 4 consecutive output words (one
+//     16-byte store) and reads its sources through L1 / L2.  A (512, 128)
+//     u32 tile is 256 KB, more than a block's 227 KB of shared memory, so
+//     nothing is staged: the row of a lane gather is in L1 after its first
+//     touch, and the sublane gather's column reads are what the probe
+//     prices.  Static patterns compute their sources in registers.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTileRows = 512;  // T: rows of a gather tile
+constexpr int kRowWords = 128;  // words of a rolled row
+constexpr unsigned kFull = 0xffffffffu;
+
+// ---------------------------------------------------------------------------
+// stream: out[p, i] = in[p, i] (+ keep[i])
+// ---------------------------------------------------------------------------
+
+template <bool kAddKeep>
+__global__ void __launch_bounds__(kThreads)
+stream_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+              const uint8_t* __restrict__ keep, int64_t n) {
+  const int64_t p = blockIdx.y;
+  const uint32_t* __restrict__ src = in + p * n;
+  uint32_t* __restrict__ dst = out + p * n;
+  const uintptr_t sa = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t da = reinterpret_cast<uintptr_t>(dst);
+  // words before src's first 16-byte boundary; all words go scalar when src
+  // and dst are not aligned alike
+  int64_t head = static_cast<int64_t>(((16 - (sa & 15)) & 15) >> 2);
+  if (((sa ^ da) & 15) != 0 || head > n) head = n;
+  const int64_t quads = (n - head) >> 2;
+  const int64_t tail = head + quads * 4;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+
+  for (int64_t i = tid; i < head; i += stride) {
+    dst[i] = src[i] + (kAddKeep ? keep[i] : 0u);
+  }
+  for (int64_t i = tail + tid; i < n; i += stride) {
+    dst[i] = src[i] + (kAddKeep ? keep[i] : 0u);
+  }
+  const uint4* __restrict__ s4 = reinterpret_cast<const uint4*>(src + head);
+  uint4* __restrict__ d4 = reinterpret_cast<uint4*>(dst + head);
+  const uint8_t* __restrict__ k = keep + head;
+  const bool k4 = kAddKeep && (reinterpret_cast<uintptr_t>(k) & 3) == 0;
+  for (int64_t q = tid; q < quads; q += stride) {
+    uint4 v = s4[q];
+    if (kAddKeep) {
+      uchar4 b;
+      if (k4) {
+        b = reinterpret_cast<const uchar4*>(k)[q];
+      } else {
+        b = make_uchar4(k[4 * q], k[4 * q + 1], k[4 * q + 2], k[4 * q + 3]);
+      }
+      v.x += b.x;
+      v.y += b.y;
+      v.z += b.z;
+      v.w += b.w;
+    }
+    d4[q] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// lane_roll: k rolls of each 128-word row, the first nsel of them selects
+// ---------------------------------------------------------------------------
+
+// Roll j shifts the row by s = 1 + j % 7 words in np.roll's direction,
+// y[l] = v[(l - s) mod 128], then v = m ? y : v for j < nsel, else v = y.
+// m is mask > 2^30 (mask given) or x > 7 of the original x.
+__global__ void __launch_bounds__(kThreads)
+lane_roll_kernel(const uint32_t* __restrict__ x,
+                 const uint32_t* __restrict__ mask, uint32_t* __restrict__ out,
+                 int64_t rows, int k, int nsel) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int64_t warps = (static_cast<int64_t>(gridDim.x) * kThreads) >> 5;
+  for (int64_t r = warp; r < rows; r += warps) {
+    const int64_t base = r * kRowWords + lane;
+    uint32_t v[4];
+    bool m[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = x[base + 32 * i];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      m[i] = mask != nullptr ? mask[base + 32 * i] > (1u << 30) : v[i] > 7u;
+    }
+    int s = 1;
+    for (int j = 0; j < k; ++j) {
+      // word l = lane + 32 i comes from word l - s: lane (lane - s) mod 32,
+      // slot i, or slot i - 1 where the lane index wrapped
+      const int src = (lane - s) & 31;
+      const bool wrap = lane < s;
+      uint32_t w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) w[i] = __shfl_sync(kFull, v[i], src);
+      const bool sel = j < nsel;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t y = wrap ? w[(i + 3) & 3] : w[i];
+        v[i] = (!sel || m[i]) ? y : v[i];
+      }
+      s = s == 7 ? 1 : s + 1;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out[base + 32 * i] = v[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// tile_gather: in-tile gathers of (rows, W) tiles of kTileRows rows
+// ---------------------------------------------------------------------------
+
+// The patterns (kernels/probes.py PATTERNS keeps the same numbers).  Indices
+// are taken modulo the extent they index (W, kTileRows, or 128 pairs).
+enum Pattern : int {
+  kLanes = 0,        // out[r, l] = x[r, idx[r, l]]
+  kSublanes = 1,     // out[r, l] = x[(r / T) T + idx[r, l], l]
+  kTable = 2,        // out[r, l] = x[(r / T) T, idx[r, l]]
+  kChained = 3,      // a = lanes(x, idx); out[r, l] = a[r, idx[r, l] ^ 63]
+  kRowMove = 4,      // out[r] = x[r - 1] in a tile, row 0 of a tile zero
+  kDeinterleave = 5, // (rows, 128) pairs -> planes: out[c][r, j] = x[r, 2j + c]
+  kReinterleave = 6, // planes -> pairs: out[r, 2j + c] = x[c][r, j]
+  kPairs = 7,        // out pair (r, j) = x pair (r, idx[r, j])
+};
+
+template <int kPattern, int kW>
+__global__ void __launch_bounds__(kThreads)
+tile_gather_kernel(const uint32_t* __restrict__ x,
+                   const int32_t* __restrict__ idx, uint32_t* __restrict__ out,
+                   int64_t rows) {
+  constexpr bool kPairwise =
+      kPattern == kDeinterleave || kPattern == kReinterleave ||
+      kPattern == kPairs;
+  // a quad is 4 output words, or 4 pairs for the pairwise patterns
+  constexpr int kQuadsPerRow = (kPairwise ? 128 : kW) / 4;
+  const int64_t quads = rows * kQuadsPerRow;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t q = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       q < quads; q += stride) {
+    const int64_t r = q / kQuadsPerRow;
+    const int l = static_cast<int>(q % kQuadsPerRow) * 4;
+    if constexpr (kPattern == kDeinterleave) {
+      const uint4* pair = reinterpret_cast<const uint4*>(x + r * 256 + 2 * l);
+      const uint4 a = pair[0], b = pair[1];
+      const int64_t plane = rows * 128;
+      reinterpret_cast<uint4*>(out + r * 128 + l)[0] =
+          make_uint4(a.x, a.z, b.x, b.z);
+      reinterpret_cast<uint4*>(out + plane + r * 128 + l)[0] =
+          make_uint4(a.y, a.w, b.y, b.w);
+    } else if constexpr (kPattern == kReinterleave) {
+      const int64_t plane = rows * 128;
+      const uint4 lo = reinterpret_cast<const uint4*>(x + r * 128 + l)[0];
+      const uint4 hi = reinterpret_cast<const uint4*>(x + plane + r * 128 + l)[0];
+      uint4* dst = reinterpret_cast<uint4*>(out + r * 256 + 2 * l);
+      dst[0] = make_uint4(lo.x, hi.x, lo.y, hi.y);
+      dst[1] = make_uint4(lo.z, hi.z, lo.w, hi.w);
+    } else if constexpr (kPattern == kPairs) {
+      const int4 j = reinterpret_cast<const int4*>(idx + r * 128 + l)[0];
+      const uint2* src = reinterpret_cast<const uint2*>(x + r * 256);
+      const uint2 p0 = src[j.x & 127], p1 = src[j.y & 127];
+      const uint2 p2 = src[j.z & 127], p3 = src[j.w & 127];
+      uint4* dst = reinterpret_cast<uint4*>(out + r * 256 + 2 * l);
+      dst[0] = make_uint4(p0.x, p0.y, p1.x, p1.y);
+      dst[1] = make_uint4(p2.x, p2.y, p3.x, p3.y);
+    } else if constexpr (kPattern == kRowMove) {
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r % kTileRows != 0) {
+        v = reinterpret_cast<const uint4*>(x + (r - 1) * kW + l)[0];
+      }
+      reinterpret_cast<uint4*>(out + r * kW + l)[0] = v;
+    } else {
+      const int4 j4 = reinterpret_cast<const int4*>(idx + r * kW + l)[0];
+      const int j[4] = {j4.x, j4.y, j4.z, j4.w};
+      const uint32_t* row = x + r * kW;
+      const int64_t tile = r - r % kTileRows;
+      uint32_t v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (kPattern == kLanes) {
+          v[e] = row[j[e] & (kW - 1)];
+        } else if constexpr (kPattern == kSublanes) {
+          v[e] = x[(tile + (j[e] & (kTileRows - 1))) * kW + l + e];
+        } else if constexpr (kPattern == kTable) {
+          v[e] = x[tile * kW + (j[e] & (kW - 1))];
+        } else {  // kChained
+          const int m = (j[e] ^ 63) & (kW - 1);
+          v[e] = row[idx[r * kW + m] & (kW - 1)];
+        }
+      }
+      reinterpret_cast<uint4*>(out + r * kW + l)[0] =
+          make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+unsigned grid_for(int64_t items, int64_t cap) {
+  int64_t blocks = (items + kThreads - 1) / kThreads;
+  if (blocks < 1) blocks = 1;
+  if (blocks > cap) blocks = cap;
+  return static_cast<unsigned>(blocks);
+}
+
+template <int kW>
+cudaError_t launch_gather(int pattern, const uint32_t* x, const int32_t* idx,
+                          uint32_t* out, int64_t rows, unsigned blocks,
+                          cudaStream_t s) {
+  switch (pattern) {
+    case kLanes:
+      tile_gather_kernel<kLanes, kW><<<blocks, kThreads, 0, s>>>(x, idx, out, rows);
+      break;
+    case kSublanes:
+      tile_gather_kernel<kSublanes, kW><<<blocks, kThreads, 0, s>>>(x, idx, out, rows);
+      break;
+    case kTable:
+      tile_gather_kernel<kTable, kW><<<blocks, kThreads, 0, s>>>(x, idx, out, rows);
+      break;
+    case kChained:
+      tile_gather_kernel<kChained, kW><<<blocks, kThreads, 0, s>>>(x, idx, out, rows);
+      break;
+    case kRowMove:
+      tile_gather_kernel<kRowMove, kW><<<blocks, kThreads, 0, s>>>(x, idx, out, rows);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// in, out: (P, n) u32 planes, plane p at in + p * n; keep: (n,) u8 or null
+// for a copy.
+int arrowtpu_stream(const void* in, void* out, const void* keep, int64_t P,
+                    int64_t n, void* stream) {
+  if (P < 1 || P > 65535 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(grid_for(n / 4 + 1, 2048), static_cast<unsigned>(P));
+  const uint32_t* src = static_cast<const uint32_t*>(in);
+  uint32_t* dst = static_cast<uint32_t*>(out);
+  if (keep != nullptr) {
+    stream_kernel<true><<<grid, kThreads, 0, s>>>(
+        src, dst, static_cast<const uint8_t*>(keep), n);
+  } else {
+    stream_kernel<false><<<grid, kThreads, 0, s>>>(src, dst, nullptr, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, out: (rows, 128) u32; mask: the same shape, or null for m = x > 7.
+int arrowtpu_lane_roll(const void* x, const void* mask, void* out,
+                       int64_t rows, int k, int nsel, void* stream) {
+  if (rows < 1 || k < 0 || nsel < 0 || nsel > k)
+    return static_cast<int>(cudaErrorInvalidValue);
+  lane_roll_kernel<<<grid_for(rows * 32, 4096), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(mask),
+      static_cast<uint32_t*>(out), rows, k, nsel);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pattern: a Pattern; width: W (128 or 256) for the word patterns, 256 for
+// the pairwise ones.  x, idx, out: 16-byte aligned; rows a multiple of 512
+// for the sublane, table and row-move patterns.
+int arrowtpu_tile_gather(int pattern, int width, const void* x,
+                         const void* idx, void* out, int64_t rows,
+                         void* stream) {
+  if (rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* src = static_cast<const uint32_t*>(x);
+  const int32_t* ix = static_cast<const int32_t*>(idx);
+  uint32_t* dst = static_cast<uint32_t*>(out);
+  if (pattern == kDeinterleave || pattern == kReinterleave ||
+      pattern == kPairs) {
+    if (width != 256) return static_cast<int>(cudaErrorInvalidValue);
+    const unsigned blocks = grid_for(rows * 32, 8192);
+    if (pattern == kDeinterleave) {
+      tile_gather_kernel<kDeinterleave, 256><<<blocks, kThreads, 0, s>>>(
+          src, ix, dst, rows);
+    } else if (pattern == kReinterleave) {
+      tile_gather_kernel<kReinterleave, 256><<<blocks, kThreads, 0, s>>>(
+          src, ix, dst, rows);
+    } else {
+      tile_gather_kernel<kPairs, 256><<<blocks, kThreads, 0, s>>>(
+          src, ix, dst, rows);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (width == 128) {
+    return static_cast<int>(launch_gather<128>(
+        pattern, src, ix, dst, rows, grid_for(rows * 32, 8192), s));
+  }
+  if (width == 256) {
+    return static_cast<int>(launch_gather<256>(
+        pattern, src, ix, dst, rows, grid_for(rows * 64, 8192), s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // extern "C"

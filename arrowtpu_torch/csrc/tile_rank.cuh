@@ -20,6 +20,26 @@ constexpr unsigned kFull = 0xffffffffu;
 
 static_assert(kRounds * kWarps == 4 * 32, "warp 0 scans 4 counts per lane");
 
+// The stages of the compaction kernels' stage ablation (kernels/probes.py
+// compaction_stages keeps the same numbers).  Each stage adds one piece of
+// the production kernel to the one before it:
+//   kStageCopy      the planes copied straight through (no mask);
+//   kStageRank      + the mask staged, the ballots and the block scan; the tile's
+//                   kept count written to aux[tile] keeps the work live;
+//   kStageLookback  + the decoupled look-back (K3 only); the tile's exclusive
+//                   prefix written to aux[tile];
+//   kStageKept      + the kept rows' loads and scatter, no stores for dropped
+//                   rows (words from the count on are not written);
+//   kStageFull      the production kernel, the only stage the entry points of
+//                   K1, K2 and K3 instantiate.
+enum Stage : int {
+  kStageCopy = 0,
+  kStageRank = 1,
+  kStageLookback = 2,
+  kStageKept = 3,
+  kStageFull = 4,
+};
+
 template <typename T>
 struct PlanePtrs {
   const T* in[kMaxPlanes];

@@ -18,6 +18,12 @@ two-phase group-by.  `example_join_shards` draws a rank's shards as the
 dryrun does, `join_oracle` / `check_join_output` hold the step's output to
 a host oracle, and `dryrun_multichip(n)` runs the dryrun on n ranks.
 `group_by_shards` runs the two-phase group-by alone on n ranks.
+
+`lexsort_step` is BASELINE config 3 (`bench.py` config3_lexsort): the
+lexsort of (int32, float64, dictionary-utf8) columns.
+`example_lexsort_columns` draws them as the bench does, and
+`check_lexsort` holds an index to the stable order on the host without a
+host sort.
 """
 
 from __future__ import annotations
@@ -27,8 +33,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from . import ops
+from . import schema as st
 from .config import resolve_device
 from .core import batch as bt
+from .core import column as col
 from .interop.numpy_bridge import (batch_from_numpy, column_from_numpy,
                                    column_to_numpy)
 from .ops import groupby as gb
@@ -182,6 +190,84 @@ def check_join_output(outputs: Sequence[bt.RecordBatch], want) -> int:
     if not np.array_equal(got["sum_rv"][0][ok], want["sum"][ok]):
         raise AssertionError("sums differ from the oracle")
     return len(k)
+
+
+# ---------------------------------------------------------------------------
+# config 3: lexsort over (Int32, Float64, dictionary Utf8)
+# ---------------------------------------------------------------------------
+
+
+def example_lexsort_arrays(n: int, seed: int = 2):
+    """BASELINE config 3's data, drawn in `bench.py` config3_lexsort's numpy
+    order: -> (i32 in [-100, 100), float64 standard normals rounded to 2
+    places (so -0.0 and +0.0 both occur), dictionary keys in [0, 1000), the
+    1000 dictionary words "w%03d" in a seeded permuted order)."""
+    rng = np.random.default_rng(seed)
+    i32 = rng.integers(-100, 100, n, dtype=np.int32)
+    f64 = np.round(rng.standard_normal(n), 2)
+    keys = rng.integers(0, 1000, n, dtype=np.int32)
+    words = [f"w{i:03d}" for i in rng.permutation(1000)]
+    return i32, f64, keys, words
+
+
+def lexsort_columns(i32, f64, keys, words, device=None) -> List[col.Column]:
+    """The three sort columns of config 3 from host arrays: int32, float64,
+    and keys into the dictionary of `words` (ranks by string order)."""
+    device = resolve_device(device)
+    dtype = st.Dictionary(st.int32, st.utf8)
+    proto = col.dictionary_encode_host(words, dtype, device=device)
+    return [col.primitive(i32, st.int32, device=device),
+            col.primitive(f64, st.float64, device=device),
+            col.DictionaryColumn(col.primitive(keys, st.int32, device=device),
+                                 proto.values, proto.value_ranks, dtype)]
+
+
+def example_lexsort_columns(n: int = 4096, seed: int = 2,
+                            device=None) -> List[col.Column]:
+    return lexsort_columns(*example_lexsort_arrays(n, seed), device=device)
+
+
+def lexsort_step(columns: Sequence[col.Column]) -> col.PrimitiveColumn:
+    """Config 3's step: the int32 index column sorting the rows by the
+    columns, ascending, nulls first."""
+    return ops.lexsort_to_indices(columns)
+
+
+def lexsort_keys(i32, f64, keys, words):
+    """The host's sort keys of config 3's rows: (i32, the float64 bits
+    mapped to uint64 in total order (`bench.py`'s map), each row's word
+    rank in string order)."""
+    ub = f64.view(np.uint64)
+    f64key = np.where(ub >> np.uint64(63) == 0,
+                      ub | np.uint64(0x8000000000000000), ~ub)
+    order = np.argsort(np.asarray(words, dtype=object), kind="stable")
+    word_rank = np.empty(len(words), np.int64)
+    word_rank[order] = np.arange(len(words))
+    return i32, f64key, word_rank[keys]
+
+
+def check_lexsort(idx: np.ndarray, sort_keys) -> None:
+    """Raise AssertionError unless `idx` is the stable lexicographic order
+    of the rows by `sort_keys` (most significant first): a permutation of
+    [0, n) under which the key tuples never decrease and equal tuples keep
+    increasing row ids.  For a stable sort that is the same as equality
+    with np.lexsort, and needs no host sort."""
+    n = len(sort_keys[0])
+    idx = np.asarray(idx)
+    if idx.shape != (n,) or (n and (idx.min() < 0 or idx.max() >= n)):
+        raise AssertionError(f"index of shape {idx.shape} is not in [0, {n})")
+    if n and np.bincount(idx, minlength=n).max() != 1:
+        raise AssertionError("the index is not a permutation")
+    later, tied = None, None
+    for key in (*sort_keys, np.arange(n)):
+        k = key[idx]
+        gt, eq = k[1:] > k[:-1], k[1:] == k[:-1]
+        later = gt if later is None else later | (tied & gt)
+        tied = eq if tied is None else tied & eq
+    if not later.all():
+        raise AssertionError(
+            f"rows out of order at sorted positions "
+            f"{np.flatnonzero(~later)[:5].tolist()}")
 
 
 def _to_host(out: bt.RecordBatch) -> bt.RecordBatch:

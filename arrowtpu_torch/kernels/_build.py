@@ -6,9 +6,10 @@ interface under `arrowtpu_torch/_build/`, named by a hash of every source,
 header and flag, so an edited file rebuilds; `ctypes` loads it.  Nothing
 here runs at import: the package imports on a machine with no CUDA
 toolkit, and only a launch on a CUDA tensor builds, and raises if the
-build fails.  The second half holds what the compaction wrappers share:
-operand checks, output allocation, and the calls into the library on
-PyTorch's current stream, each checked for a CUDA error.
+build fails.  The second half holds what the kernel wrappers share:
+operand checks, output allocation, host arrays of plane pointers, and the
+compaction calls into the library on PyTorch's current stream, each
+checked for a CUDA error.
 """
 
 from __future__ import annotations
@@ -99,6 +100,18 @@ def library() -> ctypes.CDLL:
     lib.arrowtpu_compact2.argtypes = [vp, i64, i32, ctypes.POINTER(vp),
                                       ctypes.POINTER(vp), vp, vp]
     lib.arrowtpu_compact2.restype = i32
+    lib.arrowtpu_compact2_stage.argtypes = [
+        i32, vp, i64, i32, ctypes.POINTER(vp), ctypes.POINTER(vp), vp, vp, vp]
+    lib.arrowtpu_compact2_stage.restype = i32
+    lib.arrowtpu_compact_scatter_stage.argtypes = [
+        i32, vp, i64, vp, i32, ctypes.POINTER(vp), ctypes.POINTER(vp), vp, vp]
+    lib.arrowtpu_compact_scatter_stage.restype = i32
+    lib.arrowtpu_stream.argtypes = [vp, vp, vp, i64, i64, vp]
+    lib.arrowtpu_stream.restype = i32
+    lib.arrowtpu_lane_roll.argtypes = [vp, vp, vp, i64, i32, i32, vp]
+    lib.arrowtpu_lane_roll.restype = i32
+    lib.arrowtpu_tile_gather.argtypes = [i32, i32, vp, vp, vp, i64, vp]
+    lib.arrowtpu_tile_gather.restype = i32
     if (lib.arrowtpu_compact_tile_rows(), lib.arrowtpu_compact_max_planes()) \
             != (TILE_ROWS, MAX_PLANES):
         raise RuntimeError(f"{path.name}: tile or plane limit differs from "
@@ -154,6 +167,16 @@ def require_cuda(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: tensors on {t.device} are not supported")
 
 
+def tile_counts_plain(keep: torch.Tensor) -> torch.Tensor:
+    """(ceil(n / TILE_ROWS),) int64: the kept rows of each tile, in
+    plain PyTorch on keep's device."""
+    n = keep.shape[0]
+    padded = torch.zeros(-(-n // TILE_ROWS) * TILE_ROWS, dtype=torch.int64,
+                         device=keep.device)
+    padded[:n] = keep != 0
+    return padded.view(-1, TILE_ROWS).sum(1)
+
+
 def tile_offsets(keep: torch.Tensor) -> torch.Tensor:
     """(ceil(n / TILE_ROWS) + 1,) int64 exclusive prefix of the per-tile
     kept counts; the last entry is the count.  On the card: the count
@@ -163,9 +186,7 @@ def tile_offsets(keep: torch.Tensor) -> torch.Tensor:
     nt = -(-n // TILE_ROWS)
     offs = torch.zeros(nt + 1, dtype=torch.int64, device=keep.device)
     if keep.device.type == "cpu":
-        padded = torch.zeros(nt * TILE_ROWS, dtype=torch.int64)
-        padded[:n] = keep != 0
-        torch.cumsum(padded.reshape(nt, TILE_ROWS).sum(1), 0, out=offs[1:])
+        torch.cumsum(tile_counts_plain(keep), 0, out=offs[1:])
         return offs
     require_cuda(keep, "tile_offsets")
     if n == 0:
@@ -215,12 +236,11 @@ def scatter_cuda(plist, outs, keep: torch.Tensor, offs: torch.Tensor) -> None:
     if not 1 <= P <= MAX_PLANES or len(outs) != P:
         raise ValueError(f"{P} planes for {len(outs)} outputs")
     out_rows = outs[0].shape[0]
-    ins = (ctypes.c_void_p * P)(*[p.data_ptr() for p in plist])
-    dsts = (ctypes.c_void_p * P)(*[o.data_ptr() for o in outs])
     with torch.cuda.device(keep.device):
         _check(library().arrowtpu_compact_scatter(
             plist[0].dtype.itemsize, keep.data_ptr(), keep.shape[0],
-            offs.data_ptr(), P, ins, dsts, out_rows, _stream(keep)),
+            offs.data_ptr(), P, plane_ptrs(plist), plane_ptrs(outs),
+            out_rows, _stream(keep)),
             "compact_scatter_kernel")
 
 
@@ -243,12 +263,16 @@ def compact2_cuda(plist, outs, keep: torch.Tensor,
     if scratch.dtype != torch.int64 or scratch.device != keep.device \
             or scratch.numel() < -(-keep.shape[0] // TILE_ROWS) + 1:
         raise ValueError("scratch must be compact2_scratch(keep)")
-    ins = (ctypes.c_void_p * P)(*[p.data_ptr() for p in plist])
-    dsts = (ctypes.c_void_p * P)(*[o.data_ptr() for o in outs])
     with torch.cuda.device(keep.device):
         _check(library().arrowtpu_compact2(
-            keep.data_ptr(), keep.shape[0], P, ins, dsts, scratch.data_ptr(),
-            _stream(keep)), "compact2_kernel")
+            keep.data_ptr(), keep.shape[0], P, plane_ptrs(plist),
+            plane_ptrs(outs), scratch.data_ptr(), _stream(keep)),
+            "compact2_kernel")
+
+
+def plane_ptrs(tensors) -> ctypes.Array:
+    """A host array of the tensors' device pointers."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:

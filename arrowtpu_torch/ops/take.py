@@ -1,8 +1,9 @@
 """Take: gather rows by an index column.
 
-Counterpart of `arrowtpu/ops/take.py` for primitive, boolean and null
-columns.  A null or out-of-bounds index (outside [0, length) of the
-source) gives a null output row.  As in the JAX package, every output
+Counterpart of `arrowtpu/ops/take.py` for primitive, boolean, null and
+dictionary columns (a dictionary takes its keys and shares its values).
+A null or out-of-bounds index (outside [0, length) of the source) gives a
+null output row.  As in the JAX package, every output
 row below the length takes the value at its index clipped into the
 source's capacity, so the values under a null row are the same in both
 packages; rows past the length are zero (the port's padding contract).
@@ -11,6 +12,8 @@ validity bitmap.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -32,6 +35,8 @@ def take(c: col.Column, indices: col.PrimitiveColumn) -> col.Column:
     n = indices.length
     if isinstance(c, col.NullColumn):
         return col.NullColumn(n, indices.capacity, c.device)
+    if isinstance(c, col.DictionaryColumn):  # the keys; values are shared
+        return dataclasses.replace(c, keys=take(c.keys, indices))
     idx = raw.clamp(0, c.capacity - 1)
     # an in-bounds index of a column without a bitmap selects a valid row
     validity = bm.pack(ok if c.validity is None

@@ -12,8 +12,13 @@ flag.  A word is a concatenation of whole fields, so comparing the words
 lexicographically compares the planes lexicographically.  The words are
 then sorted least significant first (LSD), each sort stable, so the row
 index breaks the remaining ties.  A plane wider than 63 bits is its own
-word, sorted raw.  The flagship group-by (key + value planes, about 17
-bits) sorts once.
+word, sorted raw: its signed order is the plane's order, which is what a
+float key (rowformat/encode.py float_key, signed total order) needs.  The
+ranges are read back as Python ints, so a range of 2**64 - 1 does not
+overflow.  The flagship group-by (key + value planes, about 17 bits) sorts
+once; config 3's lexsort (int32 range 200, float64, dictionary of 1000)
+packs to three words: flag + int32 (9 bits), the raw float key, the rank
+(10 bits).
 """
 
 from __future__ import annotations
@@ -27,7 +32,9 @@ from ..core import bitmap as bm
 _WORD_BITS = 63  # non-negative int64: signed order == unsigned order
 
 
-def _packed_words(planes, live) -> List[torch.Tensor]:
+def packed_words(planes, live) -> List[torch.Tensor]:
+    """The int64 sort words of `planes` over the live rows, most
+    significant first (one read-back: every plane's range)."""
     big = torch.iinfo(torch.int64)
     k = len(planes)
     stats = torch.stack(
@@ -69,7 +76,7 @@ def sort_permutation(planes: Sequence[torch.Tensor], capacity: int,
     if live is None:
         live = bm.row_mask_bool(capacity, length, planes[0].device)
     perm = None
-    for w in reversed(_packed_words(list(planes), live)):
+    for w in reversed(packed_words(list(planes), live)):
         if perm is None:
             perm = torch.sort(w, stable=True).indices
         else:

@@ -3,6 +3,7 @@
 Counterpart of `arrowtpu/schema.py` for the types this package handles so
 far.  Each primitive type maps onto one torch dtype; Boolean is an LSB-packed
 bitmap (core/bitmap.py), and 64-bit integers are native `torch.int64`.
+Utf8 / Binary (string views) and Dictionary have no single torch dtype.
 """
 
 from __future__ import annotations
@@ -87,6 +88,31 @@ class Float(DataType):
         return f"float{self.bits}"
 
 
+@dataclasses.dataclass(frozen=True)
+class Utf8(DataType):
+    """Strings in the Arrow view layout (core/column.py StringViewColumn)."""
+
+    def __str__(self):
+        return "utf8"
+
+
+@dataclasses.dataclass(frozen=True)
+class Binary(DataType):
+    def __str__(self):
+        return "binary"
+
+
+@dataclasses.dataclass(frozen=True)
+class Dictionary(DataType):
+    """Integer keys into a value column (core/column.py DictionaryColumn)."""
+
+    key: DataType = dataclasses.field(default_factory=lambda: Int(32))
+    value: DataType = dataclasses.field(default_factory=Utf8)
+
+    def __str__(self):
+        return f"dictionary<{self.key},{self.value}>"
+
+
 null = Null()
 bool_ = Boolean()
 int8 = Int(8)
@@ -96,6 +122,8 @@ int64 = Int(64)
 uint8 = Int(8, signed=False)
 float32 = Float(32)
 float64 = Float(64)
+utf8 = Utf8()
+binary = Binary()
 
 
 def from_torch(dt: torch.dtype) -> DataType:

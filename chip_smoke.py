@@ -50,13 +50,33 @@ Phases (each raises on failure; the exit code is then non-zero):
      planes x 8,000,000 rows under the flagship mask, counted, then timed
      beside its bound, its plain version, the library call and K1, and
      again at 50 % and 96 % kept;
-  8. `dryrun_multichip(1)`: the dryrun's own tiny shapes on the card.
+  8. `dryrun_multichip(1)`: the dryrun's own tiny shapes on the card;
+  9. the probe kernels (kernels/probes.py, the counterparts of the TPU
+     probes P1-P8) against their plain versions, bit for bit: stream at
+     P in {1, 2, 16} and n in {65,536, 8,060,928, 8,000,001}, with and
+     without keep; lane_roll at (k, nsel) in {(7, 0), (14, 14), (56, 56)}
+     under both masks; tile_gather, every pattern at W in {128, 256};
+     compaction_stages, every stage of K3 and K1 at densities {0, 0.055,
+     0.5, 1} (P = 2, n = 8,000,001);
+  10. `probes.run_probes()` at the probes' own shapes, its launch counts
+     set to 0 just before and read just after (every probe kernel must
+     have run): one line per probe body, then the measured copy floor;
+     then the stage ablation of K3 and K1 at phase 7's flagship call;
+  11. BASELINE config 3 (`entry.lexsort_step`, the lexsort of int32,
+     float64 and dictionary-utf8 columns) at its full 100,000,000 rows:
+     held to np.lexsort at 1,000,000 rows, then at full size to the host
+     check (a permutation under which the key tuples never decrease and
+     ties keep row order), its time (CUDA events, median of 5), its
+     stages (encode, pack read-back, each stable sort pass), the words
+     pack forms, its peak memory and a torch.profiler busy share.  It
+     runs no kernel of the port: PyTorch's sort does the work.
 
 The line before the last lists the kernels as JSON (`launches` from the
-flagship step for K1 and K2 and from K3's entry point for K3; every
-path's counts under `launches_by_path`); the last line is
-{"ok": true, "device": {...}}.  Without a CUDA device the script exits
-with an error and prints no result.
+flagship step for K1 and K2, from K3's entry point for K3 and from
+run_probes for the probe kernels; every path's counts under
+`launches_by_path`); the last line is {"ok": true, "device": {...}}.
+Without a CUDA device the script exits with an error and prints no
+result.
 """
 
 import contextlib
@@ -80,6 +100,9 @@ PROBE_ROWS = 62_500_000
 BUILD_ROWS = 6_250_000
 PROBE_KEY_RANGE = 7_812_500
 JOIN_REPS = 10
+LEXSORT_ROWS = 100_000_000  # BASELINE config 3, nothing cut
+LEXSORT_CHECK_ROWS = 1_000_000  # held to np.lexsort itself
+LEXSORT_REPS = 5
 
 
 def log(*args):
@@ -134,9 +157,12 @@ def _device_us(rows) -> float:
 
 def device_ms(fn, reps=REPS) -> float:
     """Mean device time per run of fn(): the summed durations of the
-    kernels it launched (CUPTI), without the host's time."""
-    rows, _ = _profiled(fn, reps)
-    return _device_us(rows) / reps / 1e3
+    kernels it launched (CUPTI), without the host's time; a profiler
+    window that lost kernel records is measured again
+    (arrowtpu_torch.probes.device_ms)."""
+    from arrowtpu_torch.probes import device_ms as guarded
+
+    return guarded(fn, reps)
 
 
 def profile(fn, reps=5):
@@ -430,6 +456,162 @@ def join_phase(pe, k1, k2, k3, dev):
     return launches
 
 
+def check_probes(kp, probes, dev) -> None:
+    """Phase 9: every probe kernel and stage variant against its plain
+    version on the same inputs, bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    info = torch.iinfo(torch.int32)
+
+    def words(*shape):
+        return torch.randint(info.min, info.max, shape, dtype=torch.int32,
+                             device=dev, generator=g)
+
+    def same(kernel, plain, where):
+        """kernel() against plain(), the plain version first, so that the
+        kernel's outputs land on blocks poisoned by fresh_call."""
+        want = plain()
+        got = probes.fresh_call(kernel, want)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(got, want):
+            if (a is None) != (b is None) or (
+                    a is not None and not torch.equal(a, b)):
+                raise AssertionError(f"{where}: differs from its plain "
+                                     "version")
+
+    for n in (65_536, 8_060_928, 8_000_001):
+        for P in (1, 2, 16):
+            planes = words(P, n)
+            keep = (torch.rand(n, device=dev, generator=g) < 0.5).to(
+                torch.uint8)
+            for k in (None, keep):
+                same(lambda: kp.stream(planes, k),
+                     lambda: kp.stream_plain(planes, k),
+                     f"stream P={P} n={n} keep={k is not None}")
+    rows = 62_976
+    x, mask = words(rows, 128), words(rows, 128)
+    small = x % 16  # so that x > 7 is false on half the words
+    for k, nsel in ((7, 0), (14, 14), (56, 56)):
+        for data, m in ((x, mask), (small, None)):
+            same(lambda: kp.lane_roll(data, k, nsel, m),
+                 lambda: kp.lane_roll_plain(data, k, nsel, m),
+                 f"lane_roll k={k} nsel={nsel} mask={m is not None}")
+    patterns = [(p, W) for p in ("lanes", "sublanes", "table", "chained",
+                                 "rowmove") for W in (128, 256)]
+    patterns += [("deinterleave", 256), ("reinterleave", 256),
+                 ("pairs", 256)]
+    for pattern, W in patterns:
+        data = words(2, rows, 128) if pattern == "reinterleave" \
+            else words(rows, W)
+        extent = {"sublanes": kp.TILE_ROWS, "pairs": 128}.get(pattern, W)
+        idx = None
+        if pattern not in ("rowmove", "deinterleave", "reinterleave"):
+            idx = torch.randint(0, extent, (rows, 128 if pattern == "pairs"
+                                            else W), dtype=torch.int32,
+                                device=dev, generator=g)
+        same(lambda: kp.tile_gather(data, pattern, idx),
+             lambda: kp.tile_gather_plain(data, pattern, idx),
+             f"tile_gather {pattern} W={W}")
+    n = 8_000_001
+    planes = words(2, n)
+    for density in (0.0, 0.055, 0.5, 1.0):
+        keep = torch.rand(n, device=dev, generator=g) < density
+        count = int(keep.sum())
+        for kernel in kp.KERNELS:
+            for stage in kp.STAGES:
+                if (stage, kernel) == ("lookback", "k1"):
+                    continue
+                words_ = count if stage == "kept" else n
+
+                def cut(run):
+                    out, aux = run(planes, keep, stage, kernel)
+                    return out[:, :words_], aux
+
+                same(lambda: cut(kp.compaction_stages),
+                     lambda: cut(kp.compaction_stages_plain),
+                     f"{kernel} stage {stage} density {density}")
+    log(f"probe kernels: bit-exact against plain (stream 18 cases, "
+        f"lane_roll 6, tile_gather {len(patterns)}, compaction stages 9 x 4 "
+        "densities)")
+
+
+def lexsort_phase(pe, dev) -> dict:
+    """Phase 11: config 3 at 100M rows.  -> its numbers."""
+    from arrowtpu_torch.core import bitmap as bm
+    from arrowtpu_torch.rowformat import encode as rf
+    from arrowtpu_torch.rowformat import pack as rp
+
+    t0 = time.perf_counter()
+    arrays = pe.example_lexsort_arrays(LEXSORT_ROWS)
+    sort_keys = pe.lexsort_keys(*arrays)
+    log(f"lexsort: {LEXSORT_ROWS} rows and their host keys in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    m = LEXSORT_CHECK_ROWS
+    head = pe.lexsort_columns(*(a[:m] for a in arrays[:3]), arrays[3],
+                              device=dev)
+    got = pe.lexsort_step(head).values[:m].cpu().numpy()
+    if not np.array_equal(got, np.lexsort(tuple(k[:m]
+                                                for k in sort_keys[::-1]))):
+        raise AssertionError(f"lexsort differs from np.lexsort at {m} rows")
+    log(f"lexsort: equal to np.lexsort at {m} rows")
+    del head
+
+    cols = pe.lexsort_columns(*arrays, device=dev)
+    torch.cuda.synchronize()
+    inputs = sum(c.values.nbytes for c in (cols[0], cols[1], cols[2].keys))
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    idx = pe.lexsort_step(cols)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    t1 = time.perf_counter()
+    pe.check_lexsort(idx.values[:idx.length].cpu().numpy(), sort_keys)
+    log(f"lexsort: {idx.length} rows checked on the host in "
+        f"{time.perf_counter() - t1:.1f} s (permutation, keys never "
+        "decrease, ties in row order)")
+    del idx
+
+    step_ms = median_ms(lambda: pe.lexsort_step(cols), reps=LEXSORT_REPS,
+                        warmup=1)
+
+    def stage(fn):
+        return median_ms(fn, reps=LEXSORT_REPS, warmup=1)
+
+    first = cols[0]
+    stages = {"encode_ms": stage(lambda: rf.encode_columns(cols))}
+    planes = rf.encode_columns(cols)
+    live = bm.row_mask_bool(first.capacity, first.length, dev)
+    stages["pack_readback_ms"] = stage(lambda: rp.packed_words(planes, live))
+    words = rp.packed_words(planes, live)
+    layout = []
+    for w in words:
+        lo, hi = int(w.min()), int(w.max())
+        layout.append("raw 64-bit" if lo < 0 else f"{hi.bit_length()} bits")
+    perm, passes = None, []
+    for w in reversed(words):
+        if perm is None:
+            def sort_pass():
+                return torch.sort(w, stable=True).indices
+        else:
+            def sort_pass():
+                return perm[torch.sort(w[perm], stable=True).indices]
+        passes.append(stage(sort_pass))
+        perm = sort_pass()
+    stages["sort_pass_ms (least significant word first)"] = passes
+    stages["to_int32_ms"] = stage(lambda: perm.to(torch.int32))
+    del planes, live, words, perm
+    row = {"rows": LEXSORT_ROWS, "step_ms": step_ms, "stages": stages,
+           "words": layout, "inputs_gb": inputs / 1e9,
+           "peak_gib": peak / 2**30, "held_before_gib": held / 2**30,
+           "rows_per_s": LEXSORT_ROWS / step_ms * 1e3}
+    log(f"lexsort timing: {row}")
+    log(f"lexsort profile: "
+        f"{profile(lambda: pe.lexsort_step(cols), reps=3)}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -441,7 +623,9 @@ def main() -> int:
     from arrowtpu_torch.kernels import compact as k2
     from arrowtpu_torch.kernels import compact2 as k3
     from arrowtpu_torch.kernels import compact3 as k1
+    from arrowtpu_torch.kernels import probes as kp
     from arrowtpu_torch.ops import groupby as gb
+    from arrowtpu_torch import probes
 
     dev = torch.device("cuda:0")
     card = smi_line()
@@ -616,22 +800,97 @@ def main() -> int:
     # phase 8
     pe.dryrun_multichip(1)
 
+    # phase 9
+    t0 = time.perf_counter()
+    check_probes(kp, probes, dev)
+    log(f"phase 9 (probe kernels vs plain): {time.perf_counter() - t0:.1f} s")
+
+    # phase 10: the probes' path, then the stage ablation at the flagship
+    # call of phase 7
+    for name in kp.launches:
+        kp.launches[name] = 0
+    result = probes.run_probes(dev)
+    probe_launches = dict(kp.launches)
+    for name, count in probe_launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name} was not launched by run_probes")
+    floor = result["floor_GBps"]
+    log(f"run_probes: {len(result['lines'])} lines in "
+        f"{result['seconds']:.1f} s; launches {probe_launches}")
+    log(f"copy floor: {floor:.1f} GB/s ({floor * 1e9 / HBM_BYTES_PER_S:.1%} "
+        "of 3.35 TB/s), stream copying 16 planes of 8,060,928 u32")
+    log("stage ablation at the flagship call (10 u32 planes x 8M, "
+        "flagship mask):")
+    probes.compaction_ablation(
+        probes.ProbeRun(REPS, log, floor * 1e9), "flagship", s10, keep)
+
+    # phase 11
+    t0 = time.perf_counter()
+    k1.launches = k2.launches = k3.launches = 0
+    for name in kp.launches:
+        kp.launches[name] = 0
+    lexsort = lexsort_phase(pe, dev)
+    lexsort_launches = {"K1": k1.launches, "K2": k2.launches,
+                        "K3": k3.launches, **kp.launches}
+    log(f"phase 11 (config 3 lexsort): {time.perf_counter() - t0:.1f} s; "
+        f"kernel launches {lexsort_launches} (its path runs none)")
+    log(f"config 3: {json.dumps(lexsort)}")
+
     source = {"K1": "arrowtpu_torch/csrc/compact.cu",
               "K2": "arrowtpu_torch/csrc/compact.cu",
-              "K3": "arrowtpu_torch/csrc/compact2.cu"}
+              "K3": "arrowtpu_torch/csrc/compact2.cu",
+              "stream": "arrowtpu_torch/csrc/probes.cu",
+              "lane_roll": "arrowtpu_torch/csrc/probes.cu",
+              "tile_gather": "arrowtpu_torch/csrc/probes.cu",
+              "stages_k3": "arrowtpu_torch/csrc/compact2.cu",
+              "stages_k1": "arrowtpu_torch/csrc/compact.cu"}
     replaces = {"K1": "arrowtpu/pallas/compact3.py:126",
                 "K2": "arrowtpu/pallas/compact.py:158",
-                "K3": "arrowtpu/pallas/compact2.py:93"}
+                "K3": "arrowtpu/pallas/compact2.py:93",
+                "stream": "scripts/prof_floor.py:35, :82; "
+                          "scripts/prof_gather.py:23 (copy)",
+                "lane_roll": "scripts/prof_gather.py:23 (rolls); "
+                             "scripts/prof_v3.py:110",
+                "tile_gather": "scripts/prof_gather.py:23; "
+                               "scripts/prof_gather256.py:29; "
+                               "scripts/prof_deint.py:55; "
+                               "scripts/prof_pairlayout.py:78; "
+                               "scripts/prof_epi3.py:47; "
+                               "scripts/prof_v3.py:140, :174",
+                "stages_k3": "scripts/prof_v3.py:65-78 "
+                             "(arrowtpu/pallas/compact2.py:95 stages)",
+                "stages_k1": "scripts/prof_kernel.py:147"}
     names = {"K1": "compact3 (compact_scatter_kernel, u32/u64)",
              "K2": "compact (compact_scatter_kernel, u8/u32)",
-             "K3": "compact2 (compact2_kernel, u32, single pass)"}
+             "K3": "compact2 (compact2_kernel, u32, single pass)",
+             "stream": "stream (stream_kernel)",
+             "lane_roll": "lane_roll (lane_roll_kernel)",
+             "tile_gather": "tile_gather (tile_gather_kernel)",
+             "stages_k3": "compaction_stages K3 (compact2_kernel<stage>)",
+             "stages_k1": "compaction_stages K1 "
+                          "(compact_scatter_kernel<u32, stage>)"}
+    # each probe kernel's row in the JSON: its line at one probe shape
+    shown = {"stream": ("P4", "x + keep, P=2"),
+             "lane_roll": ("P1", "14 roll+where"),
+             "tile_gather": ("P1", "lane gather (u32 data)"),
+             "stages_k3": ("P7", "K3 full P=2"),
+             "stages_k1": ("P8", "K1 full P=2")}
+    for key, (pid, label) in shown.items():
+        line = next(x for x in result["lines"]
+                    if x["id"] == pid and x["label"].startswith(label))
+        kernels_rows[key] = dict(line, bound_by="bytes",
+                                 ms_events=line["events_ms"],
+                                 shape=f"{pid} {line['label']}: "
+                                       f"{line['shape']}")
     flagship = main_runs[CARDINALITIES[0]][1]
     launches = {"K1": flagship["K1"], "K2": flagship["K2"],
-                "K3": k3_launches["K3"]}
+                "K3": k3_launches["K3"], **probe_launches}
     by_path = {"flagship step": flagship, "join step": join_launches,
-               "compact2.compact_planes": k3_launches}
+               "compact2.compact_planes": k3_launches,
+               "run_probes": probe_launches,
+               "config 3 lexsort": lexsort_launches}
     kernels = []
-    for key in ("K1", "K2", "K3"):
+    for key in ("K1", "K2", "K3", *shown):
         row = kernels_rows[key]
         kernels.append({
             "name": names[key], "route": "cuda", "source": source[key],

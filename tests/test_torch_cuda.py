@@ -13,13 +13,17 @@ import numpy as np
 import pytest
 import torch
 
-from arrowtpu_torch.entry import (check_join_output, dryrun_multichip,
-                                  example_batch, example_join_shards,
-                                  join_oracle, join_step, step)
+from arrowtpu_torch.entry import (check_join_output, check_lexsort,
+                                  dryrun_multichip, example_batch,
+                                  example_join_shards,
+                                  example_lexsort_arrays, join_oracle,
+                                  join_step, lexsort_columns, lexsort_keys,
+                                  lexsort_step, step)
 from arrowtpu_torch.interop.numpy_bridge import batch_from_numpy
 from arrowtpu_torch.kernels import compact as k2
 from arrowtpu_torch.kernels import compact2 as k3
 from arrowtpu_torch.kernels import compact3 as k1
+from arrowtpu_torch.kernels import probes
 from arrowtpu_torch.ops.join import hash_join
 from arrowtpu_torch.parallel import mesh
 
@@ -162,3 +166,105 @@ def test_join_step_on_card_against_oracle(cuda):
 
 def test_dryrun_multichip_on_one_card(cuda):
     assert dryrun_multichip(1) > 0
+
+
+# ---------------------------------------------------------------------------
+# the probe kernels and the compaction stage variants
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 4097, 65_539])
+@pytest.mark.parametrize("P", [1, 2, 16])
+def test_stream_matches_plain(cuda, P, n):
+    planes = _planes(P, n, torch.int32, cuda, n + P)
+    keep = _keep(n, 0.5, cuda, n).to(torch.uint8)
+    probes.launches["stream"] = 0
+    for k in (None, keep, keep.bool()):
+        assert torch.equal(probes.stream(planes, k),
+                           probes.stream_plain(planes, k))
+    assert probes.launches["stream"] == 3
+    # planes and keep one word / one byte off their 16-byte boundary
+    raw = _planes(1, P * n + 1, torch.int32, cuda, 3)[0]
+    shifted = raw[1:].view(P, n)
+    kraw = _keep(n + 1, 0.5, cuda, 4).to(torch.uint8)
+    assert torch.equal(probes.stream(shifted, kraw[1:]),
+                       probes.stream_plain(shifted, kraw[1:]))
+
+
+@pytest.mark.parametrize("k,nsel", [(0, 0), (7, 0), (14, 14), (28, 28),
+                                    (56, 56), (14, 3)])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_lane_roll_matches_plain(cuda, k, nsel, with_mask):
+    x = _planes(1, 1000 * 128, torch.int32, cuda, k)[0].view(1000, 128)
+    mask = (_planes(1, 1000 * 128, torch.int32, cuda, 9)[0].view(1000, 128)
+            if with_mask else None)
+    assert torch.equal(probes.lane_roll(x, k, nsel, mask),
+                       probes.lane_roll_plain(x, k, nsel, mask))
+
+
+def _gather_case(pattern, W, rows, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    info = torch.iinfo(torch.int32)
+    shape = (2, rows, 128) if pattern == "reinterleave" else (rows, W)
+    x = torch.randint(info.min, info.max, shape, dtype=torch.int32,
+                      device=device, generator=g)
+    extent = {"sublanes": probes.TILE_ROWS, "pairs": 128}.get(pattern, W)
+    idx_shape = (rows, 128) if pattern == "pairs" else (rows, W)
+    idx = (None if pattern in ("rowmove", "deinterleave", "reinterleave")
+           else torch.randint(0, extent, idx_shape, dtype=torch.int32,
+                              device=device, generator=g))
+    return x, idx
+
+
+GATHERS = [(p, W) for p in ("lanes", "sublanes", "table", "chained",
+                            "rowmove") for W in (128, 256)]
+GATHERS += [("deinterleave", 256), ("reinterleave", 256), ("pairs", 256)]
+
+
+@pytest.mark.parametrize("pattern,W", GATHERS)
+def test_tile_gather_matches_plain(cuda, pattern, W):
+    x, idx = _gather_case(pattern, W, 3 * probes.TILE_ROWS, cuda, W)
+    got = probes.tile_gather(x, pattern, idx)
+    assert torch.equal(got, probes.tile_gather_plain(x, pattern, idx))
+    if idx is not None:  # indices past the extent wrap, as in the plain
+        wide = idx + 1024
+        assert torch.equal(probes.tile_gather(x, pattern, wide),
+                           probes.tile_gather_plain(x, pattern, wide))
+
+
+STAGE_CASES = [(s, k) for k in probes.KERNELS for s in probes.STAGES
+               if (s, k) != ("lookback", "k1")]
+
+
+@pytest.mark.parametrize("density", [0.0, 0.055, 0.5, 1.0])
+@pytest.mark.parametrize("stage,kernel", STAGE_CASES)
+def test_compaction_stage_matches_plain(cuda, stage, kernel, density):
+    n, P = 100_003, 3
+    planes = _planes(P, n, torch.int32, cuda, 11)
+    keep = _keep(n, density, cuda, 12)
+    got, aux = probes.compaction_stages(planes, keep, stage, kernel)
+    want, waux = probes.compaction_stages_plain(planes, keep, stage, kernel)
+    words = int(keep.sum()) if stage == "kept" else n
+    assert torch.equal(got[:, :words], want[:, :words])
+    assert (aux is None) == (waux is None)
+    if aux is not None:
+        assert torch.equal(aux, waux)
+
+
+def test_lexsort_on_card_matches_cpu(cuda):
+    """Config 3's lexsort at 1M rows: the card's index equals the CPU's
+    and passes the host check."""
+    arrays = example_lexsort_arrays(1_000_000)
+    got, want = (lexsort_step(lexsort_columns(*arrays, device=d))
+                 for d in (cuda, "cpu"))
+    assert got.length == want.length == 1_000_000
+    assert torch.equal(got.values.cpu(), want.values)
+    check_lexsort(want.values.numpy(), lexsort_keys(*arrays))
+
+
+@pytest.mark.parametrize("kernel,module", [("k3", k3), ("k1", k1)])
+def test_full_stage_is_the_production_kernel(cuda, kernel, module):
+    planes = _planes(17, 70_001, torch.int32, cuda, 13)
+    keep = _keep(70_001, 0.3, cuda, 14)
+    got, _ = probes.compaction_stages(planes, keep, "full", kernel)
+    assert torch.equal(got, module.compact_planes(planes, keep))

@@ -15,14 +15,17 @@ import arrowtpu_torch
 for m in pkgutil.walk_packages(arrowtpu_torch.__path__, "arrowtpu_torch."):
     importlib.import_module(m.name)
 for name in ("kernels.compact2", "ops.join", "ops.take", "rowformat.hashing",
-             "parallel.mesh", "parallel.shuffle", "parallel.distributed"):
+             "parallel.mesh", "parallel.shuffle", "parallel.distributed",
+             "kernels.probes", "probes", "ops.sort"):
     assert "arrowtpu_torch." + name in sys.modules, name
 import torch
 assert not torch.cuda.is_available()
-from arrowtpu_torch.entry import dryrun_multichip, entry, example_batch
+from arrowtpu_torch.entry import (dryrun_multichip, entry, example_batch,
+                                  example_lexsort_columns)
 from arrowtpu_torch.parallel import run
+from arrowtpu_torch.probes import run_probes
 for call in (entry, example_batch, lambda: dryrun_multichip(1),
-             lambda: run(print, 1)):
+             lambda: run(print, 1), example_lexsort_columns, run_probes):
     try:
         call()
     except RuntimeError as e:

@@ -4,8 +4,11 @@ Both packages get the same numpy arrays; results cross back as numpy
 (values, valid bools, length), so neither package's physical layout (the
 JAX sublane-major bitmaps and u32 limb pairs, the port's LSB bitmaps and
 native int64) enters a comparison.  Every comparison here is exact: the
-slice has no floating-point arithmetic except the mean, whose int64 sum
+port has no floating-point arithmetic except the mean, whose int64 sum
 and count are exact and whose one division rounds the same way in both.
+Float64 columns cross as values (the JAX package's limb pairs joined by
+`wide.join_numpy`); a test that must tell -0.0 from +0.0, or one NaN
+payload from another, compares their bits.
 """
 
 import numpy as np
@@ -19,7 +22,8 @@ import arrowtpu_torch as pt
 from arrowtpu_torch.core import bitmap as pbm
 
 _NP = {"int8": np.int8, "int16": np.int16, "int32": np.int32,
-       "int64": np.int64, "uint8": np.uint8, "float64": np.float64}
+       "int64": np.int64, "uint8": np.uint8, "float32": np.float32,
+       "float64": np.float64}
 
 
 def jax_column(values, valid, dtype_name):
