@@ -115,19 +115,7 @@ compact_scatter_kernel(const uint8_t* __restrict__ keep, int64_t n,
       const int aggregate = arrowtpu::rank_tile(keep, n, tile, ranks, ballots);
       if (threadIdx.x == 0) aux[blockIdx.x] = aggregate;
     }
-    for (int p = 0; p < num_planes; ++p) {
-      const T* __restrict__ src = planes.in[p] + tile + threadIdx.x;
-      T* __restrict__ out = planes.out[p] + tile + threadIdx.x;
-      T v[kRounds];
-#pragma unroll
-      for (int r = 0; r < kRounds; ++r) {
-        v[r] = tile + r * kThreads + threadIdx.x < n ? src[r * kThreads] : T(0);
-      }
-#pragma unroll
-      for (int r = 0; r < kRounds; ++r) {
-        if (tile + r * kThreads + threadIdx.x < n) out[r * kThreads] = v[r];
-      }
-    }
+    arrowtpu::copy_tile(n, num_planes, planes, tile);
     return;
   }
 

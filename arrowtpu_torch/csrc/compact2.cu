@@ -101,26 +101,6 @@ __device__ __forceinline__ int64_t look_back(Status* status, int64_t t,
   return exclusive;
 }
 
-// The planes of tile t copied straight through (stages kCopy to kLookback):
-// every load of a thread, then its stores, as the scatter does.
-__device__ __forceinline__ void copy_tile(
-    int64_t n, int num_planes, const PlanePtrs<uint32_t>& planes,
-    int64_t tile) {
-  for (int p = 0; p < num_planes; ++p) {
-    const uint32_t* __restrict__ src = planes.in[p] + tile + threadIdx.x;
-    uint32_t* __restrict__ out = planes.out[p] + tile + threadIdx.x;
-    uint32_t v[kRounds];
-#pragma unroll
-    for (int r = 0; r < kRounds; ++r) {
-      v[r] = tile + r * kThreads + threadIdx.x < n ? src[r * kThreads] : 0u;
-    }
-#pragma unroll
-    for (int r = 0; r < kRounds; ++r) {
-      if (tile + r * kThreads + threadIdx.x < n) out[r * kThreads] = v[r];
-    }
-  }
-}
-
 // kStage: a Stage of tile_rank.cuh; aux: one int64 a tile for kRank (the
 // tile's count) and kLookback (its exclusive prefix), else unused.
 template <int kStage>
@@ -142,7 +122,7 @@ compact2_kernel(const uint8_t* __restrict__ keep, int64_t n, int num_planes,
       const int aggregate = arrowtpu::rank_tile(keep, n, tile, ranks, ballots);
       if (threadIdx.x == 0) aux[blockIdx.x] = aggregate;
     }
-    copy_tile(n, num_planes, planes, tile);
+    arrowtpu::copy_tile(n, num_planes, planes, tile);
     return;
   }
 
@@ -160,7 +140,7 @@ compact2_kernel(const uint8_t* __restrict__ keep, int64_t n, int num_planes,
   __syncthreads();
   if constexpr (kStage == arrowtpu::kStageLookback) {
     if (threadIdx.x == 0) aux[t] = kept_before;
-    copy_tile(n, num_planes, planes, tile);
+    arrowtpu::copy_tile(n, num_planes, planes, tile);
     return;
   }
 

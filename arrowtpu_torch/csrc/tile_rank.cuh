@@ -112,4 +112,26 @@ __device__ __forceinline__ int rank_tile(const uint8_t* __restrict__ keep,
   return total;
 }
 
+// The planes of the tile starting at row `tile` copied straight through
+// (the stages before kStageKept): every load of a thread, then its stores,
+// as the scatter does.
+template <typename T>
+__device__ __forceinline__ void copy_tile(int64_t n, int num_planes,
+                                          const PlanePtrs<T>& planes,
+                                          int64_t tile) {
+  for (int p = 0; p < num_planes; ++p) {
+    const T* __restrict__ src = planes.in[p] + tile + threadIdx.x;
+    T* __restrict__ out = planes.out[p] + tile + threadIdx.x;
+    T v[kRounds];
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      v[r] = tile + r * kThreads + threadIdx.x < n ? src[r * kThreads] : T(0);
+    }
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      if (tile + r * kThreads + threadIdx.x < n) out[r * kThreads] = v[r];
+    }
+  }
+}
+
 }  // namespace arrowtpu

@@ -4,30 +4,34 @@ The JAX package's probes (`scripts/prof_*.py`, P1-P8) timed Pallas kernel
 bodies on a TPU to price a copy, a lane roll, each in-tile gather and each
 stage of the compaction.  `run_probes` runs their H100 counterparts
 (`kernels/probes.py`) at the probes' own shapes and labels and prints one
-line per probe body:
+line per H100 function, led by every probe body it answers:
 
-    P<i> <label>: <device ms> (events <ms>); bound <ms> (<share> of
-    3.35 TB/s, <share> of the measured copy floor); plain <ms>; library
-    <ms or ->; err <max |kernel - plain|>; <shape>
+    P<i> <label>: <ms> (warm <ms>); bound <ms> (<share> of 3.35 TB/s,
+    <share> of the measured copy floor); plain <ms>; library <ms or ->;
+    err <max |kernel - plain|>; <shape>
 
-Device ms are the summed durations of the kernels a call launches (CUPTI,
-through torch.profiler, per call over `reps` calls; `device_ms` says how
-it copes with lost profiler records), with the CUDA-event time of `reps`
-back-to-back calls, host gaps included, beside them.  The bound is the
-function's bytes (each input word read once, each output word written
-once) over 3.35 TB/s; the second share divides the same bytes by the
-measured copy floor, the rate of `stream` copying (16, 8,060,928) words,
-which `run_probes` times first.  `plain` is the kernel's plain PyTorch
-version and `library` one PyTorch call computing the same function, where
-there is one.  A CUDA device is required.
+A body whose function is the same call on the card as another's (the
+u32 and i32 lane gathers, the three pair gathers of P2 and P3, P5's flat
+and (n, 2) consumers and P6) shares that call's line.  Times are CUDA
+events on the card (`cold_ms`: the median call after an L2 flush, with
+the host's launch time hidden; `warm_ms`: back-to-back calls).  Every
+line's kernel is held bit for bit to its plain version at the shape it is
+timed at; a difference raises.  The bound is the function's bytes (each
+input word read once, each output word written once) over 3.35 TB/s; the
+second share divides the same bytes by the measured copy floor, the rate
+of `stream` copying (16, 8,060,928) words, which `run_probes` times
+first.  `plain` is the kernel's plain PyTorch version and `library` one
+PyTorch call computing the same function, where there is one.  A CUDA
+device is required.
 
     python -c "from arrowtpu_torch.probes import run_probes; run_probes()"
 """
 
 from __future__ import annotations
 
+import statistics
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -41,51 +45,54 @@ ROWS = N // 128  # 62,976 rows of 128 words, or of 256 in the 256-wide probes
 N_V3 = 8_000_000  # prof_v3.py's plane; its Pallas grid covered 122 tiles
 ROWS_V3 = 122 * kp.TILE_ROWS
 FLOOR_PLANES = 16
+FLUSH_BYTES = 256 * 2**20  # read between timed calls: 5x the H100's L2
+QUEUE_CYCLES = 50_000_000  # the card's wait before timed calls, ~25 ms
 
 
-def _kernel_records(fn: Callable, reps: int) -> Dict[str, Tuple[float, int]]:
-    """Run fn() `reps` times under torch.profiler; -> {kernel or memset
-    name: (device microseconds, records)}."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: (e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+_flush_bufs: Dict[torch.device, torch.Tensor] = {}
 
 
-def device_ms(fn: Callable, reps: int, windows: int = 3) -> float:
-    """Mean device time per call of fn(): the kernels it launches, summed
-    (CUPTI through torch.profiler), after one warm-up call.  A profiler
-    window can lose kernel records (on the H100 a window kept from half
-    to all of them), so each kernel's mean duration is taken over all its
-    records in `windows` windows of `reps` calls, and its launches per
-    call are the most records any window kept, over reps, rounded."""
+def _l2_flush(device) -> None:
+    """Read FLUSH_BYTES on `device` (a reduction, no host sync): the L2
+    then holds clean lines of that buffer, so the next call reads its
+    inputs from HBM and evicts no dirty line of an earlier call."""
+    buf = _flush_bufs.get(device)
+    if buf is None:
+        buf = _flush_bufs[device] = torch.zeros(
+            FLUSH_BYTES // 4, dtype=torch.int32, device=device)
+    buf.max()
+
+
+def cold_ms(fn: Callable, reps: int) -> float:
+    """Median time of one call of fn() with a cold L2: CUDA events around
+    each of `reps` calls, each call after an L2 flush (`_l2_flush`), all
+    queued on the card behind a wait of QUEUE_CYCLES, so that the host's
+    launch time is hidden and the events bracket the card's work alone
+    (where fn reads a result back to the host, its wait is included)."""
     fn()
     torch.cuda.synchronize()
-    seen = [_kernel_records(fn, reps) for _ in range(windows)]
-    us = 0.0
-    for name in set().union(*seen):
-        total = sum(w[name][0] for w in seen if name in w)
-        records = sum(w[name][1] for w in seen if name in w)
-        per_call = max(1, round(max(w[name][1] for w in seen if name in w)
-                                / reps))
-        us += total / records * per_call
-    return us / 1e3
+    dev = torch.device("cuda", torch.cuda.current_device())
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(QUEUE_CYCLES)
+    for start, end in events:
+        _l2_flush(dev)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def events_ms(fn: Callable, reps: int) -> float:
-    """Mean time per call of `reps` back-to-back calls of fn() between two
-    CUDA events, after one warm-up call: device time plus whatever host
-    time the launches leave the card idle; a check on device_ms."""
+def warm_ms(fn: Callable, reps: int) -> float:
+    """Mean time per call of `reps` back-to-back calls of fn(), queued
+    behind a wait as in cold_ms: each call finds the L2 as the call before
+    left it."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -137,18 +144,27 @@ class ProbeRun:
     def probe(self, pid: str, label: str, kernel: str, fn, plain, nbytes,
               library: Optional[Callable] = None, shape: str = "",
               compare: Callable = None) -> Dict:
-        """Time one probe body's counterpart; its launches for the check
-        against the plain version are not counted."""
-        ms = device_ms(fn, self.reps)
+        """Time one probe body's counterpart fn() (which must launch
+        `kernel`), its plain version and the library call, and hold fn()
+        to the plain version: AssertionError unless they agree bit for
+        bit.  The launches of the check are not counted."""
+        before = kp.launches[kernel]
+        fn()
+        if kp.launches[kernel] == before:
+            raise AssertionError(f"{pid} {label}: {kernel} not launched")
+        ms = cold_ms(fn, self.reps)
+        warm = warm_ms(fn, self.reps)
         saved = dict(kp.launches)
         want = plain()
         err = (compare or _max_abs_err)(fresh_call(fn, want), want)
         kp.launches.update(saved)
+        if err:
+            raise AssertionError(f"{pid} {label}: differs from its plain "
+                                 f"version by up to {err} at {shape}")
         line = {"id": pid, "label": label, "kernel": kernel, "ms": ms,
-                "events_ms": events_ms(fn, self.reps),
-                "plain_ms": device_ms(plain, self.reps),
+                "warm_ms": warm, "plain_ms": cold_ms(plain, self.reps),
                 "library_ms": (None if library is None
-                               else device_ms(library, self.reps)),
+                               else cold_ms(library, self.reps)),
                 "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                 "max_abs_err": err, "shape": shape}
         if self.floor_bytes_per_s:
@@ -164,8 +180,8 @@ def format_line(line: Dict) -> str:
     shares = f"{line['bound_ms'] / line['ms']:.0%} of 3.35 TB/s"
     if floor is not None:
         shares += f", {floor / line['ms']:.0%} of the measured copy floor"
-    return (f"{line['id']} {line['label']}: {line['ms']:.4f} ms (events "
-            f"{line['events_ms']:.4f} ms); bound "
+    return (f"{line['id']} {line['label']}: {line['ms']:.4f} ms (warm "
+            f"{line['warm_ms']:.4f} ms); bound "
             f"{line['bound_ms']:.4f} ms ({shares}); plain "
             f"{line['plain_ms']:.4f} ms; library "
             f"{'-' if lib is None else f'{lib:.4f} ms'}; err "
@@ -271,12 +287,11 @@ def run_probes(device=None, reps: int = 30, log=print) -> Dict:
     idxl = index(ROWS, 128, extent=128)
     idxl64 = idxl.to(torch.int64)
     xu = x.view(torch.uint32)
-    for label, data in (("lane gather (u32 data)", xu),
-                        ("lane gather (i32 data)", x)):
-        run.probe("P1", label, "tile_gather",
-                  lambda: kp.tile_gather(data, "lanes", idxl),
-                  lambda: kp.tile_gather_plain(data, "lanes", idxl), 12 * N,
-                  lambda: torch.gather(x, 1, idxl64), shape + ", idx i32")
+    # the u32 and i32 bodies are one function of the same 4-byte words
+    run.probe("P1", "lane gather (u32 data; i32 data)", "tile_gather",
+              lambda: kp.tile_gather(xu, "lanes", idxl),
+              lambda: kp.tile_gather_plain(xu, "lanes", idxl), 12 * N,
+              lambda: torch.gather(x, 1, idxl64), shape + ", idx i32")
     t = ROWS // kp.TILE_ROWS
     idxs = index(ROWS, 128, extent=kp.TILE_ROWS)
     idxs64 = idxs.to(torch.int64).view(t, kp.TILE_ROWS, 128)
@@ -293,12 +308,10 @@ def run_probes(device=None, reps: int = 30, log=print) -> Dict:
                   lambda: kp.tile_gather(x, pattern, idxl),
                   lambda: kp.tile_gather_plain(x, pattern, idxl), nbytes,
                   None, shape + ", idx i32")
-    for label in ("row move, int8 one-hot matmul body",
-                  "row move, per-byte 4-matmul body"):
-        run.probe("P1", label, "tile_gather",
-                  lambda: kp.tile_gather(x, "rowmove"),
-                  lambda: kp.tile_gather_plain(x, "rowmove"), 8 * N, None,
-                  shape)
+    run.probe("P1", "row move (int8 one-hot matmul body; per-byte "
+              "4-matmul body)", "tile_gather",
+              lambda: kp.tile_gather(x, "rowmove"),
+              lambda: kp.tile_gather_plain(x, "rowmove"), 8 * N, None, shape)
     del m, idxs, idxs64
 
     # P2: scripts/prof_gather256.py, (62,976, 256) i32 words
@@ -307,7 +320,8 @@ def run_probes(device=None, reps: int = 30, log=print) -> Dict:
     idx256 = index(ROWS, 256, extent=256)
     idx128 = idx128_pairs = index(ROWS, 128, extent=128)
     shape256 = f"({ROWS}, 256) i32"
-    run.probe("P2", "copy 256", "stream", lambda: kp.stream(x256.view(1, -1)),
+    run.probe("P2, P3", "copy 256", "stream",
+              lambda: kp.stream(x256.view(1, -1)),
               lambda: kp.stream_plain(x256.view(1, -1)), 16 * N, x256.clone,
               shape256)
     for label, data, idx in (("dyn gather 128", x128, idx128),
@@ -320,21 +334,17 @@ def run_probes(device=None, reps: int = 30, log=print) -> Dict:
                   f"({ROWS}, {data.shape[1]}) i32")
     pair_idx = idx128_pairs.to(torch.int64)[..., None].expand(ROWS, 128, 2)
     pair_idx = pair_idx.contiguous()
-    for pid, label in (("P2", "pair gather 256 (expand + dyn)"),
-                       ("P2", "deint + 2x g128 + reint"),
-                       ("P3", "deint + dyn move + reint")):
-        run.probe(pid, label, "tile_gather",
-                  lambda: kp.tile_gather(x256, "pairs", idx128_pairs),
-                  lambda: kp.tile_gather_plain(x256, "pairs", idx128_pairs),
-                  16 * N + 4 * N,
-                  lambda: torch.gather(x256.view(ROWS, 128, 2), 1, pair_idx),
-                  shape256 + f", idx ({ROWS}, 128) i32")
+    run.probe("P2, P3", "pair gather (P2 pair gather 256, expand + dyn; "
+              "P2 deint + 2x g128 + reint; P3 deint + dyn move + reint)",
+              "tile_gather",
+              lambda: kp.tile_gather(x256, "pairs", idx128_pairs),
+              lambda: kp.tile_gather_plain(x256, "pairs", idx128_pairs),
+              16 * N + 4 * N,
+              lambda: torch.gather(x256.view(ROWS, 128, 2), 1, pair_idx),
+              shape256 + f", idx ({ROWS}, 128) i32")
     del idx256, pair_idx
 
-    # P3: scripts/prof_deint.py
-    run.probe("P3", "copy 256", "stream", lambda: kp.stream(x256.view(1, -1)),
-              lambda: kp.stream_plain(x256.view(1, -1)), 16 * N, x256.clone,
-              shape256)
+    # P3: scripts/prof_deint.py (its copy 256 and pair move are above)
     run.probe("P3", "deint + reint (two launches: deinterleave, "
               "reinterleave)", "tile_gather",
               lambda: kp.tile_gather(kp.tile_gather(x256, "deinterleave"),
@@ -361,19 +371,16 @@ def run_probes(device=None, reps: int = 30, log=print) -> Dict:
     reint_plain = lambda: kp.tile_gather_plain(pl2, "reinterleave")  # noqa
     stack = lambda: torch.stack([pl2[0], pl2[1]], -1)  # noqa: E731
     shape_p = f"2 x ({ROWS}, 128) u32 -> ({ROWS}, 256)"
-    run.probe("P5", "reinterleave, tiles, flat consume", "tile_gather",
+    # the (n, 2) view and P6's unused prefetched count add no work on
+    # the card: one line answers all three bodies
+    run.probe("P5, P6", "reinterleave (P5 flat consume, tiles and (n, 2) "
+              "view; P6 behind an unused prefetched count)", "tile_gather",
               reint, reint_plain, 16 * N, stack, shape_p)
-    run.probe("P5", "reinterleave, (n, 2) view, flat consume", "tile_gather",
-              lambda: reint().view(N, 2), lambda: reint_plain().view(N, 2),
-              16 * N, stack, shape_p + ", viewed (n, 2) (free)")
     run.probe("P5", "reinterleave, (n,) int64 view, element 0 consumed",
               "tile_gather", lambda: reint().view(torch.int64)[:1].clone(),
               lambda: reint_plain().view(torch.int64)[:1].clone(), 16 * N,
               lambda: stack().view(torch.int64)[:1].clone(),
               shape_p + ", viewed (n,) int64, [0] copied out")
-    run.probe("P6", "reinterleave behind an unused prefetched count (P5's "
-              "function)", "tile_gather", reint, reint_plain, 16 * N, stack,
-              shape_p)
     del pl2
 
     # P7: scripts/prof_v3.py, one plane of 8M rows as (62,464, 128)

@@ -24,10 +24,11 @@ Phases (each raises on failure; the exit code is then non-zero):
      clock), a torch.profiler breakdown of the step with the device's busy
      share, and each kernel at the main path's largest call (the filter)
      beside its bound, its plain version and the PyTorch library call that
-     computes the same function.  Kernel, plain and library times are the
-     device time of the kernels each call launches (CUPTI, through
-     torch.profiler, mean of 30 calls); their CUDA-event medians, which
-     include the host's work, are printed beside them;
+     computes the same function.  Kernel, plain and library times are CUDA
+     events on the card: the median of 30 calls, each after an L2 flush,
+     queued behind a wait so that the host's launch time is hidden
+     (`probes.cold_ms`); the kernel's back-to-back time (`warm_ms`) is
+     printed beside them;
   5. K3 (kernels/compact2.py, single pass) against its plain version and
      against K1 (the same function), bit-exact with the zero tail, at P in
      {1, 2, 4, 8, 16}, the five densities and both n, each case on two
@@ -60,15 +61,19 @@ Phases (each raises on failure; the exit code is then non-zero):
      0.5, 1} (P = 2, n = 8,000,001);
   10. `probes.run_probes()` at the probes' own shapes, its launch counts
      set to 0 just before and read just after (every probe kernel must
-     have run): one line per probe body, then the measured copy floor;
-     then the stage ablation of K3 and K1 at phase 7's flagship call;
+     have run): one line per H100 function with the probe bodies it
+     answers, then the measured copy floor; then the stage ablation of K3
+     and K1 at phase 7's flagship call.  Every line's kernel is held bit
+     for bit to its plain version at the shape it is timed at;
   11. BASELINE config 3 (`entry.lexsort_step`, the lexsort of int32,
      float64 and dictionary-utf8 columns) at its full 100,000,000 rows:
      held to np.lexsort at 1,000,000 rows, then at full size to the host
      check (a permutation under which the key tuples never decrease and
      ties keep row order), its time (CUDA events, median of 5), its
-     stages (encode, pack read-back, each stable sort pass), the words
-     pack forms, its peak memory and a torch.profiler busy share.  It
+     stages (encode, pack read-back and sort_permutation by CUDA events;
+     each stable sort pass's device time from a torch.profiler trace of
+     the step), the words pack forms, its peak memory and a
+     torch.profiler busy share.  It
      runs no kernel of the port: PyTorch's sort does the work.
 
 The line before the last lists the kernels as JSON (`launches` from the
@@ -155,14 +160,20 @@ def _device_us(rows) -> float:
                if r.device_type == torch.autograd.DeviceType.CUDA)
 
 
-def device_ms(fn, reps=REPS) -> float:
-    """Mean device time per run of fn(): the summed durations of the
-    kernels it launched (CUPTI), without the host's time; a profiler
-    window that lost kernel records is measured again
-    (arrowtpu_torch.probes.device_ms)."""
-    from arrowtpu_torch.probes import device_ms as guarded
+def cold_ms(fn, reps=REPS) -> float:
+    """Median time of one call of fn() on the card after an L2 flush, the
+    host's launch time hidden (arrowtpu_torch.probes.cold_ms)."""
+    from arrowtpu_torch.probes import cold_ms as timed
 
-    return guarded(fn, reps)
+    return timed(fn, reps)
+
+
+def warm_ms(fn, reps=REPS) -> float:
+    """Mean time per call of back-to-back calls of fn() on the card
+    (arrowtpu_torch.probes.warm_ms)."""
+    from arrowtpu_torch.probes import warm_ms as timed
+
+    return timed(fn, reps)
 
 
 def profile(fn, reps=5):
@@ -334,9 +345,8 @@ def check_against_oracle(out, want, bm):
 
 def time_kernel(name, wrapper, plain, library, planes, keep, out_rows):
     """The kernel wrapper, its plain version and the library call on the
-    same inputs: device time per call (the kernels each launches, CUPTI)
-    and the median CUDA-event time per call (host work included), beside
-    the function's bound for this run's data: the mask read once, the kept
+    same inputs: the card's time per call after an L2 flush (cold_ms), and
+    the wrapper's back-to-back (warm_ms), beside the function's bound for this run's data: the mask read once, the kept
     words read once, the out_rows words of every output plane written once
     (the zero tail is part of the output).  There is no arithmetic to bound
     it."""
@@ -344,12 +354,9 @@ def time_kernel(name, wrapper, plain, library, planes, keep, out_rows):
     w = planes[0].element_size()
     kept = int(keep.sum())
     nbytes = n * keep.element_size() + P * w * kept + P * w * out_rows
-    row = {"ms": device_ms(wrapper), "plain_ms": device_ms(plain),
-           "library_ms": device_ms(library),
+    row = {"ms": cold_ms(wrapper), "warm_ms": warm_ms(wrapper),
+           "plain_ms": cold_ms(plain), "library_ms": cold_ms(library),
            "bound_ms": bytes_bound_ms(nbytes), "bound_by": "bytes",
-           "ms_events": median_ms(wrapper),
-           "plain_ms_events": median_ms(plain),
-           "library_ms_events": median_ms(library),
            "shape": f"P={P} x n={n} x {w} B -> {out_rows} rows, "
                     f"kept {kept}"}
     log(f"  {name}: {row}")
@@ -536,6 +543,30 @@ def check_probes(kp, probes, dev) -> None:
         "densities)")
 
 
+def sort_passes_ms(fn, passes, reps=3):
+    """Device ms of each stable sort pass of fn() in launch order: the
+    top-level aten::sort ops of a torch.profiler trace of `reps` runs, each
+    op's time that of the kernels it launched (CUPTI), averaged by pass.
+    fn() must run `passes` sorts."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    sorts = sorted((e for e in prof.events() if e.name == "aten::sort" and (
+        e.cpu_parent is None or e.cpu_parent.name != "aten::sort")),
+        key=lambda e: e.time_range.start)
+    if len(sorts) != reps * passes:
+        raise AssertionError(f"{len(sorts)} sorts in {reps} runs, expected "
+                             f"{passes} a run")
+    return [sum(e.device_time_total for e in sorts[i::passes]) / reps / 1e3
+            for i in range(passes)]
+
+
 def lexsort_phase(pe, dev) -> dict:
     """Phase 11: config 3 at 100M rows.  -> its numbers."""
     from arrowtpu_torch.core import bitmap as bm
@@ -589,19 +620,13 @@ def lexsort_phase(pe, dev) -> dict:
     for w in words:
         lo, hi = int(w.min()), int(w.max())
         layout.append("raw 64-bit" if lo < 0 else f"{hi.bit_length()} bits")
-    perm, passes = None, []
-    for w in reversed(words):
-        if perm is None:
-            def sort_pass():
-                return torch.sort(w, stable=True).indices
-        else:
-            def sort_pass():
-                return perm[torch.sort(w[perm], stable=True).indices]
-        passes.append(stage(sort_pass))
-        perm = sort_pass()
-    stages["sort_pass_ms (least significant word first)"] = passes
-    stages["to_int32_ms"] = stage(lambda: perm.to(torch.int32))
-    del planes, live, words, perm
+    n_words = len(words)
+    del words
+    stages["sort_permutation_ms"] = stage(lambda: rp.sort_permutation(
+        planes, first.capacity, first.length))
+    stages["sort_pass_device_ms (least significant word first)"] = \
+        sort_passes_ms(lambda: pe.lexsort_step(cols), n_words)
+    del planes, live
     row = {"rows": LEXSORT_ROWS, "step_ms": step_ms, "stages": stages,
            "words": layout, "inputs_gb": inputs / 1e9,
            "peak_gib": peak / 2**30, "held_before_gib": held / 2**30,
@@ -700,8 +725,8 @@ def main() -> int:
         p8 = [batch[c].values for c in ("a", "b", "c", "k", "v")]
         p1 = [bm.unpack(batch[c].validity) for c in ("a", "b", "c", "v")]
         s8, s1 = torch.stack(p8), torch.stack(p1)
-        log(f"  tile offsets (count kernel + cumsum): device "
-            f"{device_ms(lambda: k1.tile_offsets(keep)):.4f} ms")
+        log(f"  tile offsets (count kernel + cumsum): "
+            f"{cold_ms(lambda: k1.tile_offsets(keep)):.4f} ms")
         calls = {
             "K1": (lambda: k1.compact_planes(p8, keep, offs, rows),
                    lambda: k1.compact_planes_plain(p8, keep, rows),
@@ -732,8 +757,8 @@ def main() -> int:
                 w = planes[0].element_size()
                 bound = bytes_bound_ms(
                     N_MAIN + len(planes) * w * (kept + N_MAIN))
-                log(f"  {name} at {density:.0%} kept, full output: device "
-                    f"{device_ms(fn):.4f} ms, bound {bound:.4f} ms")
+                log(f"  {name} at {density:.0%} kept, full output: "
+                    f"{cold_ms(fn):.4f} ms, bound {bound:.4f} ms")
 
     # the step is host-bound and host clocks vary on a shared machine: its
     # time again, the two cardinalities in turns, for the spread
@@ -785,16 +810,16 @@ def main() -> int:
     if err:
         raise AssertionError("K3: differs at the main shape")
     kernels_rows["K3"]["max_abs_err"] = float(err)
-    log(f"  K1 on the same call: device "
-        f"{device_ms(lambda: k1.compact_planes(s10, keep)):.4f} ms")
+    log(f"  K1 on the same call: "
+        f"{cold_ms(lambda: k1.compact_planes(s10, keep)):.4f} ms")
     g = torch.Generator(device=dev).manual_seed(3)
     for density in (0.5, 0.96):
         dense = torch.rand(N_MAIN, device=dev, generator=g) < density
         kept = int(dense.sum())
         bound = bytes_bound_ms(N_MAIN + 4 * len(s10) * (kept + N_MAIN))
-        log(f"  K3 at {density:.0%} kept: device "
-            f"{device_ms(lambda: k3.compact_planes(s10, dense)):.4f} ms, "
-            f"K1 {device_ms(lambda: k1.compact_planes(s10, dense)):.4f} "
+        log(f"  K3 at {density:.0%} kept: "
+            f"{cold_ms(lambda: k3.compact_planes(s10, dense)):.4f} ms, "
+            f"K1 {cold_ms(lambda: k1.compact_planes(s10, dense)):.4f} "
             f"ms, bound {bound:.4f} ms")
 
     # phase 8
@@ -821,8 +846,15 @@ def main() -> int:
         "of 3.35 TB/s), stream copying 16 planes of 8,060,928 u32")
     log("stage ablation at the flagship call (10 u32 planes x 8M, "
         "flagship mask):")
-    probes.compaction_ablation(
-        probes.ProbeRun(REPS, log, floor * 1e9), "flagship", s10, keep)
+    ablation = probes.ProbeRun(REPS, log, floor * 1e9)
+    probes.compaction_ablation(ablation, "flagship", s10, keep)
+    # ProbeRun.probe raises on a difference; every line is read once more
+    for line in result["lines"] + ablation.lines:
+        if line["max_abs_err"] != 0:
+            raise AssertionError(f"{line['id']} {line['label']}: differs "
+                                 "from its plain version")
+    log(f"probe lines: {len(result['lines']) + len(ablation.lines)}, every "
+        "kernel bit-exact against its plain version at its timed shape")
 
     # phase 11
     t0 = time.perf_counter()
@@ -872,14 +904,13 @@ def main() -> int:
     # each probe kernel's row in the JSON: its line at one probe shape
     shown = {"stream": ("P4", "x + keep, P=2"),
              "lane_roll": ("P1", "14 roll+where"),
-             "tile_gather": ("P1", "lane gather (u32 data)"),
+             "tile_gather": ("P1", "lane gather (u32 data; i32 data)"),
              "stages_k3": ("P7", "K3 full P=2"),
              "stages_k1": ("P8", "K1 full P=2")}
     for key, (pid, label) in shown.items():
         line = next(x for x in result["lines"]
                     if x["id"] == pid and x["label"].startswith(label))
         kernels_rows[key] = dict(line, bound_by="bytes",
-                                 ms_events=line["events_ms"],
                                  shape=f"{pid} {line['label']}: "
                                        f"{line['shape']}")
     flagship = main_runs[CARDINALITIES[0]][1]
@@ -898,7 +929,7 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "ms_events": row["ms_events"], "shape": row["shape"],
+            "warm_ms": row["warm_ms"], "shape": row["shape"],
             "launches_by_path": {p: c.get(key, 0)
                                  for p, c in by_path.items()}})
     log(card)
