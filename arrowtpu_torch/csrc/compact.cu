@@ -4,46 +4,39 @@
 //
 // Replaces two Pallas TPU kernels of the JAX package:
 //   * arrowtpu/pallas/compact3.py, _compact3_kernel (entry compact_planes):
-//     the u32 plane compaction of the filter and of group extraction.  Here
-//     it is the uint32 and uint64 instantiations, so 8-byte columns move as
-//     whole words with no limb split.
+//     the u32 plane compaction of the filter and of group extraction (K1).
+//     Here it is tile_compact_kernel (tile_rank.cuh, which gives the design
+//     and the bound) at uint32 and uint64 words, so 8-byte columns move as
+//     whole words with no limb split, in one of two frames:
+//       - kFrameOffs when the caller passes `offs`, the exclusive prefix of
+//         the tile counts (the filter's plan, which K2 shares): a tile's
+//         zeros go to [count + db, count + db + D);
+//       - kFrameLookback when it does not (group extraction): one launch
+//         after a scratch memset, no count pass and no cumsum; the offset
+//         comes from the decoupled look-back and a tile's zeros go to
+//         [n - db - D, n - db), as in K3 (csrc/compact2.cu).
+//     Zeros past out_rows (the filter and group extraction cut the output
+//     near the count) are never written.
 //   * arrowtpu/pallas/compact.py, _compact_kernel (entries
 //     compact_planes_info / compact_words / compact_bytes): the same contract
-//     in u32 or u8 mode.  The u8 mode (bool and validity planes) is the
-//     uint8 instantiation.
+//     in u32 or u8 mode (K2), plus the count.  K2 is tile_counts_kernel, a
+//     torch.cumsum of the counts, then compact_scatter_kernel at uint8 (the
+//     bool and validity planes) and uint32 words:
+//       1. tile_counts_kernel: one block per tile of kTile rows counts the
+//          kept rows (16-byte vector loads, popcount of the 0/1 bytes);
+//       2. the caller takes the exclusive prefix over the tile counts (a
+//          torch.cumsum, as the JAX package leaves tile_offsets to XLA);
+//       3. compact_scatter_kernel ranks its tile's rows (tile_rank.cuh), then
+//          every row writes each plane at most once: a kept row its value at
+//          its rank, a dropped row a zero at count + (its rank among dropped
+//          rows), a thread's 16 loads of a plane in flight before it stores.
+//     Bound: n + P*w*count + P*w*out_rows bytes over 3.35 TB/s (the mask
+//     read twice by the design).  Its redesign on K1's tile body is next.
 //
-// Bound on an H100 SXM: the work is pure data movement, with no arithmetic
-// to speak of.  Bytes moved = keep mask read twice (count pass + scatter
-// pass) + P*w*n read + P*w*n written, over 3.35 TB/s of HBM3.  The design
-// spends nothing beyond that, and less where the data allows:
-//   1. tile_counts_kernel: one block per tile of kTile rows counts the kept
-//      rows (16-byte vector loads, popcount of the 0/1 bytes).
-//   2. The caller takes the exclusive prefix over the few thousand tile
-//      counts (a torch.cumsum, as the JAX package leaves tile_offsets to
-//      XLA), so no block waits on another.
-//   3. compact_scatter_kernel: each block stages its tile's mask in shared
-//      memory (one 16-byte load a thread), ranks its rows with warp ballots
-//      and a 128-entry scan, then every row writes each plane at most once:
-//      a kept row its value at its rank, a dropped row a zero at count + (its
-//      rank among dropped rows).  The zero tail thus costs no extra pass (the
-//      output is allocated with torch.empty), reads are coalesced, the kept /
-//      dropped rows of a warp land on two contiguous runs, and a thread has
-//      all 16 of its loads of a plane in flight before it stores.  Planes
-//      are a runtime loop over pointers passed by value (__grid_constant__),
-//      so one launch moves up to 16 planes.  Loads of dropped rows are
-//      predicated off, so a
-//      sparse mask reads about P*w*count bytes, not P*w*n.  The output may
-//      be shorter than n (out_rows, at least the count): the filter sizes
-//      it to the count rounded up to the capacity granule, and the zeros
-//      past out_rows are never written.  The least bytes for that function
-//      are n + P*w*count + P*w*out_rows.
-// None of the TPU machinery carries over: no MXU one-hot row scatter, lane
-// routing rounds, DMA window ladders or VMEM budgets.
-//
-// The scatter kernel is templated on a Stage (tile_rank.cuh) for the stage
-// ablation of the TPU probe scripts/prof_kernel.py (P8): the entry points
-// of K1 and K2 instantiate only kStageFull; arrowtpu_compact_scatter_stage runs
-// the others at 4-byte words.
+// The Stage parameter (tile_rank.cuh) serves the stage ablation of the TPU
+// probe scripts/prof_kernel.py (P8): the entry points of K1 and K2
+// instantiate only kStageFull; arrowtpu_compact_tiles_stage runs K1's other
+// stages at 4-byte words in kFrameOffs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -225,38 +218,71 @@ int arrowtpu_compact_scatter(int word_bytes, const void* keep, int64_t n,
     case 4:
       return launch_scatter<uint32_t>(keep, n, offs, num_planes, in, out,
                                       out_rows, s);
-    case 8:
-      return launch_scatter<uint64_t>(keep, n, offs, num_planes, in, out,
-                                      out_rows, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The stage ablation of the u32 scatter (K1's words at 4 bytes): as
-// arrowtpu_compact_scatter with out_rows = n, for a Stage of tile_rank.cuh
-// other than kLookback; aux: (ceil(n / kTile),) int64 for kRank.  offs is
-// read by kKept and kFull only.
-int arrowtpu_compact_scatter_stage(int stage, const void* keep, int64_t n,
-                                   const void* offs, int num_planes,
-                                   const void* const* in, void* const* out,
-                                   void* aux, void* stream) {
-  if (n <= 0 || num_planes < 1 || num_planes > kMaxPlanes)
+// K1: in / out as for arrowtpu_compact_scatter, words of 4 or 8 bytes.
+// offs: the tile offsets (kFrameOffs), or null for the look-back frame, in
+// which scratch (ceil(n / kTile) 8-byte status words) is zeroed here on the
+// stream before the launch.
+int arrowtpu_compact_tiles(int word_bytes, const void* keep, int64_t n,
+                           const void* offs, int num_planes,
+                           const void* const* in, void* const* out,
+                           int64_t out_rows, void* scratch, void* stream) {
+  using arrowtpu::kFrameLookback;
+  using arrowtpu::kFrameOffs;
+  using arrowtpu::kStageFull;
+  using arrowtpu::launch_tile_compact;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (offs == nullptr && scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  switch (word_bytes * 2 + (offs == nullptr)) {
+    case 8:
+      return launch_tile_compact<uint32_t, kFrameOffs, kStageFull>(
+          keep, n, offs, num_planes, in, out, out_rows, nullptr, nullptr, s);
+    case 9:
+      return launch_tile_compact<uint32_t, kFrameLookback, kStageFull>(
+          keep, n, nullptr, num_planes, in, out, out_rows, scratch, nullptr,
+          s);
+    case 16:
+      return launch_tile_compact<uint64_t, kFrameOffs, kStageFull>(
+          keep, n, offs, num_planes, in, out, out_rows, nullptr, nullptr, s);
+    case 17:
+      return launch_tile_compact<uint64_t, kFrameLookback, kStageFull>(
+          keep, n, nullptr, num_planes, in, out, out_rows, scratch, nullptr,
+          s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The stage ablation of K1 at 4-byte words in kFrameOffs: as
+// arrowtpu_compact_tiles with out_rows = n, for a Stage of tile_rank.cuh
+// other than kLookback (K1's offsets there come from its count pass and
+// cumsum, separate launches); aux: (ceil(n / kTile),) int64 for kRank.
+// offs is read by kKept and kFull only.
+int arrowtpu_compact_tiles_stage(int stage, const void* keep, int64_t n,
+                                 const void* offs, int num_planes,
+                                 const void* const* in, void* const* out,
+                                 void* aux, void* stream) {
+  using arrowtpu::kFrameOffs;
+  using arrowtpu::launch_tile_compact;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (stage) {
     case arrowtpu::kStageCopy:
-      return launch_scatter<uint32_t, arrowtpu::kStageCopy>(
-          keep, n, offs, num_planes, in, out, n, s, aux);
+      return launch_tile_compact<uint32_t, kFrameOffs, arrowtpu::kStageCopy>(
+          keep, n, offs, num_planes, in, out, n, nullptr, aux, s);
     case arrowtpu::kStageRank:
-      return launch_scatter<uint32_t, arrowtpu::kStageRank>(
-          keep, n, offs, num_planes, in, out, n, s, aux);
+      return launch_tile_compact<uint32_t, kFrameOffs, arrowtpu::kStageRank>(
+          keep, n, offs, num_planes, in, out, n, nullptr, aux, s);
     case arrowtpu::kStageKept:
-      return launch_scatter<uint32_t, arrowtpu::kStageKept>(
-          keep, n, offs, num_planes, in, out, n, s, aux);
+      return launch_tile_compact<uint32_t, kFrameOffs, arrowtpu::kStageKept>(
+          keep, n, offs, num_planes, in, out, n, nullptr, aux, s);
     case arrowtpu::kStageFull:
-      return launch_scatter<uint32_t, arrowtpu::kStageFull>(
-          keep, n, offs, num_planes, in, out, n, s, aux);
+      return launch_tile_compact<uint32_t, kFrameOffs, arrowtpu::kStageFull>(
+          keep, n, offs, num_planes, in, out, n, nullptr, aux, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -43,17 +43,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build(verbose: bool = False) -> tuple[Path, float, str]:
+def build() -> tuple[Path, float, str]:
     """Compile the library if it is not built yet.  Returns (path, seconds
-    spent compiling, compiler output); `verbose` adds `-Xptxas -v`, which
-    reports each kernel's registers and spills."""
+    spent compiling, compiler output); the compile runs with `-Xptxas -v`,
+    which reports each kernel's registers, spills and shared memory, and
+    its output is kept beside the library, so a cached build returns it
+    too."""
     tag = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in sorted(CSRC.glob("*.cu*")):
         tag.update(f.name.encode() + f.read_bytes())
     lib = BUILD_DIR / f"libcompact_{tag.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib, 0.0, ""
-    flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
+    log = lib.with_suffix(".log")
+    if lib.exists() and log.exists():
+        return lib, 0.0, log.read_text()
+    flags = NVCC_FLAGS + ["-Xptxas", "-v"]
     BUILD_DIR.mkdir(exist_ok=True)
     srcs = sorted(CSRC.glob("*.cu"))
     tmp = BUILD_DIR / f"{lib.stem}.{os.getpid()}.tmp"
@@ -73,11 +76,12 @@ def build(verbose: bool = False) -> tuple[Path, float, str]:
                               capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc failed to link:\n{link.stderr}")
+        log.write_text("".join(logs))
         os.replace(tmp, lib)
     finally:
         for f in (tmp, *objs):
             f.unlink(missing_ok=True)
-    return lib, time.perf_counter() - t0, "".join(logs)
+    return lib, time.perf_counter() - t0, log.read_text()
 
 
 @functools.cache
@@ -97,15 +101,19 @@ def library() -> ctypes.CDLL:
         i32, vp, i64, vp, i32, ctypes.POINTER(vp), ctypes.POINTER(vp), i64,
         vp]
     lib.arrowtpu_compact_scatter.restype = i32
+    lib.arrowtpu_compact_tiles.argtypes = [
+        i32, vp, i64, vp, i32, ctypes.POINTER(vp), ctypes.POINTER(vp), i64,
+        vp, vp]
+    lib.arrowtpu_compact_tiles.restype = i32
     lib.arrowtpu_compact2.argtypes = [vp, i64, i32, ctypes.POINTER(vp),
                                       ctypes.POINTER(vp), vp, vp]
     lib.arrowtpu_compact2.restype = i32
     lib.arrowtpu_compact2_stage.argtypes = [
         i32, vp, i64, i32, ctypes.POINTER(vp), ctypes.POINTER(vp), vp, vp, vp]
     lib.arrowtpu_compact2_stage.restype = i32
-    lib.arrowtpu_compact_scatter_stage.argtypes = [
+    lib.arrowtpu_compact_tiles_stage.argtypes = [
         i32, vp, i64, vp, i32, ctypes.POINTER(vp), ctypes.POINTER(vp), vp, vp]
-    lib.arrowtpu_compact_scatter_stage.restype = i32
+    lib.arrowtpu_compact_tiles_stage.restype = i32
     lib.arrowtpu_stream.argtypes = [vp, vp, vp, i64, i64, vp]
     lib.arrowtpu_stream.restype = i32
     lib.arrowtpu_lane_roll.argtypes = [vp, vp, vp, i64, i32, i32, vp]
@@ -132,6 +140,8 @@ def _check(code: int, what: str) -> None:
 
 TILE_ROWS = 4096   # rows per block of every kernel (kTile, tile_rank.cuh)
 MAX_PLANES = 16    # planes per launch (kMaxPlanes)
+
+count_launches = 0  # launches of tile_counts_kernel (tile_offsets)
 
 
 def check_operands(planes, keep: torch.Tensor, word_bytes) -> list:
@@ -182,6 +192,7 @@ def tile_offsets(keep: torch.Tensor) -> torch.Tensor:
     kept counts; the last entry is the count.  On the card: the count
     kernel, then a cumsum over the tile counts; on the CPU its plain
     version."""
+    global count_launches
     n = keep.shape[0]
     nt = -(-n // TILE_ROWS)
     offs = torch.zeros(nt + 1, dtype=torch.int64, device=keep.device)
@@ -196,6 +207,7 @@ def tile_offsets(keep: torch.Tensor) -> torch.Tensor:
         _check(library().arrowtpu_tile_counts(
             keep.data_ptr(), n, counts.data_ptr(), _stream(keep)),
             "tile_counts_kernel")
+    count_launches += 1
     torch.cumsum(counts, 0, out=offs[1:])
     return offs
 
@@ -226,48 +238,80 @@ def out_rows_of(keep: torch.Tensor, out_rows) -> int:
     return int(out_rows)
 
 
-def scatter_cuda(plist, outs, keep: torch.Tensor, offs: torch.Tensor) -> None:
-    """One compact_scatter_kernel launch: up to MAX_PLANES (n,) planes into
-    the (out_rows,) planes of `outs` (written in full, zero tail included)."""
+def _check_offs(offs: torch.Tensor, keep: torch.Tensor) -> None:
     if offs.dtype != torch.int64 or offs.device != keep.device \
             or offs.shape[0] != -(-keep.shape[0] // TILE_ROWS) + 1:
         raise ValueError("offs must be the int64 tile offsets of keep")
+
+
+def _check_scratch(scratch: torch.Tensor, keep: torch.Tensor) -> None:
+    if scratch.dtype != torch.int64 or scratch.device != keep.device \
+            or scratch.numel() < -(-keep.shape[0] // TILE_ROWS):
+        raise ValueError("scratch must be lookback_scratch(keep)")
+
+
+def _check_launch(plist, outs) -> None:
     P = len(plist)
     if not 1 <= P <= MAX_PLANES or len(outs) != P:
         raise ValueError(f"{P} planes for {len(outs)} outputs")
-    out_rows = outs[0].shape[0]
+
+
+def scatter_cuda(plist, outs, keep: torch.Tensor, offs: torch.Tensor) -> None:
+    """One compact_scatter_kernel launch (K2): up to MAX_PLANES (n,) planes
+    into the (out_rows,) planes of `outs` (written in full, zero tail
+    included)."""
+    _check_offs(offs, keep)
+    _check_launch(plist, outs)
     with torch.cuda.device(keep.device):
         _check(library().arrowtpu_compact_scatter(
             plist[0].dtype.itemsize, keep.data_ptr(), keep.shape[0],
-            offs.data_ptr(), P, plane_ptrs(plist), plane_ptrs(outs),
-            out_rows, _stream(keep)),
+            offs.data_ptr(), len(plist), plane_ptrs(plist), plane_ptrs(outs),
+            outs[0].shape[0], _stream(keep)),
             "compact_scatter_kernel")
 
 
-def compact2_scratch(keep: torch.Tensor) -> torch.Tensor:
-    """Device scratch of one compact2_kernel launch: a status word per tile
-    and the tile counter (zeroed by the C entry point on every launch)."""
+def lookback_scratch(keep: torch.Tensor) -> torch.Tensor:
+    """Device scratch of one look-back launch of tile_compact_kernel: a
+    status word per tile (zeroed by the C entry point before every launch,
+    so one scratch serves launches in turn)."""
     tiles = -(-keep.shape[0] // TILE_ROWS)
-    return torch.empty(tiles + 1, dtype=torch.int64, device=keep.device)
+    return torch.empty(tiles, dtype=torch.int64, device=keep.device)
+
+
+def tiles_cuda(plist, outs, keep: torch.Tensor, offs, scratch) -> None:
+    """One tile_compact_kernel launch for K1 (csrc/compact.cu): up to
+    MAX_PLANES (n,) 4- or 8-byte planes into the (out_rows,) planes of
+    `outs`, written in full, zero tail included.  Given `offs` (the tile
+    offsets) a tile reads its offset there; with offs None the tiles look
+    back, in `scratch` (lookback_scratch(keep))."""
+    if offs is None:
+        _check_scratch(scratch, keep)
+    else:
+        _check_offs(offs, keep)
+    _check_launch(plist, outs)
+    with torch.cuda.device(keep.device):
+        _check(library().arrowtpu_compact_tiles(
+            plist[0].dtype.itemsize, keep.data_ptr(), keep.shape[0],
+            None if offs is None else offs.data_ptr(), len(plist),
+            plane_ptrs(plist), plane_ptrs(outs), outs[0].shape[0],
+            None if offs is not None else scratch.data_ptr(),
+            _stream(keep)), "tile_compact_kernel (K1)")
 
 
 def compact2_cuda(plist, outs, keep: torch.Tensor,
                   scratch: torch.Tensor) -> None:
-    """One compact2_kernel launch (csrc/compact2.cu): up to MAX_PLANES (n,)
-    4-byte planes into (n,) outputs, written in full, zero tail included."""
-    P = len(plist)
-    if not 1 <= P <= MAX_PLANES or len(outs) != P:
-        raise ValueError(f"{P} planes for {len(outs)} outputs")
+    """One tile_compact_kernel launch for K3 (csrc/compact2.cu): up to
+    MAX_PLANES (n,) 4-byte planes into (n,) outputs, written in full, zero
+    tail included, looking back in `scratch` (lookback_scratch(keep))."""
+    _check_launch(plist, outs)
     if any(o.shape[0] != keep.shape[0] for o in outs):
         raise ValueError("compact2 writes outputs of n rows")
-    if scratch.dtype != torch.int64 or scratch.device != keep.device \
-            or scratch.numel() < -(-keep.shape[0] // TILE_ROWS) + 1:
-        raise ValueError("scratch must be compact2_scratch(keep)")
+    _check_scratch(scratch, keep)
     with torch.cuda.device(keep.device):
         _check(library().arrowtpu_compact2(
-            keep.data_ptr(), keep.shape[0], P, plane_ptrs(plist),
+            keep.data_ptr(), keep.shape[0], len(plist), plane_ptrs(plist),
             plane_ptrs(outs), scratch.data_ptr(), _stream(keep)),
-            "compact2_kernel")
+            "tile_compact_kernel (K3)")
 
 
 def plane_ptrs(tensors) -> ctypes.Array:

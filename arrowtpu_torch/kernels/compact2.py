@@ -1,10 +1,12 @@
 """K3: single-pass compaction of u32 planes, in CUDA.
 
 Counterpart of `arrowtpu/pallas/compact2.py` (`compact_planes` ->
-`_compact2_call` -> `_compact2_kernel`).  The kernel is `compact2_kernel`
-in `csrc/compact2.cu`: one pass, with the output offset carried from tile
-to tile by a decoupled look-back instead of a count pass and a prefix sum.
-Its design and its bound on the card are in that file's header.
+`_compact2_call` -> `_compact2_kernel`).  The kernel is
+`tile_compact_kernel` (`csrc/tile_rank.cuh`, launched from
+`csrc/compact2.cu`) in its look-back frame: one pass, with the output
+offset carried from tile to tile by a decoupled look-back instead of a
+count pass and a prefix sum.  Its design and its bound on the card are in
+those files' headers.
 
 Contract, as in the JAX package: (P, n) planes of 4-byte words (a tensor,
 or a sequence of (n,) tensors; the result takes the same form) and an
@@ -53,7 +55,7 @@ def compact_planes(planes, keep: torch.Tensor):
     result, outs = _build.empty_outputs(planes, plist, keep.shape[0])
     if keep.shape[0] == 0:
         return result
-    scratch = _build.compact2_scratch(keep)
+    scratch = _build.lookback_scratch(keep)
     step = _build.MAX_PLANES
     for i in range(0, len(plist), step):
         _build.compact2_cuda(plist[i:i + step], outs[i:i + step], keep,

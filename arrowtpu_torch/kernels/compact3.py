@@ -2,15 +2,21 @@
 
 Counterpart of `arrowtpu/pallas/compact3.py` (`compact_planes` ->
 `_compact3_call` -> `_compact3_kernel`).  The kernel is
-`compact_scatter_kernel` in `csrc/compact.cu`, instantiated for uint32 and
-uint64 words, so int64 columns move as whole 8-byte words.  Its design and
-its bound on the card are in that file's header.
+`tile_compact_kernel` (`csrc/tile_rank.cuh`, launched from
+`csrc/compact.cu`), instantiated for uint32 and uint64 words, so int64
+columns move as whole 8-byte words.  Its design and its bound on the card
+are in those files' headers.
 
 Contract: (P, n) planes of one dtype and an (n,) uint8 0/1 (or bool) keep
 mask -> (P, out_rows) planes whose first `count` words are the kept words
 in row order and whose other words are 0.  `out_rows` defaults to n (the
 JAX package's contract); a caller that knows the count may ask for fewer
 rows, down to the count.  Any n: there are no tile multiples.
+
+A caller that holds `offs = tile_offsets(keep)` (the filter's plan) passes
+it and each tile reads its output offset there; without it the tiles find
+their offsets by a decoupled look-back inside the one launch (after a
+scratch memset), with no count pass and no cumsum.
 
 A CPU tensor takes `compact_planes_plain`, the plain PyTorch version of
 the same function; a CUDA tensor launches the kernel or raises.  `launches`
@@ -60,10 +66,10 @@ def compact_planes(planes, keep: torch.Tensor, offs: torch.Tensor = None,
     result, outs = _build.empty_outputs(planes, plist, rows)
     if keep.shape[0] == 0:
         return result
-    if offs is None:
-        offs = _build.tile_offsets(keep)
+    scratch = _build.lookback_scratch(keep) if offs is None else None
     step = _build.MAX_PLANES
     for i in range(0, len(plist), step):
-        _build.scatter_cuda(plist[i:i + step], outs[i:i + step], keep, offs)
+        _build.tiles_cuda(plist[i:i + step], outs[i:i + step], keep, offs,
+                          scratch)
         launches += 1
     return result

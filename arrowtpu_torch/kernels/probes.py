@@ -2,8 +2,10 @@
 
 Counterparts of the TPU micro-probes `scripts/prof_*.py` (P1-P8).  The
 kernels are in `csrc/probes.cu` (`stream`, `lane_roll`, `tile_gather`) and,
-for `compaction_stages`, the Stage-templated kernels of `csrc/compact.cu`
-(K1's scatter) and `csrc/compact2.cu` (K3).  Each file's header gives the
+for `compaction_stages`, the Stage-templated `tile_compact_kernel` of
+`csrc/tile_rank.cuh` as K1 launches it (`csrc/compact.cu`, tile offsets
+from its count pass and cumsum) and as K3 does (`csrc/compact2.cu`,
+look-back).  Each file's header gives the
 design and the bound on the card.
 
   stream(planes, keep=None)        (P, n) 4-byte words: planes + keep[i], or
@@ -298,9 +300,9 @@ def compaction_stages_plain(planes: torch.Tensor, keep: torch.Tensor,
 def compaction_stages(planes: torch.Tensor, keep: torch.Tensor, stage: str,
                       kernel: str = "k3"
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """K3 (`kernel="k3"`, csrc/compact2.cu) or K1's 4-byte scatter
-    (`kernel="k1"`, csrc/compact.cu, after its count pass and cumsum for
-    kept and full) cut after `stage` (STAGES; K1 has no "lookback"), on
+    """K3 (`kernel="k3"`, csrc/compact2.cu) or K1 at 4-byte words with
+    tile offsets (`kernel="k1"`, csrc/compact.cu, after its count pass and
+    cumsum for kept and full) cut after `stage` (STAGES; K1 has no "lookback"), on
     (P, n) 4-byte planes -> ((P, n) planes, aux): aux is the per-tile
     int64 result that keeps the rank / lookback work live, else None.  See
     compaction_stages_plain for what each stage computes."""
@@ -317,7 +319,7 @@ def compaction_stages(planes: torch.Tensor, keep: torch.Tensor, stage: str,
     lib = _build.library()
     code = STAGES[stage]
     if kernel == "k3":
-        scratch = _build.compact2_scratch(keep)
+        scratch = _build.lookback_scratch(keep)
     else:
         offs = (_build.tile_offsets(keep) if code >= STAGES["kept"]
                 else aux)
@@ -332,7 +334,7 @@ def compaction_stages(planes: torch.Tensor, keep: torch.Tensor, stage: str,
                     code, keep.data_ptr(), n, count, ins, outs,
                     scratch.data_ptr(), aux.data_ptr(), _build._stream(keep))
             else:
-                err = lib.arrowtpu_compact_scatter_stage(
+                err = lib.arrowtpu_compact_tiles_stage(
                     code, keep.data_ptr(), n, offs.data_ptr(), count, ins,
                     outs, aux.data_ptr(), _build._stream(keep))
             _build._check(err, f"{kernel} stage {stage}")

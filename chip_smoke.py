@@ -5,10 +5,13 @@
 
 Phases (each raises on failure; the exit code is then non-zero):
   1. the card's name and power limit, versions, and the nvcc build of the
-     CUDA kernels from the repository's sources;
+     CUDA kernels from the repository's sources, with the `-Xptxas -v`
+     lines (registers, spills, shared memory) of every instantiation of
+     tile_compact_kernel, K1's and K3's kernel;
   2. every kernel against its plain PyTorch version on the card, bit-exact:
      K1 (kernels/compact3.py) at uint32 with P in {1, 2, 4, 8, 16} and at
-     uint64 with P in {1, 2}; K2 (kernels/compact.py) at uint8 and uint32;
+     uint64 with P in {1, 2}, with tile offsets and without (look-back);
+     K2 (kernels/compact.py) at uint8 and uint32;
      keep densities {0, 0.02, 0.5, 0.96, 1}; n in {65,536, 8,000,000} (the
      second is not a multiple of the kernels' 4096-row tile);
   3. the main path: the flagship step (arrowtpu_torch.entry.step) at
@@ -17,14 +20,19 @@ Phases (each raises on failure; the exit code is then non-zero):
      each kernel's launch count is set to 0 just before the step and must
      have risen just after, and every K1 and K2 call of the step is held
      bit for bit against the kernel's plain version on the same inputs
-     (`held_to_plain`: all of each output, zero tail included);
+     (`held_to_plain`: all of each output, zero tail included); the
+     count kernel's launches are counted on the same run: the filter's
+     plan is the one, and each of the group-by's K1 calls passes no tile
+     offsets and makes one K1 launch and no count kernel launch;
   4. timing: the step and its three stages at both cardinalities with
      CUDA events (warm-up, then the median of 30 runs; the step again three
      times, the cardinalities in turns, for the spread of the host's
      clock), a torch.profiler breakdown of the step with the device's busy
      share, and each kernel at the main path's largest call (the filter)
      beside its bound, its plain version and the PyTorch library call that
-     computes the same function.  Kernel, plain and library times are CUDA
+     computes the same function; then K1 at the step's two group-by
+     calls, replayed on their operands (a profile of each must show no
+     count or scan kernel).  Kernel, plain and library times are CUDA
      events on the card: the median of 30 calls, each after an L2 flush,
      queued behind a wait so that the host's launch time is hidden
      (`probes.cold_ms`); the kernel's back-to-back time (`warm_ms`) is
@@ -42,8 +50,9 @@ Phases (each raises on failure; the exit code is then non-zero):
      oracle, with the launch counts set to 0 just before and read just
      after (K1 must have run) and every K1 and K2 call of the step held
      against the plain version on its own inputs, as in phase 3 (the
-     group-by's compactions of the joined batch); then its time (CUDA
-     events, median), its
+     group-by's compactions of the joined batch); K1 timed at its largest
+     call (the group extraction over the joined rows) as in phase 4; then
+     the step's time (CUDA events, median), its
      stages, its probing rounds, its peak memory and a torch.profiler busy
      share;
   7. K3's own path, its entry point compact_planes, at the shape the JAX
@@ -84,6 +93,7 @@ Without a CUDA device the script exits with an error and prints no
 result.
 """
 
+import collections
 import contextlib
 import json
 import statistics
@@ -192,6 +202,31 @@ def bytes_bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+WORDS = {"j": "u32", "m": "u64", "y": "u64"}
+FRAMES = {"0": "offs", "1": "look-back"}
+STAGE_NAMES = {"0": "copy", "1": "rank", "2": "lookback", "3": "kept",
+               "4": "full"}
+
+
+def ptxas_tile_compact(build_log: str):
+    """The `-Xptxas -v` report of each tile_compact_kernel instantiation:
+    [(word, frame, stage, [its register / spill / shared memory lines])]."""
+    import re
+
+    out, cur = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"tile_compact_kernelI(\w)Li(\d)ELi(\d)E", m[1])
+            cur = None if t is None else (
+                WORDS.get(t[1], t[1]), FRAMES[t[2]], STAGE_NAMES[t[3]], [])
+            if cur:
+                out.append(cur)
+        elif cur and ("registers" in line or "spill" in line):
+            cur[3].append(line.strip())
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -213,6 +248,12 @@ def check_kernels(k1, k2, dev) -> None:
                     got = k1.compact_planes(planes, keep)
                     want = k1.compact_planes_plain(planes, keep)
                     cnt = wcnt = 0
+                    offs = k1.tile_offsets(keep)
+                    if not torch.equal(k1.compact_planes(planes, keep, offs),
+                                       want):
+                        raise AssertionError(
+                            f"K1 {dtype} P={P} n={n} density={density}: "
+                            "differs from its plain version with offs")
                 else:
                     keep = keep.to(torch.uint8)
                     got, cnt = k2.compact_planes_info(planes, keep)
@@ -230,15 +271,17 @@ def check_kernels(k1, k2, dev) -> None:
                 # an output cut to fewer rows (at least the count), as the
                 # filter and the group extraction ask for
                 rows = min(n, kept + 100)
-                short = (k1.compact_planes(planes, keep, out_rows=rows)
-                         if kernel == "K1" else
-                         k2.compact_planes_info(planes, keep, out_rows=rows)[0])
-                if not torch.equal(short, want[:, :rows]):
+                shorts = ([k1.compact_planes(planes, keep, o, rows)
+                           for o in (None, offs)] if kernel == "K1" else
+                          [k2.compact_planes_info(planes, keep,
+                                                  out_rows=rows)[0]])
+                if not all(torch.equal(x, want[:, :rows]) for x in shorts):
                     raise AssertionError(
                         f"{kernel} {dtype} P={P} n={n} density={density}: "
                         f"out_rows={rows} differs from its plain version")
         log(f"kernels: bit-exact against plain at n={n} "
-            f"({len(cases)} shapes x 5 densities)")
+            f"({len(cases)} shapes x 5 densities; K1 with tile offsets and "
+            "with the look-back)")
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +293,12 @@ def check_kernels(k1, k2, dev) -> None:
 HELD = {"K1": ("compact_planes", "compact_planes_plain"),
         "K2": ("compact_planes_info", "compact_planes_info_plain")}
 
+# one wrapper call on a main-path run: its operands (offs: the tile offsets
+# it was given, or None), the module that called it, and the launches it
+# made ({kernel: n, "tile_counts": n})
+Call = collections.namedtuple(
+    "Call", "planes keep offs out_rows caller launched")
+
 
 def _tensors(x):
     if isinstance(x, torch.Tensor):
@@ -258,13 +307,19 @@ def _tensors(x):
 
 
 @contextlib.contextmanager
-def held_to_plain(modules):
+def held_to_plain(modules, args=None):
     """While active, every call of the wrappers of `modules` ({"K1": ...,
     "K2": ...}) is computed again by the kernel's plain version on the same
     inputs and must equal it bit for bit: every output word (the zero tail
     and the rows past what the caller reads included) and K2's count.  The
     plain version launches nothing, so the launch counts stay the path's.
-    Yields {kernel: [(P, n, kept, out_rows) of each call]}."""
+    Yields {kernel: [(P, n, kept, out_rows) of each call]}; `args`, a dict,
+    gets {kernel: [Call of each call]}: its operands, the module that made
+    it, and the launches of the kernel and of the count kernel
+    (tile_counts_kernel) that the wrapper made, read from their counters
+    around the call on the path's own run."""
+    from arrowtpu_torch.kernels import _build
+
     seen = {name: [] for name in modules}
     saved = []
 
@@ -272,7 +327,11 @@ def held_to_plain(modules):
         wrapper, plain = (getattr(mod, attr) for attr in HELD[name])
 
         def checked(planes, keep, pre=None, out_rows=None):
+            caller = sys._getframe(1).f_globals.get("__name__", "")
+            before = (mod.launches, _build.count_launches)
             got = wrapper(planes, keep, pre, out_rows)
+            launched = {name: mod.launches - before[0],
+                        "tile_counts": _build.count_launches - before[1]}
             want = plain(planes, keep, out_rows)
             a, b = _tensors(got), _tensors(want)
             shape = (len(planes), keep.shape[0], int(keep.sum()),
@@ -282,6 +341,9 @@ def held_to_plain(modules):
                 raise AssertionError(f"{name} call {shape} on the path "
                                      "differs from its plain version")
             seen[name].append(shape)
+            if args is not None:
+                args.setdefault(name, []).append(Call(
+                    planes, keep, pre, out_rows, caller, launched))
             return got
 
         saved.append((mod, HELD[name][0], wrapper))
@@ -363,6 +425,80 @@ def time_kernel(name, wrapper, plain, library, planes, keep, out_rows):
     return row
 
 
+def device_kernel_names(fn, reps=3) -> list:
+    """The names of the kernels (and memsets) fn() runs on the card, from a
+    torch.profiler trace of `reps` calls."""
+    rows, _ = _profiled(fn, reps)
+    return sorted({r.key for r in rows
+                   if r.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def group_by_calls(args, tile_counts, label):
+    """The K1 calls that the group-by (ops/groupby.py, group extraction)
+    made on a main-path run, from held_to_plain's record of that run: there
+    must be some, and each must have passed no tile offsets and made
+    ceil(P / 16) K1 launches and no count kernel launch.  `tile_counts`,
+    the run's count-kernel launches, must be one for each set of tile
+    offsets the run's compactions shared (the filter's plan) plus those the
+    wrappers made themselves.  -> the group-by's calls."""
+    calls = [c for c in args.get("K1", [])
+             if c.caller == "arrowtpu_torch.ops.groupby"]
+    if not calls:
+        raise AssertionError(f"{label}: the group-by made no K1 call")
+    for i, c in enumerate(calls):
+        want = {"K1": -(-len(c.planes) // 16), "tile_counts": 0}
+        if c.offs is not None or c.launched != want:
+            raise AssertionError(
+                f"{label}: group-by call {i} passed offsets "
+                f"{c.offs is not None} and launched {c.launched}, "
+                f"expected no offsets and {want}")
+    every = [c for cs in args.values() for c in cs]
+    plans = {id(c.offs) for c in every if c.offs is not None}
+    made = sum(c.launched["tile_counts"] for c in every)
+    if tile_counts != len(plans) + made:
+        raise AssertionError(
+            f"{label}: {tile_counts} count-kernel launches for {len(plans)} "
+            f"shared tile offsets and {made} inside the wrappers")
+    return calls
+
+
+def time_k1_group_calls(k1, label, calls):
+    """K1 at the group-by's calls of a main-path run (group_by_calls),
+    replayed on their own operands: each replay equal to the plain version
+    and its profile without a count, scan or cumsum kernel; then its times,
+    as time_kernel gives them, and the launches the call made on the
+    path's run.  -> [row of each call]."""
+    if not calls:
+        raise AssertionError(f"K1 {label}: no call to time")
+    rows = []
+    for i, c in enumerate(calls):
+        plist, keep = list(c.planes), c.keep
+        rows_out = keep.shape[0] if c.out_rows is None else c.out_rows
+
+        def fn():
+            return k1.compact_planes(plist, keep, None, rows_out)
+
+        def plain():
+            return k1.compact_planes_plain(plist, keep, rows_out)
+
+        if not all(torch.equal(a, b) for a, b in zip(fn(), plain())):
+            raise AssertionError(f"K1 {label} call {i}: differs from plain")
+        names = device_kernel_names(fn)
+        if any(w in nm.lower() for nm in names
+               for w in ("tile_counts", "scan", "cumsum")):
+            raise AssertionError(f"K1 {label} call {i}: a count or scan "
+                                 f"kernel runs: {names}")
+        stacked = torch.stack(plist)
+        row = time_kernel(f"K1 {label} call {i}", fn, plain,
+                          lambda: stacked[:, keep], plist, keep, rows_out)
+        del stacked
+        row.update(max_abs_err=0.0, device_kernels=names,
+                   launches_on_path=c.launched)
+        log(f"    on the path: {c.launched}; kernels on the card: {names}")
+        rows.append(row)
+    return rows
+
+
 def check_k3(k1, k3, dev) -> None:
     """Phase 5: K3 against its plain version and K1, two masks in a row."""
     g = torch.Generator(device=dev).manual_seed(2)
@@ -389,9 +525,10 @@ def check_k3(k1, k3, dev) -> None:
             "densities, two masks in a row each)")
 
 
-def join_phase(pe, k1, k2, k3, dev):
+def join_phase(pe, k1, k2, k3, build, dev):
     """Phase 6: the join step at one card's share of config 5.
-    -> the launch counts of its run."""
+    -> (the launch counts of its run, K1's rows at its group-by's largest
+    calls)."""
     from arrowtpu_torch.interop.numpy_bridge import batch_from_numpy
     from arrowtpu_torch.ops import join as jn
     from arrowtpu_torch.parallel import distributed as pd
@@ -408,18 +545,29 @@ def join_phase(pe, k1, k2, k3, dev):
         f"{PROBE_ROWS} probe x {BUILD_ROWS} build rows, world size 1, "
         "cut: 16 chips -> 1 card")
     with mesh.process_group(0, 1, dev) as group:
-        with held_to_plain({"K1": k1, "K2": k2}) as calls:
+        args = {}
+        with held_to_plain({"K1": k1, "K2": k2}, args) as calls:
             k1.launches = k2.launches = k3.launches = 0
+            build.count_launches = 0
             out = pe.join_step(left, right, group)
             torch.cuda.synchronize()
             launches = {"K1": k1.launches, "K2": k2.launches,
-                        "K3": k3.launches}
+                        "K3": k3.launches,
+                        "tile_counts": build.count_launches}
         if launches["K1"] <= 0 or not calls["K1"]:
             raise AssertionError("K1 was not launched by the join step")
         groups = pe.check_join_output([out], want)
+        extraction = group_by_calls(args, launches["tile_counts"], "join")
         log(f"join: {groups} groups exact against the numpy oracle; "
             f"launches {launches}; calls held to plain (P, n, kept, "
-            f"out_rows): {calls}")
+            f"out_rows): {calls}; the group-by's {len(extraction)} K1 "
+            f"calls each {[c.launched for c in extraction]}")
+        # K1 at its largest calls: the extraction over the joined rows
+        top = max(c.keep.shape[0] for c in extraction)
+        k1_rows = time_k1_group_calls(
+            k1, "join extraction",
+            [c for c in extraction if c.keep.shape[0] == top])
+        del args, extraction
 
         step_ms = median_ms(lambda: pe.join_step(left, right, group),
                             reps=JOIN_REPS, warmup=1)
@@ -460,7 +608,7 @@ def join_phase(pe, k1, k2, k3, dev):
             f"({base / 2**30:.2f} GiB held before the step)")
         log(f"join profile: "
             f"{profile(lambda: pe.join_step(left, right, group), reps=3)}")
-    return launches
+    return launches, k1_rows
 
 
 def check_probes(kp, probes, dev) -> None:
@@ -659,12 +807,16 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     # phase 1: build
-    path, secs, build_log = _build.build(verbose=True)
+    path, secs, build_log = _build.build()
     _build.library()
-    log(f"build: {path.name} in {secs:.2f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"  ptxas: {line.strip()}")
+    log(f"build: {path.name} in {secs:.2f} s"
+        + (" (cached)" if secs == 0 else ""))
+    reports = ptxas_tile_compact(build_log)
+    if not reports:
+        raise AssertionError("no ptxas report of tile_compact_kernel")
+    for word, frame, stage, lines in reports:
+        log(f"  ptxas tile_compact_kernel<{word}, {frame}, {stage}>: "
+            + " | ".join(lines))
 
     # phase 2
     t0 = time.perf_counter()
@@ -679,24 +831,38 @@ def main() -> int:
         batch = pe.batch_from_numpy(arrays, device=dev)
         want = oracle(arrays)
         torch.cuda.synchronize()
-        with held_to_plain({"K1": k1, "K2": k2}) as calls:
+        args = {}
+        with held_to_plain({"K1": k1, "K2": k2}, args) as calls:
             k1.launches = 0
             k2.launches = 0
+            _build.count_launches = 0
             out = pe.step(batch)
             torch.cuda.synchronize()
-            launches = {"K1": k1.launches, "K2": k2.launches}
-        for name, count in launches.items():
-            if count <= 0 or not calls[name]:
+            launches = {"K1": k1.launches, "K2": k2.launches,
+                        "tile_counts": _build.count_launches}
+        for name in ("K1", "K2"):
+            if launches[name] <= 0 or not calls[name]:
                 raise AssertionError(f"{name} was not launched by the step")
         check_against_oracle(out, want, bm)
+        # the filter's plan is the step's one count kernel launch
+        if launches["tile_counts"] != 1:
+            raise AssertionError(f"{launches['tile_counts']} count-kernel "
+                                 "launches on the step, expected the "
+                                 "filter's one")
+        extraction = group_by_calls(args, launches["tile_counts"],
+                                    f"step, {card_keys} keys")
         log(f"main path, {card_keys} keys: {out.length} groups exact "
             f"against the numpy oracle; launches {launches}; calls held "
-            f"to plain (P, n, kept, out_rows): {calls} "
+            f"to plain (P, n, kept, out_rows): {calls}; the group-by's "
+            f"{len(extraction)} K1 calls each "
+            f"{[c.launched for c in extraction]} "
             f"({time.perf_counter() - t0:.1f} s with data generation)")
-        main_runs[card_keys] = (batch, launches)
+        main_runs[card_keys] = (batch, launches, extraction)
+        del args
 
     kernels_rows = {}
-    for card_keys, (batch, launches) in main_runs.items():
+    group_by_rows = []
+    for card_keys, (batch, launches, k1_calls) in main_runs.items():
         mask = ops.and_kleene(ops.gt(batch["a"], batch["b"]),
                               ops.eq(ops.rem(batch["c"], 7), 0))
         filtered = ops.filter_record_batch(batch, mask)
@@ -716,6 +882,10 @@ def main() -> int:
         stage["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         log(f"timing, {card_keys} keys: {stage}")
         log(f"profile, {card_keys} keys: {profile(lambda: pe.step(batch))}")
+        # K1 at the step's group-by calls (group extraction, no offsets)
+        group_by_rows += [dict(row, keys=card_keys) for row in
+                          time_k1_group_calls(
+                              k1, f"group-by, {card_keys} keys", k1_calls)]
 
         if card_keys != CARDINALITIES[0]:
             continue
@@ -765,7 +935,7 @@ def main() -> int:
     for rep in range(3):
         log(f"step, repeat {rep}: " + ", ".join(
             f"{c} keys {median_ms(lambda: pe.step(b)):.3f} ms"
-            for c, (b, _) in main_runs.items()))
+            for c, (b, _, _) in main_runs.items()))
 
     # phase 5
     t0 = time.perf_counter()
@@ -774,7 +944,7 @@ def main() -> int:
 
     # phase 6
     t0 = time.perf_counter()
-    join_launches = join_phase(pe, k1, k2, k3, dev)
+    join_launches, join_k1_rows = join_phase(pe, k1, k2, k3, _build, dev)
     log(f"phase 6 (join step): {time.perf_counter() - t0:.1f} s")
 
     # phase 7: K3's entry point on the flagship batch's int64 columns as
@@ -810,8 +980,11 @@ def main() -> int:
     if err:
         raise AssertionError("K3: differs at the main shape")
     kernels_rows["K3"]["max_abs_err"] = float(err)
-    log(f"  K1 on the same call: "
-        f"{cold_ms(lambda: k1.compact_planes(s10, keep)):.4f} ms")
+    offs10 = k1.tile_offsets(keep)
+    log(f"  K1 on the same call: look-back "
+        f"{cold_ms(lambda: k1.compact_planes(s10, keep)):.4f} ms, given "
+        f"the tile offsets "
+        f"{cold_ms(lambda: k1.compact_planes(s10, keep, offs10)):.4f} ms")
     g = torch.Generator(device=dev).manual_seed(3)
     for density in (0.5, 0.96):
         dense = torch.rand(N_MAIN, device=dev, generator=g) < density
@@ -868,6 +1041,8 @@ def main() -> int:
         f"kernel launches {lexsort_launches} (its path runs none)")
     log(f"config 3: {json.dumps(lexsort)}")
 
+    kernels_rows["K1"]["group_by_calls"] = group_by_rows
+    kernels_rows["K1"]["join_calls"] = join_k1_rows
     source = {"K1": "arrowtpu_torch/csrc/compact.cu",
               "K2": "arrowtpu_torch/csrc/compact.cu",
               "K3": "arrowtpu_torch/csrc/compact2.cu",
@@ -892,15 +1067,17 @@ def main() -> int:
                 "stages_k3": "scripts/prof_v3.py:65-78 "
                              "(arrowtpu/pallas/compact2.py:95 stages)",
                 "stages_k1": "scripts/prof_kernel.py:147"}
-    names = {"K1": "compact3 (compact_scatter_kernel, u32/u64)",
+    names = {"K1": "compact3 (tile_compact_kernel, u32/u64, tile offsets "
+                   "or look-back)",
              "K2": "compact (compact_scatter_kernel, u8/u32)",
-             "K3": "compact2 (compact2_kernel, u32, single pass)",
+             "K3": "compact2 (tile_compact_kernel, u32, look-back)",
              "stream": "stream (stream_kernel)",
              "lane_roll": "lane_roll (lane_roll_kernel)",
              "tile_gather": "tile_gather (tile_gather_kernel)",
-             "stages_k3": "compaction_stages K3 (compact2_kernel<stage>)",
+             "stages_k3": "compaction_stages K3 "
+                          "(tile_compact_kernel<u32, look-back, stage>)",
              "stages_k1": "compaction_stages K1 "
-                          "(compact_scatter_kernel<u32, stage>)"}
+                          "(tile_compact_kernel<u32, offs, stage>)"}
     # each probe kernel's row in the JSON: its line at one probe shape
     shown = {"stream": ("P4", "x + keep, P=2"),
              "lane_roll": ("P1", "14 roll+where"),
@@ -931,7 +1108,12 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "warm_ms": row["warm_ms"], "shape": row["shape"],
             "launches_by_path": {p: c.get(key, 0)
-                                 for p, c in by_path.items()}})
+                                 for p, c in by_path.items()},
+            **({"count_kernel_launches_by_path": {
+                p: c["tile_counts"] for p, c in by_path.items()
+                if "tile_counts" in c}} if key == "K1" else {}),
+            **{k: row[k] for k in ("group_by_calls", "join_calls")
+               if k in row}})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -29,6 +29,25 @@ def _keep(rng, n, density):
     return rng.random(n) < density
 
 
+# the edges the card's tile body is tested at: n one past and three past a
+# 4096-row tile, a single kept row, the flagship's 5.5 %
+EDGE_NS = [4097, 4099]
+EDGE_DENSITIES = [0.0, "one", 0.055, 0.5, 0.96, 1.0]
+
+
+def edge_keep(rng, n, density):
+    if density == "one":
+        keep = np.zeros(n, bool)
+        keep[(n * 7) // 11] = True
+        return keep
+    return _keep(rng, n, density)
+
+
+def edge_rows(n, count, which):
+    """out_rows of count + 1 or n - 1, kept in [count, n]."""
+    return max(count, min(count + 1 if which == "count+1" else n - 1, n))
+
+
 @pytest.mark.parametrize("density", DENSITIES)
 @pytest.mark.parametrize("P", [1, 2, 4, 8, 16])
 def test_k1_u32_against_jax_group_extraction(P, density):
@@ -111,6 +130,42 @@ def test_out_rows_cuts_the_zero_tail(kernel):
         run(count - 1)
     with pytest.raises(ValueError):
         run(N + 1)
+
+
+@pytest.mark.parametrize("which", ["count+1", "n-1"])
+@pytest.mark.parametrize("density", EDGE_DENSITIES)
+@pytest.mark.parametrize("n", EDGE_NS)
+def test_k1_u32_edges_against_jax_group_extraction(n, density, which):
+    """17 u32 planes (two launches' worth on the card), output cut to
+    out_rows: the JAX extraction with cap = out_rows."""
+    rng = np.random.default_rng(800 + n)
+    planes = rng.integers(0, 2**32, (17, n), dtype=np.uint32)
+    keep = edge_keep(rng, n, density)
+    rows = edge_rows(n, int(keep.sum()), which)
+    want = jgb._compact_u32_planes([jnp.asarray(p) for p in planes],
+                                   jnp.asarray(keep), rows)
+    got = k1.compact_planes(torch.from_numpy(planes), torch.from_numpy(keep),
+                            out_rows=rows)
+    assert got.shape == (17, rows)
+    np.testing.assert_array_equal(got.numpy(), np.stack(want))
+
+
+@pytest.mark.parametrize("which", ["count+1", "n-1"])
+@pytest.mark.parametrize("density", EDGE_DENSITIES)
+@pytest.mark.parametrize("n", EDGE_NS)
+def test_k1_u64_edges_against_jax_filter(n, density, which):
+    """int64 planes with the filter's tile offsets, output cut to out_rows:
+    the first out_rows rows of the JAX filter's compaction."""
+    rng = np.random.default_rng(900 + n)
+    planes = rng.integers(-2**63, 2**63 - 1, (2, n), dtype=np.int64)
+    keep = edge_keep(rng, n, density)
+    rows = edge_rows(n, int(keep.sum()), which)
+    plan = jfilter.FilterPlan(jnp.asarray(keep), None, int(keep.sum()))
+    want = np.asarray(jfilter._scatter_compact(jnp.asarray(planes.T), plan)).T
+    t_keep = torch.from_numpy(keep)
+    got = k1.compact_planes(torch.from_numpy(planes), t_keep,
+                            k1.tile_offsets(t_keep), rows)
+    np.testing.assert_array_equal(got.numpy(), want[:, :rows])
 
 
 def test_tile_offsets_ragged():

@@ -58,6 +58,24 @@ def test_k3_equals_k1_and_takes_lists(density):
     assert torch.equal(torch.stack(got), want)
 
 
+@pytest.mark.parametrize("density", [0.0, "one", 0.055, 0.5, 0.96, 1.0])
+@pytest.mark.parametrize("n", [4097, 4099])
+def test_k3_edges_against_jax_compaction(n, density):
+    """17 planes (two launches' worth on the card) at n one and three past
+    a 4096-row tile, including a single kept row."""
+    rng = np.random.default_rng(1000 + n)
+    planes = rng.integers(0, 2**32, (17, n), dtype=np.uint32)
+    if density == "one":
+        keep = np.zeros(n, bool)
+        keep[(n * 7) // 11] = True
+    else:
+        keep = rng.random(n) < density
+    got = k3.compact_planes(torch.from_numpy(planes), torch.from_numpy(keep))
+    want = np.stack(jgb._compact_u32_planes(
+        [jnp.asarray(p) for p in planes], jnp.asarray(keep), n))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_k3_checks_its_operands():
     keep = torch.ones(100, dtype=torch.bool)
     with pytest.raises(ValueError):  # 8-byte words are K1's

@@ -20,12 +20,15 @@ from arrowtpu_torch.entry import (check_join_output, check_lexsort,
                                   join_step, lexsort_columns, lexsort_keys,
                                   lexsort_step, step)
 from arrowtpu_torch.interop.numpy_bridge import batch_from_numpy
+from arrowtpu_torch.kernels import _build
 from arrowtpu_torch.kernels import compact as k2
 from arrowtpu_torch.kernels import compact2 as k3
 from arrowtpu_torch.kernels import compact3 as k1
 from arrowtpu_torch.kernels import probes
+from arrowtpu_torch.ops.groupby import group_by
 from arrowtpu_torch.ops.join import hash_join
 from arrowtpu_torch.parallel import mesh
+from arrowtpu_torch.probes import fresh_call
 
 pytestmark = pytest.mark.cuda
 
@@ -97,6 +100,158 @@ def test_unaligned_nonbinary_keep(cuda, dtype):
         want = k1.compact_planes_plain(planes, keep)
     assert torch.equal(got, want)
     assert int(k1.tile_offsets(keep)[-1]) == int(keep.bool().sum())
+
+
+# ---------------------------------------------------------------------------
+# K1 and K3's tile body: the index list, both offset frames, the zero fill
+# ---------------------------------------------------------------------------
+
+EDGE_DENSITIES = [0.0, "one", 0.055, 0.5, 0.96, 1.0]
+
+
+def _edge_keep(n, density, device, seed):
+    """A mask of `density`, or "one": a single kept row."""
+    if density == "one":
+        keep = torch.zeros(n, dtype=torch.bool, device=device)
+        keep[(n * 7) // 11] = True
+        return keep
+    return _keep(n, density, device, seed)
+
+
+def _out_rows(n, count):
+    """out_rows of count, count + 1, n - 1 and n, each kept in [count, n]."""
+    return sorted({max(count, min(r, n)) for r in (count, count + 1, n - 1,
+                                                   n)})
+
+
+def _same(kernel, want):
+    """kernel() on output blocks first poisoned with 0x5A (fresh_call)
+    equals `want` bit for bit."""
+    got = fresh_call(kernel, want)
+    torch.cuda.synchronize()
+    if isinstance(want, list):
+        assert len(got) == len(want)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4097, 4099, 1_000_003])
+@pytest.mark.parametrize("density", EDGE_DENSITIES)
+@pytest.mark.parametrize("dtype,P", [(torch.int32, 3), (torch.int64, 2)])
+def test_k1_frames_and_out_rows(cuda, dtype, P, density, n):
+    """K1 with offs (the tiles read their offsets) and without (the tiles
+    look back), at every out_rows from the count to n: the zero range cut
+    at out_rows, and plane starts that are not 16-byte aligned when n * w
+    is not a multiple of 16."""
+    planes = _planes(P, n, dtype, cuda, n + 3 * P)
+    keep = _edge_keep(n, density, cuda, n + 5)
+    count = int(keep.sum())
+    offs = k1.tile_offsets(keep)
+    for rows in _out_rows(n, count):
+        want = k1.compact_planes_plain(planes, keep, rows)
+        for o in (offs, None):
+            k1.launches = 0
+            _same(lambda: k1.compact_planes(planes, keep, o, rows), want)
+            assert k1.launches == 1
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4097, 4099, 1_000_003])
+@pytest.mark.parametrize("density", EDGE_DENSITIES)
+def test_k3_edge_shapes(cuda, density, n):
+    planes = _planes(5, n, torch.int32, cuda, n + 7)
+    keep = _edge_keep(n, density, cuda, n + 9)
+    want = k3.compact_planes_plain(planes, keep)
+    _same(lambda: k3.compact_planes(planes, keep), want)
+
+
+@pytest.mark.parametrize("density", [0.055, 0.5, 0.96])
+def test_unaligned_planes_take_the_scalar_head(cuda, density):
+    """Planes one word into their buffer, and (P, n) outputs whose planes
+    after the first start off a 16-byte boundary (n * 4 = 4 mod 16): the
+    loads take any address and the zero fill its scalar head words."""
+    n, P = 100_001, 4
+    raw = _planes(1, P * n + 1, torch.int32, cuda, 21)[0]
+    planes = raw[1:].view(P, n)
+    assert planes.data_ptr() % 16 == 4
+    keep = _keep(n, density, cuda, 22)
+    count = int(keep.sum())
+    want = k1.compact_planes_plain(planes, keep)
+    _same(lambda: k3.compact_planes(planes, keep), want)
+    _same(lambda: k1.compact_planes(planes, keep), want)
+    _same(lambda: k1.compact_planes(planes, keep, k1.tile_offsets(keep)),
+          want)
+    rows = count + 3  # outputs of count + 3 rows: plane p at 4 p (count + 3)
+    _same(lambda: k1.compact_planes(list(planes), keep, out_rows=rows),
+          list(want[:, :rows]))
+
+
+@pytest.mark.parametrize("dtype,shift", [(torch.int32, 0), (torch.int32, 1),
+                                         (torch.int32, 3), (torch.int64, 0),
+                                         (torch.int64, 1)])
+def test_dense_and_sparse_tiles_in_one_launch(cuda, dtype, shift):
+    """Tiles alternate between 96 % and 2 % kept, so the dense ones stage
+    their words by bulk copies and the sparse ones word by word in one
+    launch; the planes start `shift` words into their buffer and n * w is
+    not a multiple of 16, so a chunk's first and last words lie outside the
+    copies' 16-byte units.  Both frames, out_rows from the count to n."""
+    tile = _build.TILE_ROWS
+    n, P = 10 * tile + 123, 3
+    raw = _planes(1, P * n + shift, dtype, cuda, 51)[0]
+    planes = raw[shift:].view(P, n)
+    dense = (torch.arange(n, device=cuda) // tile) % 2 == 0
+    keep = torch.where(dense, _keep(n, 0.96, cuda, 52), _keep(n, 0.02, cuda,
+                                                              53))
+    count = int(keep.sum())
+    offs = k1.tile_offsets(keep)
+    for rows in _out_rows(n, count):
+        want = k1.compact_planes_plain(planes, keep, rows)
+        for o in (offs, None):
+            _same(lambda: k1.compact_planes(planes, keep, o, rows), want)
+    if dtype == torch.int32:
+        _same(lambda: k3.compact_planes(planes, keep),
+              k3.compact_planes_plain(planes, keep))
+
+
+@pytest.mark.parametrize("n", [4097, 1_000_003])
+def test_seventeen_planes(cuda, n):
+    """P = 17: two launches, sharing the mask (and, without offs, one
+    scratch that the second launch finds reset)."""
+    planes = _planes(17, n, torch.int32, cuda, 31)
+    keep = _keep(n, 0.3, cuda, 32)
+    want = k1.compact_planes_plain(planes, keep)
+    for kernel, module in ((lambda: k3.compact_planes(planes, keep), k3),
+                           (lambda: k1.compact_planes(planes, keep), k1),
+                           (lambda: k1.compact_planes(
+                               planes, keep, k1.tile_offsets(keep)), k1)):
+        module.launches = 0
+        _same(kernel, want)
+        assert module.launches == 2
+
+
+def test_k1_look_back_twice_in_a_row(cuda):
+    """Two K1 calls without offs on different masks, back to back: the
+    second finds its status words and tile counter reset."""
+    n = 1_000_003
+    planes = _planes(2, n, torch.int64, cuda, 41)
+    masks = [_keep(n, d, cuda, 42 + i) for i, d in enumerate((0.5, 0.02))]
+    got = [k1.compact_planes(planes, m) for m in masks]
+    for g, m in zip(got, masks):
+        assert torch.equal(g, k1.compact_planes_plain(planes, m))
+
+
+def test_group_by_launches_no_count_kernel(cuda):
+    """Group extraction passes no offs: each K1 call is one kernel launch,
+    with no count kernel (and so no cumsum of its counts)."""
+    batch = example_batch(200_000, 3, 0.1, 5000, device=cuda)
+    k1.launches = 0
+    _build.count_launches = 0
+    out = group_by(batch, ["k"], [("v", "sum"), ("v", "count"), ("v", "min")])
+    torch.cuda.synchronize()
+    assert k1.launches == 2 and _build.count_launches == 0
+    cpu = example_batch(200_000, 3, 0.1, 5000, device="cpu")
+    assert out.to_pydict() == group_by(cpu, ["k"], [
+        ("v", "sum"), ("v", "count"), ("v", "min")]).to_pydict()
 
 
 def test_cuda_tensors_never_fall_back(cuda):
@@ -236,13 +391,15 @@ STAGE_CASES = [(s, k) for k in probes.KERNELS for s in probes.STAGES
                if (s, k) != ("lookback", "k1")]
 
 
+@pytest.mark.parametrize("n,P", [(100_003, 3), (4099, 17)])
 @pytest.mark.parametrize("density", [0.0, 0.055, 0.5, 1.0])
 @pytest.mark.parametrize("stage,kernel", STAGE_CASES)
-def test_compaction_stage_matches_plain(cuda, stage, kernel, density):
-    n, P = 100_003, 3
+def test_compaction_stage_matches_plain(cuda, stage, kernel, density, n, P):
     planes = _planes(P, n, torch.int32, cuda, 11)
     keep = _keep(n, density, cuda, 12)
-    got, aux = probes.compaction_stages(planes, keep, stage, kernel)
+    got, aux = fresh_call(
+        lambda: probes.compaction_stages(planes, keep, stage, kernel),
+        probes.compaction_stages_plain(planes, keep, stage, kernel))
     want, waux = probes.compaction_stages_plain(planes, keep, stage, kernel)
     words = int(keep.sum()) if stage == "kept" else n
     assert torch.equal(got[:, :words], want[:, :words])
@@ -262,9 +419,18 @@ def test_lexsort_on_card_matches_cpu(cuda):
     check_lexsort(want.values.numpy(), lexsort_keys(*arrays))
 
 
-@pytest.mark.parametrize("kernel,module", [("k3", k3), ("k1", k1)])
-def test_full_stage_is_the_production_kernel(cuda, kernel, module):
+@pytest.mark.parametrize("kernel,module,with_offs", [
+    ("k3", k3, False), ("k1", k1, False), ("k1", k1, True)])
+def test_full_stage_is_the_production_kernel(cuda, kernel, module,
+                                             with_offs):
+    """The full stage of tile_compact_kernel equals each production entry:
+    K3, and K1 in both offset frames."""
     planes = _planes(17, 70_001, torch.int32, cuda, 13)
     keep = _keep(70_001, 0.3, cuda, 14)
     got, _ = probes.compaction_stages(planes, keep, "full", kernel)
-    assert torch.equal(got, module.compact_planes(planes, keep))
+    if module is k3:
+        want = k3.compact_planes(planes, keep)
+    else:
+        want = k1.compact_planes(
+            planes, keep, k1.tile_offsets(keep) if with_offs else None)
+    assert torch.equal(got, want)
