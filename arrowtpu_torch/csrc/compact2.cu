@@ -53,7 +53,8 @@ int arrowtpu_compact2(const void* keep, int64_t n, int num_planes,
 }
 
 // The stage ablation: as arrowtpu_compact2, for a Stage of tile_rank.cuh;
-// aux: (ceil(n / kTile),) int64 for kRank and kLookback.
+// aux: (ceil(n / kTile),) int64 for kRank and kLookback (kFull writes the
+// count to aux[0]).
 int arrowtpu_compact2_stage(int stage, const void* keep, int64_t n,
                             int num_planes, const void* const* in,
                             void* const* out, void* scratch, void* aux,

@@ -11,7 +11,9 @@
 //     roll calibration (prof_v3.py:91-102);
 //   * tile_gather_kernel: the in-tile gathers of P1 (prof_gather.py:78-141),
 //     P2 (prof_gather256.py:64-96), P3 (prof_deint.py:81-95), P5
-//     (prof_pairlayout.py:68-71) and P7 (prof_v3.py:133, :167).
+//     (prof_pairlayout.py:68-71) and P7 (prof_v3.py:133, :167), the
+//     sublane gather of P1 (prof_gather.py:90-96) and P7 by
+//     sublane_gather_kernel.
 // The TPU machinery (lane rolls on the XLU, the MXU one-hot row move, DMA
 // strategies) does not carry over; the function each body computes does.
 //
@@ -24,11 +26,17 @@
 //     lane, lane + 32, lane + 64, lane + 96: each a coalesced 128-byte
 //     access); a roll by s is 4 shuffles and a select per word;
 //   * tile_gather: each thread writes 4 consecutive output words (one
-//     16-byte store) and reads its sources through L1 / L2.  A (512, 128)
-//     u32 tile is 256 KB, more than a block's 227 KB of shared memory, so
-//     nothing is staged: the row of a lane gather is in L1 after its first
-//     touch, and the sublane gather's column reads are what the probe
-//     prices.  Static patterns compute their sources in registers.
+//     16-byte store) and reads its sources through L1 / L2, except for the
+//     sublane gather.  The row of a lane gather is in L1 after its first
+//     touch; static patterns compute their sources in registers (the round
+//     trip deinterleaves a quad of pairs and reinterleaves it in registers:
+//     one launch, where two would write both planes to HBM and read them
+//     back).  A sublane gather reads a column of a row chosen at random,
+//     so it is staged: a (512, 128) u32 tile is 256 KB, more than a
+//     block's 227 KB of shared memory, so a block takes one column slab of
+//     a tile, 512 rows x 32 words (64 KB of dynamic shared memory, 3
+//     blocks an SM), copies it in by 16-byte cp.async and gathers from it
+//     (sublane_gather_kernel): each x word is read from HBM once.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -152,6 +160,7 @@ enum Pattern : int {
   kDeinterleave = 5, // (rows, 128) pairs -> planes: out[c][r, j] = x[r, 2j + c]
   kReinterleave = 6, // planes -> pairs: out[r, 2j + c] = x[c][r, j]
   kPairs = 7,        // out pair (r, j) = x pair (r, idx[r, j])
+  kRoundtrip = 8,    // deinterleave then reinterleave: out = x (rows, 256)
 };
 
 template <int kPattern, int kW>
@@ -161,7 +170,7 @@ tile_gather_kernel(const uint32_t* __restrict__ x,
                    int64_t rows) {
   constexpr bool kPairwise =
       kPattern == kDeinterleave || kPattern == kReinterleave ||
-      kPattern == kPairs;
+      kPattern == kPairs || kPattern == kRoundtrip;
   // a quad is 4 output words, or 4 pairs for the pairwise patterns
   constexpr int kQuadsPerRow = (kPairwise ? 128 : kW) / 4;
   const int64_t quads = rows * kQuadsPerRow;
@@ -178,6 +187,15 @@ tile_gather_kernel(const uint32_t* __restrict__ x,
           make_uint4(a.x, a.z, b.x, b.z);
       reinterpret_cast<uint4*>(out + plane + r * 128 + l)[0] =
           make_uint4(a.y, a.w, b.y, b.w);
+    } else if constexpr (kPattern == kRoundtrip) {
+      // the quad's 4 pairs deinterleaved into lo / hi, then reinterleaved
+      const uint4* pair = reinterpret_cast<const uint4*>(x + r * 256 + 2 * l);
+      const uint4 a = pair[0], b = pair[1];
+      const uint4 lo = make_uint4(a.x, a.z, b.x, b.z);
+      const uint4 hi = make_uint4(a.y, a.w, b.y, b.w);
+      uint4* dst = reinterpret_cast<uint4*>(out + r * 256 + 2 * l);
+      dst[0] = make_uint4(lo.x, hi.x, lo.y, hi.y);
+      dst[1] = make_uint4(lo.z, hi.z, lo.w, hi.w);
     } else if constexpr (kPattern == kReinterleave) {
       const int64_t plane = rows * 128;
       const uint4 lo = reinterpret_cast<const uint4*>(x + r * 128 + l)[0];
@@ -209,8 +227,6 @@ tile_gather_kernel(const uint32_t* __restrict__ x,
       for (int e = 0; e < 4; ++e) {
         if constexpr (kPattern == kLanes) {
           v[e] = row[j[e] & (kW - 1)];
-        } else if constexpr (kPattern == kSublanes) {
-          v[e] = x[(tile + (j[e] & (kTileRows - 1))) * kW + l + e];
         } else if constexpr (kPattern == kTable) {
           v[e] = x[tile * kW + (j[e] & (kW - 1))];
         } else {  // kChained
@@ -222,6 +238,114 @@ tile_gather_kernel(const uint32_t* __restrict__ x,
           make_uint4(v[0], v[1], v[2], v[3]);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// sublane_gather: out[r, l] = x[(r / T) T + idx[r, l], l], staged
+// ---------------------------------------------------------------------------
+
+constexpr int kSlabWords = 32;  // columns of a slab
+constexpr int kSlabQuads = kSlabWords / 4;
+constexpr int kSlabBytes = kTileRows * kSlabWords * 4;  // 64 KB
+
+__device__ __forceinline__ void copy16_async(void* shared,
+                                             const void* global) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(shared));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+               "l"(global)
+               : "memory");
+}
+
+// Element s of the result is element (s + k) % 4 of v.
+__device__ __forceinline__ uint4 rotate(uint4 v, int k) {
+  if (k & 1) v = make_uint4(v.y, v.z, v.w, v.x);
+  if (k & 2) v = make_uint4(v.z, v.w, v.x, v.y);
+  return v;
+}
+
+// Block b takes column slab b % (W / 32) of tile b / (W / 32): its 512 rows
+// x 32 words are copied into shared memory by 16-byte cp.async (8
+// consecutive threads a 128-byte row segment), then the block writes
+// out[r, c0 + l] = slab[idx[r, c0 + l] % 512][l] for the tile's rows.  A
+// thread takes quad q = tid % 8 of the slab's columns in rows rho + 32 i
+// (rho = tid / 8): it reads that quad of idx as an int4 and stores a
+// uint4, so a warp reads and writes 4 rows x 128 contiguous bytes.  Column
+// l of the slab is bank l; the 4 threads of a warp that share q (rho % 4 =
+// 0..3) read the quad's elements in an order rotated by rho % 4, so at
+// each of the 4 reads the warp's 32 threads read 32 distinct columns and
+// banks, whatever rows idx picks.  The indices of the first 4 rows of a
+// thread load while the slab lands, the next 4 while the first are
+// gathered.
+template <int kW>
+__global__ void __launch_bounds__(kThreads, 3)
+sublane_gather_kernel(const uint32_t* __restrict__ x,
+                      const int32_t* __restrict__ idx,
+                      uint32_t* __restrict__ out) {
+  extern __shared__ uint4 slab4[];  // [kTileRows][kSlabQuads]
+  constexpr int kSlabs = kW / kSlabWords;
+  constexpr int kRowStep = kThreads / kSlabQuads;  // 32 rows a pass
+  constexpr int kBatch = 4;                        // rows a thread a batch
+  constexpr int kBatches = kTileRows / (kRowStep * kBatch);
+  const int64_t tile = static_cast<int64_t>(blockIdx.x / kSlabs) * kTileRows;
+  const int c0 = static_cast<int>(blockIdx.x % kSlabs) * kSlabWords;
+  for (int v = threadIdx.x; v < kTileRows * kSlabQuads; v += kThreads) {
+    copy16_async(&slab4[v], x + (tile + v / kSlabQuads) * kW + c0 +
+                                (v % kSlabQuads) * 4);
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+
+  const int q = threadIdx.x % kSlabQuads;
+  const int rho = threadIdx.x / kSlabQuads;
+  const int rot = rho & 3;
+  const int col = c0 + q * 4;
+  const auto row_of = [&](int b, int i) {
+    return tile + rho + (b * kBatch + i) * kRowStep;
+  };
+  uint4 j[kBatch];
+  const auto load = [&](int b) {
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      j[i] = *reinterpret_cast<const uint4*>(idx + row_of(b, i) * kW + col);
+    }
+  };
+  load(0);
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+
+  const uint32_t* slab = reinterpret_cast<const uint32_t*>(slab4) + q * 4;
+#pragma unroll
+  for (int b = 0; b < kBatches; ++b) {
+    uint4 cur[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) cur[i] = j[i];
+    if (b + 1 < kBatches) load(b + 1);
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const uint4 r = rotate(cur[i], rot);  // r.x is element rot
+      uint4 v;
+      v.x = slab[(r.x & (kTileRows - 1)) * kSlabWords + rot];
+      v.y = slab[(r.y & (kTileRows - 1)) * kSlabWords + ((rot + 1) & 3)];
+      v.z = slab[(r.z & (kTileRows - 1)) * kSlabWords + ((rot + 2) & 3)];
+      v.w = slab[(r.w & (kTileRows - 1)) * kSlabWords + ((rot + 3) & 3)];
+      *reinterpret_cast<uint4*>(out + row_of(b, i) * kW + col) =
+          rotate(v, (4 - rot) & 3);
+    }
+  }
+}
+
+template <int kW>
+cudaError_t launch_sublanes(const uint32_t* x, const int32_t* idx,
+                            uint32_t* out, int64_t rows, cudaStream_t s) {
+  // the attribute belongs to the current device: set it at every launch
+  const cudaError_t err = cudaFuncSetAttribute(
+      sublane_gather_kernel<kW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSlabBytes);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = rows / kTileRows * (kW / kSlabWords);
+  sublane_gather_kernel<kW><<<static_cast<unsigned>(blocks), kThreads,
+                              kSlabBytes, s>>>(x, idx, out);
+  return cudaGetLastError();
 }
 
 unsigned grid_for(int64_t items, int64_t cap) {
@@ -240,8 +364,8 @@ cudaError_t launch_gather(int pattern, const uint32_t* x, const int32_t* idx,
       tile_gather_kernel<kLanes, kW><<<blocks, kThreads, 0, s>>>(x, idx, out, rows);
       break;
     case kSublanes:
-      tile_gather_kernel<kSublanes, kW><<<blocks, kThreads, 0, s>>>(x, idx, out, rows);
-      break;
+      if (rows % kTileRows) return cudaErrorInvalidValue;
+      return launch_sublanes<kW>(x, idx, out, rows, s);
     case kTable:
       tile_gather_kernel<kTable, kW><<<blocks, kThreads, 0, s>>>(x, idx, out, rows);
       break;
@@ -292,8 +416,8 @@ int arrowtpu_lane_roll(const void* x, const void* mask, void* out,
 }
 
 // pattern: a Pattern; width: W (128 or 256) for the word patterns, 256 for
-// the pairwise ones.  x, idx, out: 16-byte aligned; rows a multiple of 512
-// for the sublane, table and row-move patterns.
+// the pairwise ones and the round trip.  x, idx, out: 16-byte aligned; rows
+// a multiple of 512 for the sublane, table and row-move patterns.
 int arrowtpu_tile_gather(int pattern, int width, const void* x,
                          const void* idx, void* out, int64_t rows,
                          void* stream) {
@@ -303,7 +427,7 @@ int arrowtpu_tile_gather(int pattern, int width, const void* x,
   const int32_t* ix = static_cast<const int32_t*>(idx);
   uint32_t* dst = static_cast<uint32_t*>(out);
   if (pattern == kDeinterleave || pattern == kReinterleave ||
-      pattern == kPairs) {
+      pattern == kPairs || pattern == kRoundtrip) {
     if (width != 256) return static_cast<int>(cudaErrorInvalidValue);
     const unsigned blocks = grid_for(rows * 32, 8192);
     if (pattern == kDeinterleave) {
@@ -311,6 +435,9 @@ int arrowtpu_tile_gather(int pattern, int width, const void* x,
           src, ix, dst, rows);
     } else if (pattern == kReinterleave) {
       tile_gather_kernel<kReinterleave, 256><<<blocks, kThreads, 0, s>>>(
+          src, ix, dst, rows);
+    } else if (pattern == kRoundtrip) {
+      tile_gather_kernel<kRoundtrip, 256><<<blocks, kThreads, 0, s>>>(
           src, ix, dst, rows);
     } else {
       tile_gather_kernel<kPairs, 256><<<blocks, kThreads, 0, s>>>(

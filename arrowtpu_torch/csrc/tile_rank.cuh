@@ -1,14 +1,16 @@
 // The compaction kernels' tile body: the tile shape, the plane pointers
 // passed by value, the in-block ranking of a tile's kept rows, the
-// decoupled look-back, and tile_compact_kernel, the one kernel of K1
-// (csrc/compact.cu, 4- and 8-byte words) and K3 (csrc/compact2.cu).
+// decoupled look-back, and tile_compact_kernel, the one compaction kernel
+// of the port: K1 (csrc/compact.cu, 4- and 8-byte words), K2 (the same
+// source, 1- and 4-byte words) and K3 (csrc/compact2.cu).
 //
 // A block owns one tile of kTile = 4096 rows.  Row order inside a tile is
 // (round, warp, lane): row = tile + r*256 + tid, so a warp touches 32
 // consecutive rows of every plane in each round.
 //
-// tile_compact_kernel, for (P, n) planes of 4- or 8-byte words and an (n,)
-// u8 keep mask; kept words first in row order, then zeros up to out_rows:
+// tile_compact_kernel, for (P, n) planes of 1-, 4- or 8-byte words and an
+// (n,) u8 keep mask; kept words first in row order, then zeros up to
+// out_rows:
 //   1. rank: the tile's mask staged in shared memory (one 16-byte load a
 //      thread), a ballot per (round, warp), a 128-entry scan in warp 0
 //      (rank_tile);
@@ -16,25 +18,31 @@
 //      8 KB of shared memory) at its rank;
 //   3. the kept gather: consecutive threads take consecutive kept rows of
 //      one plane, so the stores to out[p][kept_before + k] are coalesced.
-//      The loads are staged in 32 KB of shared memory, so that many are in
-//      flight with no register held for them (loads into registers cap
-//      them: more a thread costs occupancy), in one of two ways:
-//      - a sparse tile (fewer than 16 / w of its rows kept) loads only its
-//        kept words, by per-word cp.async over flattened work items (plane,
-//        kept row): 16 u32 or 8 u64 items a thread a half, two halves in
-//        flight, across planes;
-//      - a dense tile, whose kept words touch nearly every 32-byte sector,
-//        copies each plane's tile (u32) or half tile (u64) whole with one
-//        cp.async.bulk (the TMA unit) on an mbarrier, two 16 KB buffers in
-//        turn; the few words outside the copy's 16-byte units are read
-//        from global memory by the gather;
+//      A tile is dense when kept * kDenseDiv<T> >= rows (a quarter of
+//      the rows for u32, half for u64, a fifth for u8), else sparse:
+//      - a dense tile copies its planes' tile rows whole into shared
+//        memory with cp.async.bulk (the TMA unit) on an mbarrier, into
+//        chunk buffers of 16 KB in turn: one plane's tile (u32), half a
+//        plane's tile (u64) or four planes' tiles (u8, 4 KB each) a
+//        buffer, two buffers for words, one for bytes (so that 7 blocks
+//        of bytes fit an SM); the few words outside the copies' 16-byte
+//        units are read from global memory;
+//      - a sparse tile of 4- or 8-byte words loads only its kept words, by
+//        per-word cp.async over flattened work items (plane, kept row)
+//        into 32 KB of shared memory, so that many loads are in flight
+//        with no register held for them: 16 u32 or 8 u64 items a thread a
+//        half, two halves in flight, across planes;
+//      - a sparse tile of bytes (cp.async moves 4, 8 or 16 bytes, never 1)
+//        loads its kept bytes with plain loads into registers, 8 items a
+//        thread a batch, over the same flattened items;
 //   4. the tile's output offset (kept rows before it) from one of two
 //      frames: kFrameOffs reads it from `offs`, the exclusive prefix of the
-//      tile counts (K1 when the caller has it: the filter's plan); in
-//      kFrameLookback warp 0 runs a decoupled look-back (K3, and K1 when the
-//      caller passes no offs).  The first two halves (or bulk copies) are
-//      issued before the block waits on the offset, so the look-back costs
-//      no load time;
+//      tile counts (K1 and K2 when the caller has it: the filter's plan);
+//      in kFrameLookback warp 0 runs a decoupled look-back (K3, and K1 and
+//      K2 when the caller passes no offs; the last tile then writes the
+//      count, its inclusive prefix, to `aux` when that is given).  The
+//      first loads (or bulk copies) are issued before the block waits on
+//      the offset, so the look-back costs no load time;
 //   5. the tile's dropped rows' zeros as one contiguous range of every
 //      plane, written with 16-byte stores aligned on the output address
 //      (scalar head and tail words): with db dropped rows before the tile
@@ -48,9 +56,10 @@
 // 3.35 TB/s of HBM3; the look-back's status traffic is 8 bytes a tile.
 // The card reads whole 32-byte sectors, so a sparse mask reads more than
 // the bound counts: at 5.5 % kept, 1 - 0.945^8 = 36 % of the sectors of
-// 4-byte words hold a kept word.  Nothing of the TPU's machinery (MXU
-// one-hot scatter, lane roll rounds, DMA windows, SMEM carries across a
-// sequential grid) carries over.
+// 4-byte words and 1 - 0.945^32 = 84 % of those of bytes hold a kept
+// word.  Nothing of the TPU's machinery (MXU one-hot scatter, lane roll
+// rounds, DMA windows, SMEM carries across a sequential grid) carries
+// over.
 #pragma once
 
 #include <cstdint>
@@ -65,6 +74,16 @@ constexpr int kTile = kThreads * kRounds;  // rows per block
 constexpr int kMaxPlanes = 16;
 constexpr int kStagedBytes = 32 * 1024;  // a block's gather staging
 constexpr unsigned kFull = 0xffffffffu;
+
+// A tile is dense (staged whole by bulk copies) when kept * kDenseDiv<T>
+// >= rows: a quarter of the rows for u32 and half for u64, where nearly
+// every 32-byte sector holds a kept word; a fifth for bytes, between the
+// densities where the card read plain loads faster (up to 12.5 % kept) and
+// bulk copies faster (from 25 %), though the sectors are all touched from
+// about 12 %.
+template <typename T>
+constexpr int kDenseDiv =
+    sizeof(T) == 1 ? 5 : 16 / static_cast<int>(sizeof(T));
 
 static_assert(kRounds * kWarps == 4 * 32, "warp 0 scans 4 counts per lane");
 static_assert(kTile <= 65536, "kept rows are listed as u16");
@@ -168,8 +187,8 @@ __device__ __forceinline__ int rank_tile(const uint8_t* __restrict__ keep,
 }
 
 // The planes of the tile starting at row `tile` copied straight through
-// (the stages before kStageKept): every load of a thread, then its stores,
-// as the scatter does.
+// (the stages before kStageKept): every load of a thread, then its
+// stores.
 template <typename T>
 __device__ __forceinline__ void copy_tile(int64_t n, int num_planes,
                                           const PlanePtrs<T>& planes,
@@ -270,10 +289,12 @@ __device__ __forceinline__ int64_t look_back(Status* status, int64_t t,
 
 namespace {
 
-// A thread's cp.async of one word into shared memory; its groups; a wait
-// until at most kPending of its groups are in flight.
+// A thread's cp.async of one 4- or 8-byte word into shared memory; its
+// groups; a wait until at most kPending of its groups are in flight.
 template <typename T>
 __device__ __forceinline__ void copy_async(T* shared, const T* global) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8,
+                "cp.async moves 4, 8 or 16 bytes");
   const unsigned dst =
       static_cast<unsigned>(__cvta_generic_to_shared(shared));
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(dst),
@@ -292,8 +313,8 @@ __device__ __forceinline__ void wait_async() {
 
 // The dense tiles' bulk copies (the TMA unit): one mbarrier a buffer,
 // initialised by one thread for one arrival; that thread arms it with the
-// copy's byte count and issues the copy, and every thread waits on the
-// barrier's phase.
+// byte count of the copies that fill the buffer and issues them, and every
+// thread waits on the barrier's phase.
 __device__ __forceinline__ unsigned shared_address(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -306,17 +327,22 @@ __device__ __forceinline__ void barrier_init(Status* bar) {
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
 }
 
-// `bytes` (a multiple of 16, maybe 0) from 16-byte aligned `src` to
-// 16-byte aligned shared `dst`; completes the barrier's phase on arrival.
-// The fence orders the block's earlier reads of `dst` (a __syncthreads
-// before it) before the copy's writes.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes, Status* bar) {
+// Arm the barrier's phase for `bytes`, the sum of the bulk copies that
+// complete it (0 completes it at once).  The fence orders the block's
+// earlier reads of the buffer (a __syncthreads before it) before the
+// copies' writes.
+__device__ __forceinline__ void expect_bytes(Status* bar, unsigned bytes) {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
                    shared_address(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// `bytes` (a multiple of 16, maybe 0) from 16-byte aligned `src` to
+// 16-byte aligned shared `dst`, counted on the barrier's phase.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, Status* bar) {
   if (bytes) {
     asm volatile(
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
@@ -339,13 +365,13 @@ __device__ __forceinline__ void barrier_wait(Status* bar, unsigned parity) {
   } while (!done);
 }
 
-// Chunk c of a dense tile's plane: rows [c * kChunkRows, +rows) of the
-// tile, `rows * w` bytes from `src`.  The bulk copy takes the whole 16-byte
-// units between the first and last 16-byte boundaries; the words before
-// and after them (a plane of a (P, n) tensor is 16-byte aligned only when
-// n * w is a multiple of 16) are read from global memory by the gather.
-// In shared memory the chunk starts `pad` bytes into its buffer, so that
-// the copied units land on 16-byte boundaries.
+// A chunk of a dense tile's plane: `bytes` from `start`.  The bulk copy
+// takes the whole 16-byte units between the first and last 16-byte
+// boundaries; the words before and after them (a plane of a (P, n) tensor
+// is 16-byte aligned only when n * w is a multiple of 16) are read from
+// global memory by the gather.  In shared memory the chunk starts `pad`
+// bytes into its slot, so that the copied units land on 16-byte
+// boundaries.
 struct Chunk {
   const char* src;
   unsigned pad, head, body;  // bytes
@@ -392,9 +418,10 @@ __device__ __forceinline__ void zero_fill(const PlanePtrs<T>& planes,
 // kFrame: a Frame; kStage: a Stage (kStageLookback in kFrameLookback only).
 // offs: (tiles + 1,) exclusive prefix of the tile counts (kFrameOffs);
 // status: the look-back's zeroed status words, one a tile (kFrameLookback);
-// aux: one int64 a tile for kStageRank and kStageLookback, else unused.
+// aux: one int64 a tile for kStageRank and kStageLookback; for kStageFull
+// in kFrameLookback the count, written by the last tile, or null.
 template <typename T, int kFrame, int kStage>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 1 ? 7 : 4)
 tile_compact_kernel(const uint8_t* __restrict__ keep, int64_t n,
                     const int64_t* __restrict__ offs, int num_planes,
                     const __grid_constant__ PlanePtrs<T> planes,
@@ -403,14 +430,31 @@ tile_compact_kernel(const uint8_t* __restrict__ keep, int64_t n,
   static_assert(kFrame == kFrameLookback || kStage != kStageLookback,
                 "the look-back stage needs the look-back frame");
   constexpr bool kLookback = kFrame == kFrameLookback;
-  constexpr int kChunkBytes = kStagedBytes / 2;  // a dense chunk's buffer
-  constexpr int kChunkRows = kChunkBytes / sizeof(T);
+  constexpr int kWord = static_cast<int>(sizeof(T));
+  // A dense tile's unit is the chunks of kChunkRows rows of up to
+  // kUnitPlanes planes, one bulk copy each, into one of kBuffers buffers
+  // of kUnitPlanes slots (each 16 bytes longer than its chunk, for the
+  // pad): a 16 KB buffer holds one plane's tile of u32, half of one of
+  // u64, or the tiles of four planes of bytes.  Bytes keep one buffer (the
+  // sparse byte path stages nothing), so that 7 blocks fit an SM.
+  constexpr int kChunkBytes = kStagedBytes / 2;
+  constexpr int kPlaneBytes = kTile * kWord;
+  constexpr int kUnitPlanes =
+      kPlaneBytes < kChunkBytes ? kChunkBytes / kPlaneBytes : 1;
+  constexpr int kChunkRows = kUnitPlanes > 1 ? kTile : kChunkBytes / kWord;
+  constexpr int kSlotBytes = kChunkRows * kWord + 16;
+  constexpr int kBufferBytes = kUnitPlanes * kSlotBytes;
+  constexpr int kBuffers = kWord == 1 ? 1 : 2;
+  constexpr int kStagingBytes =
+      kWord == 1 ? kBufferBytes
+                 : (2 * kBufferBytes > kStagedBytes ? 2 * kBufferBytes
+                                                    : kStagedBytes);
   __shared__ TileRanks ranks;
   __shared__ uint16_t kept_rows[kTile];
   __shared__ int64_t shared_before;
-  // the gather's staging: 32 KB of words for a sparse tile, two chunk
-  // buffers (16 bytes longer for their `pad`) for a dense one
-  __shared__ alignas(16) unsigned char staging[kStagedBytes + 32];
+  // the gather's staging: the unit buffers of a dense tile, 32 KB of
+  // words for a sparse tile of 4- or 8-byte words
+  __shared__ alignas(16) unsigned char staging[kStagingBytes];
   __shared__ Status bars[2];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -443,35 +487,44 @@ tile_compact_kernel(const uint8_t* __restrict__ keep, int64_t n,
   }
   const int rows = n - tile < kTile ? static_cast<int>(n - tile) : kTile;
 
-  // 3, dense: a tile with at least 16 / w of its rows kept (nearly every
-  //    32-byte sector of a plane holds a kept word) stages all its words:
-  //    unit u = (plane u / chunks, chunk u % chunks) is one bulk copy into
-  //    buffer u % 2, the first two issued at once
-  const bool dense = kept * 16 >= rows * static_cast<int>(sizeof(T));
+  // 3, dense: unit u = (plane group u / chunks, chunk u % chunks) is up to
+  //    kUnitPlanes bulk copies into buffer u % kBuffers, the first
+  //    kBuffers units issued at once
+  const bool dense = kept * kDenseDiv<T> >= rows;
   const int chunks = (rows + kChunkRows - 1) / kChunkRows;
-  const int units = num_planes * chunks;
-  const auto chunk_of = [&](int u) {
-    const int c = u % chunks;
+  const int units = (num_planes + kUnitPlanes - 1) / kUnitPlanes * chunks;
+  const auto unit_planes = [&](int u) {
+    const int first = u / chunks * kUnitPlanes;
+    return num_planes - first < kUnitPlanes ? num_planes - first
+                                            : kUnitPlanes;
+  };
+  const auto chunk_of = [&](int p, int c) {
     const int chunk_rows =
         rows - c * kChunkRows < kChunkRows ? rows - c * kChunkRows
                                            : kChunkRows;
-    return Chunk(planes.in[u / chunks] + tile + c * kChunkRows,
-                 chunk_rows * sizeof(T));
+    return Chunk(planes.in[p] + tile + c * kChunkRows, chunk_rows * kWord);
   };
-  const auto buffer = [&](int u) {
-    return staging + (u & 1) * (kChunkBytes + 16);
+  const auto slot = [&](int u, int q) {
+    return staging + (u % kBuffers) * kBufferBytes + q * kSlotBytes;
   };
   const auto issue = [&](int u) {
     if (threadIdx.x == 0 && u < units) {
-      const Chunk ch = chunk_of(u);
-      bulk_copy(buffer(u) + ch.pad + ch.head, ch.src + ch.head, ch.body,
-                &bars[u & 1]);
+      const int c = u % chunks;
+      const int first = u / chunks * kUnitPlanes;
+      const int count = unit_planes(u);
+      unsigned bytes = 0;
+      for (int q = 0; q < count; ++q) bytes += chunk_of(first + q, c).body;
+      expect_bytes(&bars[u % kBuffers], bytes);
+      for (int q = 0; q < count; ++q) {
+        const Chunk ch = chunk_of(first + q, c);
+        bulk_copy(slot(u, q) + ch.pad + ch.head, ch.src + ch.head, ch.body,
+                  &bars[u % kBuffers]);
+      }
     }
   };
   if constexpr (kStage >= kStageKept) {
     if (dense) {
-      issue(0);
-      issue(1);
+      for (int u = 0; u < kBuffers; ++u) issue(u);
     }
   }
   if constexpr (kStage == kStageLookback) {
@@ -496,12 +549,7 @@ tile_compact_kernel(const uint8_t* __restrict__ keep, int64_t n,
   __syncthreads();
 
   // 3, sparse: item i = (plane i / kept, kept row i % kept); a thread takes
-  //    items threadIdx.x + j * kThreads, (p, k) stepped without a division.  Its
-  //    loads land in its own column of `staged` by cp.async, so no register
-  //    holds them: two halves of kHalf items each, one half stored while
-  //    the other is in flight.
-  constexpr int kHalf = kStagedBytes / (2 * kThreads * sizeof(T));
-  T (*staged)[kThreads] = reinterpret_cast<T (*)[kThreads]>(staging);
+  //    items threadIdx.x + j * kThreads, (p, k) stepped without a division.
   int dp = 0, dk = 0;
   Walk load{num_planes, 0};
   if (kept > 0 && !dense) {
@@ -519,20 +567,43 @@ tile_compact_kernel(const uint8_t* __restrict__ keep, int64_t n,
       ++w.p;
     }
   };
+  // 4- and 8-byte words land in the thread's own column of `staged` by
+  // cp.async, so no register holds them: two halves of kHalf items each,
+  // one half stored while the other is in flight
+  constexpr int kHalf = kStagedBytes / (2 * kThreads * kWord);
+  T (*staged)[kThreads] = reinterpret_cast<T (*)[kThreads]>(staging);
   const auto load_half = [&](int h) {
+    if constexpr (kWord >= 4) {
 #pragma unroll
-    for (int j = 0; j < kHalf; ++j) {
+      for (int j = 0; j < kHalf; ++j) {
+        if (load.p < num_planes) {
+          copy_async(&staged[h * kHalf + j][threadIdx.x],
+                     planes.in[load.p] + tile + kept_rows[load.k]);
+          next(load);
+        }
+      }
+      commit_async();
+    }
+  };
+  // bytes are loaded into registers, kBatch items a batch
+  constexpr int kBatch = 8;
+  T held[kBatch];
+  const auto load_batch = [&]() {
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
       if (load.p < num_planes) {
-        copy_async(&staged[h * kHalf + j][threadIdx.x],
-                   planes.in[load.p] + tile + kept_rows[load.k]);
+        held[j] = planes.in[load.p][tile + kept_rows[load.k]];
         next(load);
       }
     }
-    commit_async();
   };
   if (!dense) {
-    load_half(0);
-    load_half(1);
+    if constexpr (kWord >= 4) {
+      load_half(0);
+      load_half(1);
+    } else {
+      load_batch();
+    }
   }
 
   // 4. the tile's offset: every thread's first loads are in flight meanwhile
@@ -544,6 +615,11 @@ tile_compact_kernel(const uint8_t* __restrict__ keep, int64_t n,
     }
     __syncthreads();
     kept_before = shared_before;
+    if constexpr (kStage == kStageFull) {
+      if (aux != nullptr && threadIdx.x == 0 && t + 1 == gridDim.x) {
+        *aux = kept_before + kept;
+      }
+    }
   } else {
     kept_before = offs[t];
   }
@@ -564,9 +640,53 @@ tile_compact_kernel(const uint8_t* __restrict__ keep, int64_t n,
     if (lo < hi) zero_fill(planes, num_planes, lo, hi);
   }
 
-  // 3, dense, continued: each unit once its copy has landed, its kept
-  //    words in row order (kept_rows is ascending, so a chunk's kept rows
-  //    are one range of it), then its buffer refilled with unit u + 2
+  // 3, dense, continued: each unit once its copies have landed, its
+  //    planes' kept words in row order (consecutive threads take
+  //    consecutive kept rows; kept_rows is ascending, so a chunk's kept
+  //    rows are one range of it), then its buffer refilled with unit u +
+  //    kBuffers.  Bytes cost a few instructions each, so a unit of bytes
+  //    first reads the bytes outside its copies' 16-byte units (at most 15
+  //    before and 15 after each) into their places in its buffer, and the
+  //    gather reads shared memory alone, up to a bound taken once.
+  if (dense && kWord == 1) {
+    const int64_t end = out_rows - kept_before < kept ? out_rows - kept_before
+                                                      : kept;
+    for (int u = 0; u < units; ++u) {
+      const int first = u * kUnitPlanes;  // one chunk a plane
+      const int count = unit_planes(u);
+      if (threadIdx.x < 32) {
+        for (int q = 0; q < count; ++q) {
+          const Chunk ch = chunk_of(first + q, 0);
+          const int x = threadIdx.x < 16
+                            ? static_cast<int>(threadIdx.x)
+                            : static_cast<int>(ch.head + ch.body +
+                                               threadIdx.x - 16);
+          if (threadIdx.x < 16 ? x < static_cast<int>(ch.head) : x < rows) {
+            reinterpret_cast<T*>(slot(u, q) + ch.pad)[x] =
+                reinterpret_cast<const T*>(ch.src)[x];
+          }
+        }
+      }
+      barrier_wait(&bars[u % kBuffers], (u / kBuffers) & 1);
+      __syncthreads();
+      for (int q = 0; q < count; ++q) {
+        const T* s = reinterpret_cast<const T*>(slot(u, q) +
+                                                chunk_of(first + q, 0).pad);
+        T* __restrict__ out = planes.out[first + q] + kept_before;
+        for (int k = threadIdx.x; k < end; k += kThreads) {
+          out[k] = s[kept_rows[k]];
+        }
+      }
+      if (u + kBuffers < units) {
+        __syncthreads();
+        issue(u + kBuffers);
+      }
+    }
+    return;
+  }
+  // Words keep a loop of their own: the bytes' loop taken chunk by chunk
+  // for them (the words outside the copies filled in first) held 8 (u32)
+  // or 21-28 (u64) more registers and was 1-3 % slower at 96 % kept.
   if (dense) {
     // the (round, warp) where chunk 1 starts (8-byte words only)
     constexpr int kSplit =
@@ -575,43 +695,61 @@ tile_compact_kernel(const uint8_t* __restrict__ keep, int64_t n,
       const int c = u % chunks;
       const int k0 = c == 0 ? 0 : ranks.prefix[kSplit];
       const int k1 = c + 1 == chunks ? kept : ranks.prefix[kSplit];
-      const Chunk ch = chunk_of(u);
+      const int first = u / chunks * kUnitPlanes;
       const int row0 = c * kChunkRows;
-      const int hw = ch.head / sizeof(T);  // words read from global memory
-      const int tw = (ch.head + ch.body) / sizeof(T);
-      const T* __restrict__ g = reinterpret_cast<const T*>(ch.src);
-      const T* s = reinterpret_cast<const T*>(buffer(u) + ch.pad);
-      T* __restrict__ out = planes.out[u / chunks];
-      barrier_wait(&bars[u & 1], (u >> 1) & 1);
-      for (int k = k0 + threadIdx.x; k < k1; k += kThreads) {
-        const int64_t dst = kept_before + k;
-        if (dst >= out_rows) break;
-        const int r = kept_rows[k] - row0;
-        out[dst] = r < hw || r >= tw ? g[r] : s[r];
+      barrier_wait(&bars[u % kBuffers], (u / kBuffers) & 1);
+      for (int q = 0, count = unit_planes(u); q < count; ++q) {
+        const Chunk ch = chunk_of(first + q, c);
+        const int hw = ch.head / kWord;  // words read from global memory
+        const int tw = (ch.head + ch.body) / kWord;
+        const T* __restrict__ g = reinterpret_cast<const T*>(ch.src);
+        const T* s = reinterpret_cast<const T*>(slot(u, q) + ch.pad);
+        T* __restrict__ out = planes.out[first + q];
+        for (int k = k0 + threadIdx.x; k < k1; k += kThreads) {
+          const int64_t dst = kept_before + k;
+          if (dst >= out_rows) break;
+          const int r = kept_rows[k] - row0;
+          out[dst] = r < hw || r >= tw ? g[r] : s[r];
+        }
       }
-      if (u + 2 < units) {
+      if (u + kBuffers < units) {
         __syncthreads();
-        issue(u + 2);
+        issue(u + kBuffers);
       }
     }
     return;
   }
 
-  // 3, continued: store a half once it has landed, then refill it
-  for (int h = 0;; h ^= 1) {
-    wait_async<1>();
+  // 3, sparse, continued: store the items in flight, then load the next
+  if constexpr (kWord >= 4) {
+    for (int h = 0;; h ^= 1) {
+      wait_async<1>();
 #pragma unroll
-    for (int j = 0; j < kHalf; ++j) {
-      if (store.p < num_planes) {
-        const int64_t dst = kept_before + store.k;
-        if (dst < out_rows) {
-          planes.out[store.p][dst] = staged[h * kHalf + j][threadIdx.x];
+      for (int j = 0; j < kHalf; ++j) {
+        if (store.p < num_planes) {
+          const int64_t dst = kept_before + store.k;
+          if (dst < out_rows) {
+            planes.out[store.p][dst] = staged[h * kHalf + j][threadIdx.x];
+          }
+          next(store);
         }
-        next(store);
       }
+      if (store.p >= num_planes) break;  // the half in flight holds no item
+      load_half(h);
     }
-    if (store.p >= num_planes) break;  // the half in flight holds no item
-    load_half(h);
+  } else {
+    for (;;) {
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        if (store.p < num_planes) {
+          const int64_t dst = kept_before + store.k;
+          if (dst < out_rows) planes.out[store.p][dst] = held[j];
+          next(store);
+        }
+      }
+      if (store.p >= num_planes) break;
+      load_batch();
+    }
   }
 }
 

@@ -97,13 +97,9 @@ def library() -> ctypes.CDLL:
     lib.arrowtpu_cuda_error_string.restype = ctypes.c_char_p
     lib.arrowtpu_tile_counts.argtypes = [vp, i64, vp, vp]
     lib.arrowtpu_tile_counts.restype = i32
-    lib.arrowtpu_compact_scatter.argtypes = [
-        i32, vp, i64, vp, i32, ctypes.POINTER(vp), ctypes.POINTER(vp), i64,
-        vp]
-    lib.arrowtpu_compact_scatter.restype = i32
     lib.arrowtpu_compact_tiles.argtypes = [
         i32, vp, i64, vp, i32, ctypes.POINTER(vp), ctypes.POINTER(vp), i64,
-        vp, vp]
+        vp, vp, vp]
     lib.arrowtpu_compact_tiles.restype = i32
     lib.arrowtpu_compact2.argtypes = [vp, i64, i32, ctypes.POINTER(vp),
                                       ctypes.POINTER(vp), vp, vp]
@@ -256,20 +252,6 @@ def _check_launch(plist, outs) -> None:
         raise ValueError(f"{P} planes for {len(outs)} outputs")
 
 
-def scatter_cuda(plist, outs, keep: torch.Tensor, offs: torch.Tensor) -> None:
-    """One compact_scatter_kernel launch (K2): up to MAX_PLANES (n,) planes
-    into the (out_rows,) planes of `outs` (written in full, zero tail
-    included)."""
-    _check_offs(offs, keep)
-    _check_launch(plist, outs)
-    with torch.cuda.device(keep.device):
-        _check(library().arrowtpu_compact_scatter(
-            plist[0].dtype.itemsize, keep.data_ptr(), keep.shape[0],
-            offs.data_ptr(), len(plist), plane_ptrs(plist), plane_ptrs(outs),
-            outs[0].shape[0], _stream(keep)),
-            "compact_scatter_kernel")
-
-
 def lookback_scratch(keep: torch.Tensor) -> torch.Tensor:
     """Device scratch of one look-back launch of tile_compact_kernel: a
     status word per tile (zeroed by the C entry point before every launch,
@@ -278,24 +260,30 @@ def lookback_scratch(keep: torch.Tensor) -> torch.Tensor:
     return torch.empty(tiles, dtype=torch.int64, device=keep.device)
 
 
-def tiles_cuda(plist, outs, keep: torch.Tensor, offs, scratch) -> None:
-    """One tile_compact_kernel launch for K1 (csrc/compact.cu): up to
-    MAX_PLANES (n,) 4- or 8-byte planes into the (out_rows,) planes of
+def tiles_cuda(plist, outs, keep: torch.Tensor, offs, scratch,
+               count: torch.Tensor = None) -> None:
+    """One tile_compact_kernel launch for K1 or K2 (csrc/compact.cu): up to
+    MAX_PLANES (n,) 1-, 4- or 8-byte planes into the (out_rows,) planes of
     `outs`, written in full, zero tail included.  Given `offs` (the tile
     offsets) a tile reads its offset there; with offs None the tiles look
-    back, in `scratch` (lookback_scratch(keep))."""
+    back, in `scratch` (lookback_scratch(keep)), and the last one writes
+    the count to `count` (a 0-d int64 tensor) when it is given."""
     if offs is None:
         _check_scratch(scratch, keep)
     else:
         _check_offs(offs, keep)
     _check_launch(plist, outs)
+    if count is not None and (count.dtype != torch.int64 or count.numel() != 1
+                              or count.device != keep.device):
+        raise ValueError("count must be one int64 on keep's device")
     with torch.cuda.device(keep.device):
         _check(library().arrowtpu_compact_tiles(
             plist[0].dtype.itemsize, keep.data_ptr(), keep.shape[0],
             None if offs is None else offs.data_ptr(), len(plist),
             plane_ptrs(plist), plane_ptrs(outs), outs[0].shape[0],
             None if offs is not None else scratch.data_ptr(),
-            _stream(keep)), "tile_compact_kernel (K1)")
+            None if count is None else count.data_ptr(), _stream(keep)),
+            "tile_compact_kernel")
 
 
 def compact2_cuda(plist, outs, keep: torch.Tensor,

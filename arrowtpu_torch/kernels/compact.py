@@ -3,9 +3,15 @@
 Counterpart of `arrowtpu/pallas/compact.py` (`compact_planes_info`,
 `compact_words`, `compact_bytes`, `tile_info` -> `_compact_call` ->
 `_compact_kernel`).  Its u8 mode compacts the filter's bool planes and
-validity; the kernel is `compact_scatter_kernel` in `csrc/compact.cu`,
-instantiated for uint8 (u8 mode) and uint32 (u32 mode) words.  The design
-and its bound on the card are in that file's header.
+validity.  The kernel is K1's, `tile_compact_kernel`
+(`csrc/tile_rank.cuh`, launched from `csrc/compact.cu`), instantiated for
+uint8 (u8 mode) and uint32 (u32 mode, K1's instantiation) words; the
+design and its bound on the card are in those files' headers.  Given
+`info` (the filter's plan) each tile reads its output offset there and the
+count is `info[-1]`; without it the tiles find their offsets by a
+decoupled look-back inside one launch (after a scratch memset, with no
+count pass and no cumsum), and the last tile writes the count to a device
+word that is returned as it is, never read on the host.
 
 Contract, as in the JAX package: the kept words first in row order, zeros
 from `count` on, and `count` returned beside the planes (a 0-d int64
@@ -59,15 +65,19 @@ def compact_planes_info(planes, keep: torch.Tensor, info: torch.Tensor = None,
     plist = _build.check_operands(planes, keep, WORD_BYTES)
     rows = _build.out_rows_of(keep, out_rows)
     result, outs = _build.empty_outputs(planes, plist, rows)
-    if info is None:
-        info = _build.tile_offsets(keep)
-    if keep.shape[0]:
-        step = _build.MAX_PLANES
-        for i in range(0, len(plist), step):
-            _build.scatter_cuda(plist[i:i + step], outs[i:i + step], keep,
-                                info)
-            launches += 1
-    return result, info[-1]
+    if keep.shape[0] == 0:
+        return result, torch.zeros((), dtype=torch.int64, device=keep.device)
+    if info is None:  # the tiles look back; the last writes the count
+        scratch = _build.lookback_scratch(keep)
+        count = torch.empty((), dtype=torch.int64, device=keep.device)
+    else:
+        scratch, count = None, info[-1]
+    step = _build.MAX_PLANES
+    for i in range(0, len(plist), step):
+        _build.tiles_cuda(plist[i:i + step], outs[i:i + step], keep, info,
+                          scratch, count if info is None else None)
+        launches += 1
+    return result, count
 
 
 def compact_words(plane: torch.Tensor, keep: torch.Tensor):

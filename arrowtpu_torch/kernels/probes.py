@@ -13,6 +13,8 @@ design and the bound on the card.
   lane_roll(x, k, nsel, mask)      k rolls of each 128-word row, the first
                                    nsel of them selects (P1, P7)
   tile_gather(x, pattern, idx)     the in-tile gathers of P1, P2, P3, P5, P7
+                                   (the sublane gather staged in shared
+                                   memory; P3's round trip one launch)
   compaction_stages(planes, keep, stage, kernel)
                                    K3 or K1 cut after one of its stages
                                    (P7's K3 ablation, P8)
@@ -36,7 +38,8 @@ TILE_ROWS = 512  # T: rows of a gather tile, the TPU probes' block
 ROW_WORDS = 128  # words of a rolled row
 # same numbers as `Pattern` in csrc/probes.cu
 PATTERNS = {"lanes": 0, "sublanes": 1, "table": 2, "chained": 3,
-            "rowmove": 4, "deinterleave": 5, "reinterleave": 6, "pairs": 7}
+            "rowmove": 4, "deinterleave": 5, "reinterleave": 6, "pairs": 7,
+            "roundtrip": 8}
 # same numbers as `Stage` in csrc/tile_rank.cuh; K1 has no look-back
 STAGES = {"copy": 0, "rank": 1, "lookback": 2, "kept": 3, "full": 4}
 
@@ -177,7 +180,7 @@ def _gather_operands(x, pattern, idx) -> Tuple[int, int]:
         rows, width = x.shape
     if width not in (128, 256):
         raise ValueError(f"tile_gather: rows of 128 or 256 words, got {width}")
-    if pattern in ("deinterleave", "pairs") and width != 256:
+    if pattern in ("deinterleave", "pairs", "roundtrip") and width != 256:
         raise ValueError(f"{pattern} takes (rows, 256) words: 128 pairs")
     if pattern in ("sublanes", "table", "rowmove") and rows % TILE_ROWS:
         raise ValueError(f"{pattern}: rows must be a multiple of {TILE_ROWS}")
@@ -218,6 +221,9 @@ def tile_gather_plain(x: torch.Tensor, pattern: str,
         out = xi.view(rows, 128, 2).permute(2, 0, 1)
     elif pattern == "reinterleave":
         out = torch.stack([xi[0], xi[1]], dim=-1)
+    elif pattern == "roundtrip":
+        out = tile_gather_plain(tile_gather_plain(x, "deinterleave"),
+                                "reinterleave")
     else:  # pairs
         sel = (ii & 127)[..., None].expand(rows, 128, 2)
         out = torch.gather(xi.view(rows, 128, 2), 1, sel)
@@ -237,6 +243,8 @@ def tile_gather(x: torch.Tensor, pattern: str, idx: torch.Tensor = None):
       deinterleave  (rows, 256) pairs -> (2, rows, 128): out[c, r, j] =
                     x[r, 2j + c]
       reinterleave  (2, rows, 128) -> (rows, 256): out[r, 2j + c] = x[c, r, j]
+      roundtrip     (rows, 256) -> (rows, 256): deinterleave, then
+                    reinterleave (the identity), in one launch
       pairs         (rows, 256) pairs, idx (rows, 128): out pair (r, j) =
                     x pair (r, idx[r, j])"""
     if x.device.type == "cpu":

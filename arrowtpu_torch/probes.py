@@ -345,12 +345,9 @@ def run_probes(device=None, reps: int = 30, log=print) -> Dict:
     del idx256, pair_idx
 
     # P3: scripts/prof_deint.py (its copy 256 and pair move are above)
-    run.probe("P3", "deint + reint (two launches: deinterleave, "
-              "reinterleave)", "tile_gather",
-              lambda: kp.tile_gather(kp.tile_gather(x256, "deinterleave"),
-                                     "reinterleave"),
-              lambda: kp.tile_gather_plain(
-                  kp.tile_gather_plain(x256, "deinterleave"), "reinterleave"),
+    run.probe("P3", "deint + reint (one launch)", "tile_gather",
+              lambda: kp.tile_gather(x256, "roundtrip"),
+              lambda: kp.tile_gather_plain(x256, "roundtrip"),
               16 * N, x256.clone, shape256 + ", identity")
     del x256, x128, idx128
 

@@ -7,11 +7,13 @@ Phases (each raises on failure; the exit code is then non-zero):
   1. the card's name and power limit, versions, and the nvcc build of the
      CUDA kernels from the repository's sources, with the `-Xptxas -v`
      lines (registers, spills, shared memory) of every instantiation of
-     tile_compact_kernel, K1's and K3's kernel;
+     tile_compact_kernel (the kernel of K1, K2 and K3; K2's uint8 ones
+     included) and of tile_gather's round trip and staged sublane gather;
   2. every kernel against its plain PyTorch version on the card, bit-exact:
      K1 (kernels/compact3.py) at uint32 with P in {1, 2, 4, 8, 16} and at
      uint64 with P in {1, 2}, with tile offsets and without (look-back);
-     K2 (kernels/compact.py) at uint8 and uint32;
+     K2 (kernels/compact.py) at uint8 and uint32, with tile offsets and
+     without (the count then written on the card), count included;
      keep densities {0, 0.02, 0.5, 0.96, 1}; n in {65,536, 8,000,000} (the
      second is not a multiple of the kernels' 4096-row tile);
   3. the main path: the flagship step (arrowtpu_torch.entry.step) at
@@ -22,8 +24,9 @@ Phases (each raises on failure; the exit code is then non-zero):
      bit for bit against the kernel's plain version on the same inputs
      (`held_to_plain`: all of each output, zero tail included); the
      count kernel's launches are counted on the same run: the filter's
-     plan is the one, and each of the group-by's K1 calls passes no tile
-     offsets and makes one K1 launch and no count kernel launch;
+     plan is the one, K2 is one launch, and each of the group-by's K1
+     calls passes no tile offsets and makes one K1 launch and no count
+     kernel launch;
   4. timing: the step and its three stages at both cardinalities with
      CUDA events (warm-up, then the median of 30 runs; the step again three
      times, the cardinalities in turns, for the spread of the host's
@@ -32,8 +35,11 @@ Phases (each raises on failure; the exit code is then non-zero):
      beside its bound, its plain version and the PyTorch library call that
      computes the same function; then K1 at the step's two group-by
      calls, replayed on their operands (a profile of each must show no
-     count or scan kernel).  Kernel, plain and library times are CUDA
-     events on the card: the median of 30 calls, each after an L2 flush,
+     count or scan kernel); K2's byte tiles at 0.5 to 50 % kept, each
+     held to the plain version, beside the bound and the 32-byte sectors
+     the kept bytes touch; K1 and K2 at 50 and 96 % kept with full outputs, K2 beside a
+     `stream` copy of the same bytes.  Kernel, plain and library times are
+     CUDA events on the card: the median of 30 calls, each after an L2 flush,
      queued behind a wait so that the host's launch time is hidden
      (`probes.cold_ms`); the kernel's back-to-back time (`warm_ms`) is
      printed beside them;
@@ -67,7 +73,8 @@ Phases (each raises on failure; the exit code is then non-zero):
      without keep; lane_roll at (k, nsel) in {(7, 0), (14, 14), (56, 56)}
      under both masks; tile_gather, every pattern at W in {128, 256};
      compaction_stages, every stage of K3 and K1 at densities {0, 0.055,
-     0.5, 1} (P = 2, n = 8,000,001);
+     0.5, 1} (P = 2, n = 8,000,001); the round trip also against the
+     identity;
   10. `probes.run_probes()` at the probes' own shapes, its launch counts
      set to 0 just before and read just after (every probe kernel must
      have run): one line per H100 function with the probe bodies it
@@ -202,28 +209,45 @@ def bytes_bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-WORDS = {"j": "u32", "m": "u64", "y": "u64"}
+WORDS = {"h": "u8", "j": "u32", "m": "u64", "y": "u64"}
 FRAMES = {"0": "offs", "1": "look-back"}
 STAGE_NAMES = {"0": "copy", "1": "rank", "2": "lookback", "3": "kept",
                "4": "full"}
 
 
-def ptxas_tile_compact(build_log: str):
-    """The `-Xptxas -v` report of each tile_compact_kernel instantiation:
-    [(word, frame, stage, [its register / spill / shared memory lines])]."""
+def _kernel_label(mangled: str):
+    """The instantiation a ptxas report is of, for the kernels whose
+    resources chip_smoke prints, else None."""
+    import re
+
+    t = re.search(r"tile_compact_kernelI(\w)Li(\d)ELi(\d)E", mangled)
+    if t:
+        return (f"tile_compact_kernel<{WORDS.get(t[1], t[1])}, "
+                f"{FRAMES[t[2]]}, {STAGE_NAMES[t[3]]}>")
+    t = re.search(r"sublane_gather_kernelILi(\d+)E", mangled)
+    if t:
+        return f"sublane_gather_kernel<W={t[1]}>"
+    if re.search(r"tile_gather_kernelILi8ELi256E", mangled):
+        return "tile_gather_kernel<roundtrip, 256>"
+    return None
+
+
+def ptxas_reports(build_log: str):
+    """The `-Xptxas -v` report of each instantiation of tile_compact_kernel
+    and of tile_gather's round trip and staged sublane gather: [(label,
+    [its register / spill / shared memory lines])]."""
     import re
 
     out, cur = [], None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"tile_compact_kernelI(\w)Li(\d)ELi(\d)E", m[1])
-            cur = None if t is None else (
-                WORDS.get(t[1], t[1]), FRAMES[t[2]], STAGE_NAMES[t[3]], [])
+            label = _kernel_label(m[1])
+            cur = None if label is None else (label, [])
             if cur:
                 out.append(cur)
         elif cur and ("registers" in line or "spill" in line):
-            cur[3].append(line.strip())
+            cur[1].append(line.strip())
     return out
 
 
@@ -256,8 +280,14 @@ def check_kernels(k1, k2, dev) -> None:
                             "differs from its plain version with offs")
                 else:
                     keep = keep.to(torch.uint8)
+                    offs = k2.tile_info(keep)
                     got, cnt = k2.compact_planes_info(planes, keep)
                     want, wcnt = k2.compact_planes_info_plain(planes, keep)
+                    got_o, cnt_o = k2.compact_planes_info(planes, keep, offs)
+                    if not torch.equal(got_o, want) or int(cnt_o) != int(wcnt):
+                        raise AssertionError(
+                            f"K2 {dtype} P={P} n={n} density={density}: "
+                            "differs from its plain version with offs")
                 torch.cuda.synchronize()
                 if not torch.equal(got, want) or int(cnt) != int(wcnt):
                     diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
@@ -273,15 +303,51 @@ def check_kernels(k1, k2, dev) -> None:
                 rows = min(n, kept + 100)
                 shorts = ([k1.compact_planes(planes, keep, o, rows)
                            for o in (None, offs)] if kernel == "K1" else
-                          [k2.compact_planes_info(planes, keep,
-                                                  out_rows=rows)[0]])
+                          [k2.compact_planes_info(planes, keep, o, rows)[0]
+                           for o in (None, offs)])
                 if not all(torch.equal(x, want[:, :rows]) for x in shorts):
                     raise AssertionError(
                         f"{kernel} {dtype} P={P} n={n} density={density}: "
                         f"out_rows={rows} differs from its plain version")
         log(f"kernels: bit-exact against plain at n={n} "
             f"({len(cases)} shapes x 5 densities; K1 with tile offsets and "
-            "with the look-back)")
+            "with the look-back; K2 in both frames, count included)")
+
+
+def k2_density_sweep(k1, k2, planes, dev) -> None:
+    """K2's byte tiles (the filter's four validity planes, tile offsets,
+    output cut to the count rounded to 64 rows) at 0.5, 2, 5.5, 12.5, 25
+    and 50 % kept, on both sides of the dense threshold (a fifth of a
+    tile's rows kept): each held bit for bit to the plain version, then
+    timed (cold_ms) beside the bound and the bytes of the 32-byte sectors
+    that the kept bytes touch (mask + touched sectors of every plane +
+    output), at 3.35 TB/s."""
+    from arrowtpu_torch.probes import fresh_call
+
+    n = planes[0].shape[0]
+    g = torch.Generator(device=dev).manual_seed(5)
+    for density in (0.005, 0.02, 0.055, 0.125, 0.25, 0.5):
+        keep = torch.rand(n, device=dev, generator=g) < density
+        kept = int(keep.sum())
+        rows = -(-max(kept, 1) // 64) * 64
+        offs = k1.tile_offsets(keep)
+        want = k2.compact_planes_info_plain(planes, keep, rows)[0]
+        sectors = int(keep[: n - n % 32].view(-1, 32).any(1).sum())
+        sector_bytes = n + len(planes) * (32 * sectors + rows)
+        bound = n + len(planes) * (kept + rows)
+
+        def run():
+            return k2.compact_planes_info(planes, keep, offs, rows)[0]
+
+        got = fresh_call(run, want)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"K2 at {density:.1%} kept: differs from "
+                                 "its plain version")
+        log(f"  K2 u8 sweep, {density:.1%} kept ({kept} rows, {sectors} "
+            f"of {n // 32} sectors touched): {cold_ms(run):.4f} ms; bound "
+            f"{bytes_bound_ms(bound):.4f} ms, sectors "
+            f"{bytes_bound_ms(sector_bytes):.4f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -655,13 +721,17 @@ def check_probes(kp, probes, dev) -> None:
     patterns = [(p, W) for p in ("lanes", "sublanes", "table", "chained",
                                  "rowmove") for W in (128, 256)]
     patterns += [("deinterleave", 256), ("reinterleave", 256),
-                 ("pairs", 256)]
+                 ("pairs", 256), ("roundtrip", 256)]
     for pattern, W in patterns:
         data = words(2, rows, 128) if pattern == "reinterleave" \
             else words(rows, W)
         extent = {"sublanes": kp.TILE_ROWS, "pairs": 128}.get(pattern, W)
         idx = None
-        if pattern not in ("rowmove", "deinterleave", "reinterleave"):
+        if pattern == "roundtrip":  # the identity, in one launch
+            same(lambda: kp.tile_gather(data, pattern), data.clone,
+                 "tile_gather roundtrip against the identity")
+        if pattern not in ("rowmove", "deinterleave", "reinterleave",
+                           "roundtrip"):
             idx = torch.randint(0, extent, (rows, 128 if pattern == "pairs"
                                             else W), dtype=torch.int32,
                                 device=dev, generator=g)
@@ -811,12 +881,15 @@ def main() -> int:
     _build.library()
     log(f"build: {path.name} in {secs:.2f} s"
         + (" (cached)" if secs == 0 else ""))
-    reports = ptxas_tile_compact(build_log)
-    if not reports:
-        raise AssertionError("no ptxas report of tile_compact_kernel")
-    for word, frame, stage, lines in reports:
-        log(f"  ptxas tile_compact_kernel<{word}, {frame}, {stage}>: "
-            + " | ".join(lines))
+    reports = ptxas_reports(build_log)
+    labels = " ".join(label for label, _ in reports)
+    for want in ("tile_compact_kernel<u8, offs, full>",
+                 "tile_compact_kernel<u8, look-back, full>",
+                 "sublane_gather_kernel", "tile_gather_kernel<roundtrip"):
+        if want not in labels:
+            raise AssertionError(f"no ptxas report of {want}")
+    for label, lines in reports:
+        log(f"  ptxas {label}: " + " | ".join(lines))
 
     # phase 2
     t0 = time.perf_counter()
@@ -844,11 +917,12 @@ def main() -> int:
             if launches[name] <= 0 or not calls[name]:
                 raise AssertionError(f"{name} was not launched by the step")
         check_against_oracle(out, want, bm)
-        # the filter's plan is the step's one count kernel launch
-        if launches["tile_counts"] != 1:
+        # the filter's plan is the step's one count kernel launch, and its
+        # byte planes one K2 launch
+        if launches["tile_counts"] != 1 or launches["K2"] != 1:
             raise AssertionError(f"{launches['tile_counts']} count-kernel "
-                                 "launches on the step, expected the "
-                                 "filter's one")
+                                 f"and {launches['K2']} K2 launches on the "
+                                 "step, expected the filter's one of each")
         extraction = group_by_calls(args, launches["tile_counts"],
                                     f"step, {card_keys} keys")
         log(f"main path, {card_keys} keys: {out.length} groups exact "
@@ -914,6 +988,8 @@ def main() -> int:
                 raise AssertionError(f"{name}: differs at the main shape")
             kernels_rows[name]["max_abs_err"] = float(err)
 
+        k2_density_sweep(k1, k2, p1, dev)
+
         # the same planes under denser masks with full outputs: how the
         # kernels fare when the writes are not cut by the count
         g = torch.Generator(device=dev).manual_seed(1)
@@ -925,10 +1001,18 @@ def main() -> int:
                     ("K2", p1,
                      lambda: k2.compact_planes_info(p1, dense, offs_d))):
                 w = planes[0].element_size()
-                bound = bytes_bound_ms(
-                    N_MAIN + len(planes) * w * (kept + N_MAIN))
-                log(f"  {name} at {density:.0%} kept, full output: "
-                    f"{cold_ms(fn):.4f} ms, bound {bound:.4f} ms")
+                nbytes = N_MAIN + len(planes) * w * (kept + N_MAIN)
+                line = (f"  {name} at {density:.0%} kept, full output: "
+                        f"{cold_ms(fn):.4f} ms, bound "
+                        f"{bytes_bound_ms(nbytes):.4f} ms")
+                if name == "K2":
+                    # a copy that reads and writes the same bytes
+                    words = torch.zeros((1, nbytes // 8), dtype=torch.int32,
+                                        device=dev)
+                    line += (f", stream copy of the same bytes "
+                             f"{cold_ms(lambda: kp.stream(words)):.4f} ms")
+                    del words
+                log(line)
 
     # the step is host-bound and host clocks vary on a shared machine: its
     # time again, the two cardinalities in turns, for the spread
@@ -1069,7 +1153,8 @@ def main() -> int:
                 "stages_k1": "scripts/prof_kernel.py:147"}
     names = {"K1": "compact3 (tile_compact_kernel, u32/u64, tile offsets "
                    "or look-back)",
-             "K2": "compact (compact_scatter_kernel, u8/u32)",
+             "K2": "compact (tile_compact_kernel, u8/u32, tile offsets "
+                   "or look-back)",
              "K3": "compact2 (tile_compact_kernel, u32, look-back)",
              "stream": "stream (stream_kernel)",
              "lane_roll": "lane_roll (lane_roll_kernel)",
@@ -1090,6 +1175,13 @@ def main() -> int:
         kernels_rows[key] = dict(line, bound_by="bytes",
                                  shape=f"{pid} {line['label']}: "
                                        f"{line['shape']}")
+    # tile_gather's redesigned lines: the staged sublane gather, P3's round
+    # trip in one launch
+    kernels_rows["tile_gather"]["redesigned_lines"] = [
+        {k: x.get(k) for k in ("id", "label", "ms", "warm_ms", "bound_ms",
+                               "floor_ms", "plain_ms", "library_ms")}
+        for x in result["lines"] if x["kernel"] == "tile_gather"
+        and ("sublane" in x["label"] or x["label"].startswith("deint"))]
     flagship = main_runs[CARDINALITIES[0]][1]
     launches = {"K1": flagship["K1"], "K2": flagship["K2"],
                 "K3": k3_launches["K3"], **probe_launches}
@@ -1112,8 +1204,8 @@ def main() -> int:
             **({"count_kernel_launches_by_path": {
                 p: c["tile_counts"] for p, c in by_path.items()
                 if "tile_counts" in c}} if key == "K1" else {}),
-            **{k: row[k] for k in ("group_by_calls", "join_calls")
-               if k in row}})
+            **{k: row[k] for k in ("group_by_calls", "join_calls",
+                                   "redesigned_lines") if k in row}})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -96,6 +96,40 @@ def test_k2_against_pallas_interpret(mode, density):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("with_info", [True, False])
+@pytest.mark.parametrize("mode", ["u8", "bool"])
+@pytest.mark.parametrize("n", EDGE_NS)
+def test_k2_edges_against_pallas_interpret(n, mode, with_info):
+    """Four byte planes (the filter's validity planes) at n one and three
+    past a tile, at every edge density, with the tile info given and not:
+    the Pallas kernel in interpret mode runs the planes padded with dropped
+    rows to its 16,384-word tile, and its first n words and its count are
+    the port's."""
+    rng = np.random.default_rng(1000 + n)
+    pad = jc.TILE
+    for density in EDGE_DENSITIES:
+        keep = np.zeros(pad, np.uint8)
+        keep[:n] = edge_keep(rng, n, density)
+        planes = np.zeros((4, pad), np.uint8)
+        planes[:, :n] = rng.integers(0, 2, (4, n)) if mode == "bool" \
+            else rng.integers(0, 256, (4, n))
+        jkeep = jnp.asarray(keep)
+        tile_r = jc.pick_tile_r(pad)
+        want, wcnt = jc.compact_planes_info(
+            jnp.asarray(planes), jkeep, jc.tile_info(jkeep, tile_r), tile_r,
+            is_u32=False, interpret=True)
+        t_keep = torch.from_numpy(keep[:n].astype(bool))
+        t_planes = torch.from_numpy(planes[:, :n].copy())
+        if mode == "bool":
+            t_planes = t_planes.bool()
+        info = k2.tile_info(t_keep) if with_info else None
+        got, cnt = k2.compact_planes_info(t_planes, t_keep, info)
+        assert int(cnt) == int(wcnt) == int(keep.sum())
+        assert got.dtype == t_planes.dtype and got.shape == (4, n)
+        np.testing.assert_array_equal(got.numpy().astype(np.uint8),
+                                      np.asarray(want)[:, :n])
+
+
 @pytest.mark.parametrize("density", [0.3, 1.0])
 def test_k2_bool_planes_ragged(density):
     """Validity-style bool planes at a ragged n, several per call."""

@@ -82,6 +82,117 @@ def test_k2_matches_plain(cuda, dtype, density, n):
     assert int(cnt) == int(wcnt) and torch.equal(got, want)
 
 
+# ---------------------------------------------------------------------------
+# K2 on the tile body: u8 (bool, validity) and u32 words, both frames
+# ---------------------------------------------------------------------------
+
+K2_NS = [1, 15, 16, 17, 4095, 4097, 4099, 1_000_003]
+K2_DENSITIES = [0.0, "one", 0.005, 0.055, 0.0625, 0.5, 0.96, 1.0]
+K2_SHIFTS = {torch.uint8: range(16), torch.bool: (0, 1, 7, 15),
+             torch.int32: range(4)}  # in words: 0 to 15 bytes
+
+
+def _k2_planes(dtype, P, n, shift, device, seed):
+    """(P, n) planes `shift` words into their storage, so that plane p
+    starts (shift + p n) words in: every byte offset mod 16 when n is odd."""
+    store = torch.uint8 if dtype == torch.bool else dtype
+    raw = _planes(1, P * n + shift, store, device, seed)[0]
+    if dtype == torch.bool:
+        raw = raw.bool()
+    return raw[shift:].view(P, n)
+
+
+@pytest.mark.parametrize("density", K2_DENSITIES)
+@pytest.mark.parametrize("n", K2_NS)
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bool, torch.int32])
+def test_k2_frames_shifts_and_out_rows(cuda, dtype, n, density):
+    """K2 with the tile info (the filter's plan) and without (look-back, the
+    count written on the card), its four planes 0 to 15 bytes into their
+    storage, at every out_rows from the count to n, on outputs poisoned
+    with 0x5A: equal to the plain version, count included, one launch."""
+    keep = _edge_keep(n, density, cuda, n + 61).to(torch.uint8)
+    count = int(keep.sum())
+    info = k2.tile_info(keep)
+    for shift in K2_SHIFTS[dtype]:
+        planes = _k2_planes(dtype, 4, n, shift, cuda, n + shift)
+        for rows in _out_rows(n, count):
+            want, wcnt = k2.compact_planes_info_plain(planes, keep, rows)
+            for i in (info, None):
+                k2.launches = 0
+                got, cnt = fresh_call(
+                    lambda: k2.compact_planes_info(planes, keep, i, rows),
+                    (want, wcnt))
+                torch.cuda.synchronize()
+                assert k2.launches == 1
+                assert torch.equal(got, want), (shift, rows, i is None)
+                assert cnt.dim() == 0 and cnt.device == keep.device
+                assert int(cnt) == int(wcnt) == count
+
+
+@pytest.mark.parametrize("with_info", [True, False])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+def test_k2_seventeen_planes(cuda, dtype, with_info):
+    """P = 17: two launches sharing the mask (and, without info, one
+    scratch that the second launch finds reset)."""
+    n = 1_000_003
+    planes = _planes(17, n, dtype, cuda, 71)
+    keep = _keep(n, 0.055, cuda, 72)
+    info = k2.tile_info(keep) if with_info else None
+    want, wcnt = k2.compact_planes_info_plain(planes, keep)
+    k2.launches = 0
+    got, cnt = fresh_call(lambda: k2.compact_planes_info(planes, keep, info),
+                          (want, wcnt))
+    torch.cuda.synchronize()
+    assert k2.launches == 2
+    assert torch.equal(got, want) and int(cnt) == int(wcnt)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+def test_k2_look_back_twice_on_one_scratch(cuda, dtype):
+    """Two look-back launches in a row on one scratch and one count word,
+    on masks of other densities: the second finds its status words reset
+    and writes its own count."""
+    n = 1_000_003
+    planes = _planes(4, n, dtype, cuda, 81)
+    masks = [_keep(n, d, cuda, 82 + i) for i, d in enumerate((0.5, 0.055))]
+    scratch = _build.lookback_scratch(masks[0])
+    count = torch.empty((), dtype=torch.int64, device=cuda)
+    for keep in masks:
+        want, wcnt = k2.compact_planes_info_plain(planes, keep)
+        out = torch.full_like(want, 0x5A)
+        _build.tiles_cuda(list(planes), list(out), keep, None, scratch,
+                          count)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and int(count) == int(wcnt)
+
+
+@pytest.mark.parametrize("shift", [0, 1, 3])
+@pytest.mark.parametrize("dtype,density", [(torch.uint8, 0.2),
+                                           (torch.int32, 0.25),
+                                           (torch.int64, 0.5)])
+def test_tiles_either_side_of_the_dense_threshold(cuda, dtype, density,
+                                                  shift):
+    """At the density of the word's dense threshold (a fifth of a tile's
+    rows kept for bytes, a quarter for u32, half for u64) about half the
+    tiles are staged whole by bulk copies and the rest load their kept
+    words: one launch in each frame, on planes `shift` words into their
+    storage, equals the plain version, count included."""
+    n = 1_000_003
+    planes = _k2_planes(dtype, 4, n, shift, cuda, 91)
+    keep = _keep(n, density, cuda, 92)
+    kept = int(keep.sum())
+    want = torch.zeros_like(planes)
+    want[:, :kept] = planes[:, keep]
+    count = torch.empty((), dtype=torch.int64, device=cuda)
+    for offs in (_build.tile_offsets(keep), None):
+        out = torch.full_like(want, 0x5A)
+        _build.tiles_cuda(list(planes), list(out), keep, offs,
+                          _build.lookback_scratch(keep), count)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert int(count) == kept
+
+
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.int64])
 def test_unaligned_nonbinary_keep(cuda, dtype):
     """A keep mask one byte into its buffer (the kernels' scalar load path)
@@ -365,7 +476,8 @@ def _gather_case(pattern, W, rows, device, seed):
                       device=device, generator=g)
     extent = {"sublanes": probes.TILE_ROWS, "pairs": 128}.get(pattern, W)
     idx_shape = (rows, 128) if pattern == "pairs" else (rows, W)
-    idx = (None if pattern in ("rowmove", "deinterleave", "reinterleave")
+    idx = (None if pattern in ("rowmove", "deinterleave", "reinterleave",
+                               "roundtrip")
            else torch.randint(0, extent, idx_shape, dtype=torch.int32,
                               device=device, generator=g))
     return x, idx
@@ -373,7 +485,8 @@ def _gather_case(pattern, W, rows, device, seed):
 
 GATHERS = [(p, W) for p in ("lanes", "sublanes", "table", "chained",
                             "rowmove") for W in (128, 256)]
-GATHERS += [("deinterleave", 256), ("reinterleave", 256), ("pairs", 256)]
+GATHERS += [("deinterleave", 256), ("reinterleave", 256), ("pairs", 256),
+            ("roundtrip", 256)]
 
 
 @pytest.mark.parametrize("pattern,W", GATHERS)
@@ -383,6 +496,29 @@ def test_tile_gather_matches_plain(cuda, pattern, W):
     assert torch.equal(got, probes.tile_gather_plain(x, pattern, idx))
     if idx is not None:  # indices past the extent wrap, as in the plain
         wide = idx + 1024
+        assert torch.equal(probes.tile_gather(x, pattern, wide),
+                           probes.tile_gather_plain(x, pattern, wide))
+
+
+@pytest.mark.parametrize("rows", [probes.TILE_ROWS, 62_976])
+@pytest.mark.parametrize("pattern,W", [("roundtrip", 256), ("sublanes", 128),
+                                       ("sublanes", 256)])
+def test_redesigned_gathers_match_plain(cuda, pattern, W, rows):
+    """The round trip in one launch (the identity) and the sublane gather
+    staged in shared memory, at one tile and at the probes' 62,976 rows, on
+    outputs poisoned with 0x5A; the sublane indices also past 512 and
+    negative (taken modulo 512, as in the plain version)."""
+    x, idx = _gather_case(pattern, W, rows, cuda, rows + W)
+    want = probes.tile_gather_plain(x, pattern, idx)
+    probes.launches["tile_gather"] = 0
+    got = fresh_call(lambda: probes.tile_gather(x, pattern, idx), want)
+    torch.cuda.synchronize()
+    assert probes.launches["tile_gather"] == 1
+    assert torch.equal(got, want)
+    if pattern == "roundtrip":
+        assert torch.equal(got, x)
+    else:
+        wide = idx * 3 - 700
         assert torch.equal(probes.tile_gather(x, pattern, wide),
                            probes.tile_gather_plain(x, pattern, wide))
 

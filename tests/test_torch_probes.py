@@ -306,16 +306,21 @@ def test_pair_gathers_match_prof_gather256_and_deint(body):
         probes.tile_gather(_t(x), "pairs", _t(idx)).numpy(), want)
 
 
-def test_deinterleave_reinterleave_match_prof_deint():
-    """prof_deint.py:81-83: the round trip is the identity; its halves are
-    the deinterleave and reinterleave patterns."""
+@pytest.mark.parametrize("route", ["two patterns", "roundtrip"])
+def test_deinterleave_reinterleave_match_prof_deint(route):
+    """prof_deint.py:81-83 (k_roundtrip): the round trip is the identity;
+    its halves are the deinterleave and reinterleave patterns, and the
+    roundtrip pattern computes it in one launch on the card."""
     x = _words(np.random.default_rng(4), (ROWS, 256), np.int32)
     want = _call(_roundtrip, [x], 256)
-    planes = probes.tile_gather(_t(x), "deinterleave")
-    lo, hi = jax.jit(_deint)(jnp.asarray(x))
-    np.testing.assert_array_equal(planes[0].numpy(), np.asarray(lo))
-    np.testing.assert_array_equal(planes[1].numpy(), np.asarray(hi))
-    back = probes.tile_gather(planes, "reinterleave")
+    if route == "roundtrip":
+        back = probes.tile_gather(_t(x), "roundtrip")
+    else:
+        planes = probes.tile_gather(_t(x), "deinterleave")
+        lo, hi = jax.jit(_deint)(jnp.asarray(x))
+        np.testing.assert_array_equal(planes[0].numpy(), np.asarray(lo))
+        np.testing.assert_array_equal(planes[1].numpy(), np.asarray(hi))
+        back = probes.tile_gather(planes, "reinterleave")
     np.testing.assert_array_equal(back.numpy(), want)
     np.testing.assert_array_equal(want, x)
 
