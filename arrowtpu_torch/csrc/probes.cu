@@ -17,14 +17,18 @@
 // The TPU machinery (lane rolls on the XLU, the MXU one-hot row move, DMA
 // strategies) does not carry over; the function each body computes does.
 //
-// Bound on an H100 SXM: all three move data and do next to no arithmetic,
-// so bytes over 3.35 TB/s of HBM3: each input word read once, each output
-// word written once.  The designs:
+// Bound on an H100 SXM: all three move data, so bytes over 3.35 TB/s of
+// HBM3 (each input word read once, each output word written once), except
+// lane_roll's selected chains, which do one select a word a roll.  The
+// designs:
 //   * stream: a grid-stride loop of 16-byte loads and stores per plane
 //     (blockIdx.y), with scalar edges, so any n and any plane offset work;
-//   * lane_roll: a row of 128 words is one warp, 4 words a lane (words
-//     lane, lane + 32, lane + 64, lane + 96: each a coalesced 128-byte
-//     access); a roll by s is 4 shuffles and a select per word;
+//   * lane_roll: a lane holds 16 contiguous words of a row (8 lanes a row,
+//     4 rows a warp, staged through shared memory so that every global
+//     access is a coalesced 16-byte-a-lane row); a selected roll by s is s
+//     shuffles a warp and one select a word, and the unselected rolls
+//     compose into one rotation (16 shuffles a lane): the selected chains
+//     are bound by the selects' issue rate, the rest by HBM;
 //   * tile_gather: each thread writes 4 consecutive output words (one
 //     16-byte store) and reads its sources through L1 / L2, except for the
 //     sublane gather.  The row of a lane gather is in L1 after its first
@@ -105,44 +109,191 @@ stream_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
 // Roll j shifts the row by s = 1 + j % 7 words in np.roll's direction,
 // y[l] = v[(l - s) mod 128], then v = m ? y : v for j < nsel, else v = y.
 // m is mask > 2^30 (mask given) or x > 7 of the original x.
+//
+// A lane holds kRollW contiguous words of a row (a row is kRowLanes lanes,
+// a warp kWarpRows rows), so a roll by a compile-time s is register
+// renaming inside the lane plus s shuffles from the row's previous lane,
+// each shuffle serving every row of the warp, and one select (a LOP3
+// against the word's m, kept as a full-word mask) per word.  The rolls
+// j >= nsel compose into one rotation by their summed shift (`tail`, mod
+// 128), done once at the end by 16 shuffles; with nsel = 0 the kernel is a
+// copy through a rotated index.
+constexpr int kRollW = 16;
+constexpr int kRowLanes = kRowWords / kRollW;  // 8
+constexpr int kWarpRows = 32 / kRowLanes;      // 4
+constexpr int kRowsPerBlock = kThreads / 32 * kWarpRows;
+
+// (y & m) | (v & ~m) as one LOP3: written out, the compiler turns m back
+// into predicates, which do not fit in the predicate registers
+__device__ __forceinline__ uint32_t select_word(uint32_t m, uint32_t y,
+                                                uint32_t v) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xE4;" : "=r"(d) : "r"(y), "r"(v), "r"(m));
+  return d;
+}
+
+// v = m ? roll(v, S) : v; prev: the lane holding the row's previous words
+template <int S>
+__device__ __forceinline__ void select_roll(uint32_t (&v)[kRollW],
+                                            const uint32_t (&m)[kRollW],
+                                            int prev) {
+  uint32_t t[S];
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    t[i] = __shfl_sync(kFull, v[kRollW - S + i], prev);
+  }
+#pragma unroll
+  for (int i = kRollW - 1; i >= S; --i) v[i] = select_word(m[i], v[i - S], v[i]);
+#pragma unroll
+  for (int i = 0; i < S; ++i) v[i] = select_word(m[i], t[i], v[i]);
+}
+
+// v = roll(v, 16 q + R): word i from register (i - R) mod 16 of lane
+// from_a (the row's lane t - q) for i >= R, of lane from_b (t - q - 1)
+// below; R is a template argument so that every register index is fixed.
+template <int R>
+__device__ __forceinline__ void rotate_row(uint32_t (&v)[kRollW], int r,
+                                           int from_a, int from_b) {
+  if (r != R) {
+    if constexpr (R + 1 < kRollW) rotate_row<R + 1>(v, r, from_a, from_b);
+    return;
+  }
+  uint32_t o[kRollW];
+#pragma unroll
+  for (int i = 0; i < kRollW; ++i) {
+    o[i] = __shfl_sync(kFull, v[(i - R) & (kRollW - 1)],
+                       i >= R ? from_a : from_b);
+  }
+#pragma unroll
+  for (int i = 0; i < kRollW; ++i) v[i] = o[i];
+}
+
+// A warp's rows pass through shared memory on their way in and out, so
+// that every global access is one coalesced 512-byte row: 16-byte chunk u
+// of the warp's rows is chunk u % 4 of lane u / 4, kept at chunk_at(lane,
+// chunk), a swizzle under which neither side's 16-byte accesses meet on a
+// bank.  vec: x, mask and out 16-byte aligned (a row is 512 bytes, so then
+// every chunk is); else each lane reads and writes its words alone.
+constexpr int kWarpChunks = kWarpRows * kRowWords / 4;  // 128
+
+__device__ __forceinline__ int chunk_at(int lane, int chunk) {
+  return 4 * lane + (chunk ^ ((lane >> 1) & 3));
+}
+
+// v = the lane's words of the warp's rows at p, of which `live` exist
+__device__ __forceinline__ void load_words(uint32_t (&v)[kRollW],
+                                           const uint32_t* p, int live,
+                                           int lane, uint4* stage, bool vec) {
+  if (!vec) {
+    if (lane / kRowLanes < live) {
+#pragma unroll
+      for (int i = 0; i < kRollW; ++i) v[i] = p[lane * kRollW + i];
+    }
+    return;
+  }
+  const uint4* src = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int c = 0; c < kWarpRows; ++c) {
+    if (c < live) {
+      stage[chunk_at(c * 8 + lane / 4, lane & 3)] = src[c * 32 + lane];
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < kRollW / 4; ++j) {
+    const uint4 q = stage[chunk_at(lane, j)];
+    v[4 * j] = q.x;
+    v[4 * j + 1] = q.y;
+    v[4 * j + 2] = q.z;
+    v[4 * j + 3] = q.w;
+  }
+  __syncwarp();
+}
+
+__device__ __forceinline__ void store_words(const uint32_t (&v)[kRollW],
+                                            uint32_t* p, int live, int lane,
+                                            uint4* stage, bool vec) {
+  if (!vec) {
+    if (lane / kRowLanes < live) {
+#pragma unroll
+      for (int i = 0; i < kRollW; ++i) p[lane * kRollW + i] = v[i];
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < kRollW / 4; ++j) {
+    stage[chunk_at(lane, j)] =
+        make_uint4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+  }
+  __syncwarp();
+  uint4* dst = reinterpret_cast<uint4*>(p);
+#pragma unroll
+  for (int c = 0; c < kWarpRows; ++c) {
+    if (c < live) {
+      dst[c * 32 + lane] = stage[chunk_at(c * 8 + lane / 4, lane & 3)];
+    }
+  }
+  __syncwarp();
+}
+
 __global__ void __launch_bounds__(kThreads)
 lane_roll_kernel(const uint32_t* __restrict__ x,
                  const uint32_t* __restrict__ mask, uint32_t* __restrict__ out,
-                 int64_t rows, int k, int nsel) {
+                 int64_t rows, int nsel, int tail, bool vec) {
   const int lane = threadIdx.x & 31;
-  const int64_t warp =
+  const int t = lane % kRowLanes;  // the lane's place in its row
+  const int first = lane - t;
+  const int prev = first + (t + kRowLanes - 1) % kRowLanes;
+  const int q = tail / kRollW;
+  const int r = tail % kRollW;
+  const int from_a = first + (t - q + kRowLanes) % kRowLanes;
+  const int from_b = first + (t - q - 1 + 2 * kRowLanes) % kRowLanes;
+  // one warp a group of kWarpRows rows, and no loop over groups: under a
+  // loop whose trip count the compiler cannot see is the same for a whole
+  // warp, every shuffle is compiled with a divergent fallback
+  __shared__ uint4 stages[kThreads / 32][kWarpChunks];
+  uint4* stage = stages[threadIdx.x >> 5];
+  const int64_t g =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
-  const int64_t warps = (static_cast<int64_t>(gridDim.x) * kThreads) >> 5;
-  for (int64_t r = warp; r < rows; r += warps) {
-    const int64_t base = r * kRowWords + lane;
-    uint32_t v[4];
-    bool m[4];
+  // every lane shuffles; only the rows < rows are read and written (none
+  // in the last block's warps past the last group)
+  const int64_t left = rows - g * kWarpRows;
+  const int live = static_cast<int>(
+      left < 0 ? 0 : (left < kWarpRows ? left : kWarpRows));
+  const int64_t base = g * kWarpRows * kRowWords;
+  uint32_t v[kRollW] = {};
+  load_words(v, x + base, live, lane, stage, vec);
+  if (nsel > 0) {
+    uint32_t m[kRollW] = {};
+    if (mask != nullptr) {
+      load_words(m, mask + base, live, lane, stage, vec);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = x[base + 32 * i];
+      for (int i = 0; i < kRollW; ++i) m[i] = m[i] > (1u << 30) ? kFull : 0u;
+    } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      m[i] = mask != nullptr ? mask[base + 32 * i] > (1u << 30) : v[i] > 7u;
+      for (int i = 0; i < kRollW; ++i) m[i] = v[i] > 7u ? kFull : 0u;
     }
-    int s = 1;
-    for (int j = 0; j < k; ++j) {
-      // word l = lane + 32 i comes from word l - s: lane (lane - s) mod 32,
-      // slot i, or slot i - 1 where the lane index wrapped
-      const int src = (lane - s) & 31;
-      const bool wrap = lane < s;
-      uint32_t w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) w[i] = __shfl_sync(kFull, v[i], src);
-      const bool sel = j < nsel;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const uint32_t y = wrap ? w[(i + 3) & 3] : w[i];
-        v[i] = (!sel || m[i]) ? y : v[i];
-      }
-      s = s == 7 ? 1 : s + 1;
+    // the shifts repeat with period 7: 1, 2, ..., 7
+#pragma unroll 1
+    for (int p = nsel / 7; p > 0; --p) {
+      select_roll<1>(v, m, prev);
+      select_roll<2>(v, m, prev);
+      select_roll<3>(v, m, prev);
+      select_roll<4>(v, m, prev);
+      select_roll<5>(v, m, prev);
+      select_roll<6>(v, m, prev);
+      select_roll<7>(v, m, prev);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) out[base + 32 * i] = v[i];
+    const int rem = nsel % 7;
+    if (rem > 0) select_roll<1>(v, m, prev);
+    if (rem > 1) select_roll<2>(v, m, prev);
+    if (rem > 2) select_roll<3>(v, m, prev);
+    if (rem > 3) select_roll<4>(v, m, prev);
+    if (rem > 4) select_roll<5>(v, m, prev);
+    if (rem > 5) select_roll<6>(v, m, prev);
   }
+  if (tail != 0) rotate_row<0>(v, r, from_a, from_b);
+  store_words(v, out + base, live, lane, stage, vec);
 }
 
 // ---------------------------------------------------------------------------
@@ -408,10 +559,18 @@ int arrowtpu_lane_roll(const void* x, const void* mask, void* out,
                        int64_t rows, int k, int nsel, void* stream) {
   if (rows < 1 || k < 0 || nsel < 0 || nsel > k)
     return static_cast<int>(cudaErrorInvalidValue);
-  lane_roll_kernel<<<grid_for(rows * 32, 4096), kThreads, 0,
+  int tail = 0;  // the unselected rolls' summed shift
+  for (int j = nsel; j < k; ++j) tail = (tail + 1 + j % 7) % kRowWords;
+  if (nsel == 0) mask = nullptr;  // m is not read
+  const bool vec = ((reinterpret_cast<uintptr_t>(x) |
+                     reinterpret_cast<uintptr_t>(mask) |
+                     reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const int64_t blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  lane_roll_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(mask),
-      static_cast<uint32_t*>(out), rows, k, nsel);
+      static_cast<uint32_t*>(out), rows, nsel, tail, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

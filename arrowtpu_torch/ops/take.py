@@ -37,7 +37,10 @@ def take(c: col.Column, indices: col.PrimitiveColumn) -> col.Column:
         return col.NullColumn(n, indices.capacity, c.device)
     if isinstance(c, col.DictionaryColumn):  # the keys; values are shared
         return dataclasses.replace(c, keys=take(c.keys, indices))
-    idx = raw.clamp(0, c.capacity - 1)
+    # as the JAX package: the index's low 32 bits read as int32, clipped
+    # (the even int32 words of little-endian int64s)
+    idx = raw.contiguous().view(torch.int32)[0::2].clamp(
+        0, c.capacity - 1).to(torch.int64)
     # an in-bounds index of a column without a bitmap selects a valid row
     validity = bm.pack(ok if c.validity is None
                        else bm.unpack(c.validity)[idx] & ok)

@@ -18,6 +18,7 @@ exchange operator (parallel/shuffle.py) is a torch.distributed
     process; more are spawned (fresh interpreters, so fn and args go by
     pickle and fn must be a module-level function of an importable
     module), and every process started is stopped before `run` returns.
+    Spawned CPU ranks split the caller's torch threads between them.
   * `normalize_batch`: every column gets a validity bitmap, so every rank
     exchanges the same planes whatever its data (the JAX package needs it
     to stack shards; here it keeps the collectives of all ranks in step).
@@ -86,10 +87,13 @@ def process_group(rank: int, world_size: int, device, port: int = None):
         dist.destroy_process_group()
 
 
-def _rank_main(rank, world_size, device, port, fn, args, results):
+def _rank_main(rank, world_size, device, port, threads, fn, args, results):
     """A spawned rank: join the group, run fn, send back its pickled result
-    or the traceback."""
+    or the traceback.  `threads`: torch's CPU threads for the rank, or None
+    to keep torch's default."""
     try:
+        if threads is not None:
+            torch.set_num_threads(threads)
         with process_group(rank, world_size, device, port) as group:
             out = fn(group, *args)
         results.put((rank, True, pickle.dumps(out)))
@@ -111,11 +115,14 @@ def run(fn: Callable, world_size: int, device=None, *args) -> List:
     store = dist.TCPStore("localhost", 0, is_master=True,
                           wait_for_workers=False,
                           timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    # CPU ranks share the caller's threads instead of each taking them all
+    threads = (max(1, torch.get_num_threads() // world_size)
+               if device.type == "cpu" else None)
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, world_size, str(device), store.port, fn,
-                               args, results))
+                         args=(r, world_size, str(device), store.port,
+                               threads, fn, args, results))
              for r in range(world_size)]
     for p in procs:
         p.start()

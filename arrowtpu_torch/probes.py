@@ -20,9 +20,10 @@ timed at; a difference raises.  The bound is the function's bytes (each
 input word read once, each output word written once) over 3.35 TB/s; the
 second share divides the same bytes by the measured copy floor, the rate
 of `stream` copying (16, 8,060,928) words, which `run_probes` times
-first.  `plain` is the kernel's plain PyTorch version and `library` one
-PyTorch call computing the same function, where there is one.  A CUDA
-device is required.
+first.  A lane_roll line also gives its issue bounds
+(`lane_roll_issue_ms`).  `plain` is the kernel's plain PyTorch version
+and `library` one PyTorch call computing the same function, where there
+is one.  A CUDA device is required.
 
     python -c "from arrowtpu_torch.probes import run_probes; run_probes()"
 """
@@ -45,6 +46,12 @@ ROWS = N // 128  # 62,976 rows of 128 words, or of 256 in the 256-wide probes
 N_V3 = 8_000_000  # prof_v3.py's plane; its Pallas grid covered 122 tiles
 ROWS_V3 = 122 * kp.TILE_ROWS
 FLOOR_PLANES = 16
+# Issue rates of an H100 SXM: results a clock an SM at compute capability
+# 9.0 (the CUDA C++ Programming Guide's arithmetic instruction throughput
+# table), on 132 SMs at the 1,980 MHz boost clock
+SM_RESULTS_PER_S = 132 * 1.98e9
+SHUFFLES_PER_CLOCK = 32  # warp shuffle
+LOGIC_PER_CLOCK = 64  # 32-bit bitwise ops: a select is one LOP3
 FLUSH_BYTES = 256 * 2**20  # read between timed calls: 5x the H100's L2
 QUEUE_CYCLES = 50_000_000  # the card's wait before timed calls, ~25 ms
 
@@ -188,8 +195,26 @@ def format_line(line: Dict) -> str:
             f"{line['max_abs_err']}; {line['shape']}")
 
 
-def _roll_shift(k: int) -> int:
-    return sum(1 + j % 7 for j in range(k)) % 128
+def _roll_shift(k: int, start: int = 0) -> int:
+    """Summed shift of rolls start..k-1, mod 128."""
+    return sum(1 + j % 7 for j in range(start, k)) % 128
+
+
+def lane_roll_issue_ms(rows: int, k: int, nsel: int) -> Dict[str, float]:
+    """Issue bounds of lane_roll at (rows, 128): `select_ms`, the
+    function's selects (one a word a selected roll) at the card's 32-bit
+    logic rate; `shuffle_ms`, the shuffles of lane_roll_kernel's design
+    (16 words a lane, 4 rows a warp: s shuffle results a lane for a
+    selected roll by s, 16 for the one rotation of the unselected rolls)
+    at its shuffle rate."""
+    lanes = -(-rows // 4) * 32
+    per_lane = (sum(1 + j % 7 for j in range(nsel))
+                + (16 if _roll_shift(k, nsel) else 0))
+    shuffles = lanes * per_lane
+    return {"select_ms": rows * 128 * nsel / LOGIC_PER_CLOCK
+            / SM_RESULTS_PER_S * 1e3,
+            "shuffle_ms": shuffles / SHUFFLES_PER_CLOCK
+            / SM_RESULTS_PER_S * 1e3}
 
 
 def _stage_bytes(stage: str, P: int, n: int, count: int) -> int:
@@ -249,6 +274,12 @@ def run_probes(device=None, reps: int = 30, log=print) -> Dict:
     g = torch.Generator(device=dev).manual_seed(0)
     run = ProbeRun(reps, log)
 
+    def issue_bounds(line, rows, k, nsel):
+        """A lane_roll line gains its issue bounds beside the bytes'."""
+        line.update(lane_roll_issue_ms(rows, k, nsel))
+        log(f"  issue bounds: selects {line['select_ms']:.4f} ms, "
+            f"shuffles {line['shuffle_ms']:.4f} ms")
+
     def words(*shape, high=2**31):
         return torch.randint(0, high, shape, dtype=torch.int64, device=dev,
                              generator=g).to(torch.int32)
@@ -275,15 +306,17 @@ def run_probes(device=None, reps: int = 30, log=print) -> Dict:
     run.probe("P1", "copy", "stream", lambda: kp.stream(x.view(1, -1)),
               lambda: kp.stream_plain(x.view(1, -1)), 8 * N, x.clone, shape)
     for k in (7, 14, 28):
-        run.probe("P1", f"{k} lane rolls", "lane_roll",
-                  lambda: kp.lane_roll(x, k, 0),
-                  lambda: kp.lane_roll_plain(x, k, 0), 8 * N,
-                  lambda: torch.roll(x, _roll_shift(k), 1), shape)
+        issue_bounds(run.probe(
+            "P1", f"{k} lane rolls", "lane_roll",
+            lambda: kp.lane_roll(x, k, 0),
+            lambda: kp.lane_roll_plain(x, k, 0), 8 * N,
+            lambda: torch.roll(x, _roll_shift(k), 1), shape), ROWS, k, 0)
     m = words(ROWS, 128)
-    run.probe("P1", "14 roll+where", "lane_roll",
-              lambda: kp.lane_roll(x, 14, 14, m),
-              lambda: kp.lane_roll_plain(x, 14, 14, m), 12 * N, None,
-              shape + ", mask > 2^30")
+    issue_bounds(run.probe(
+        "P1", "14 roll+where", "lane_roll",
+        lambda: kp.lane_roll(x, 14, 14, m),
+        lambda: kp.lane_roll_plain(x, 14, 14, m), 12 * N, None,
+        shape + ", mask > 2^30"), ROWS, 14, 14)
     idxl = index(ROWS, 128, extent=128)
     idxl64 = idxl.to(torch.int64)
     xu = x.view(torch.uint32)
@@ -384,11 +417,12 @@ def run_probes(device=None, reps: int = 30, log=print) -> Dict:
     x7 = words(ROWS_V3, 128, high=1000)
     shape7 = f"({ROWS_V3}, 128) u32, mask x > 7"
     for k, nsel in ((0, 0), (14, 0), (14, 14), (28, 28), (56, 56)):
-        run.probe("P7", f"{k} rolls {nsel} sels", "lane_roll",
-                  lambda: kp.lane_roll(x7, k, nsel),
-                  lambda: kp.lane_roll_plain(x7, k, nsel), 8 * x7.numel(),
-                  (lambda: torch.roll(x7, _roll_shift(k), 1)) if nsel == 0
-                  else None, shape7)
+        issue_bounds(run.probe(
+            "P7", f"{k} rolls {nsel} sels", "lane_roll",
+            lambda: kp.lane_roll(x7, k, nsel),
+            lambda: kp.lane_roll_plain(x7, k, nsel), 8 * x7.numel(),
+            (lambda: torch.roll(x7, _roll_shift(k), 1)) if nsel == 0
+            else None, shape7), ROWS_V3, k, nsel)
     i7 = index(ROWS_V3, 128, extent=128)
     s7 = index(ROWS_V3, 128, extent=kp.TILE_ROWS)
     t7 = ROWS_V3 // kp.TILE_ROWS

@@ -8,7 +8,8 @@ Phases (each raises on failure; the exit code is then non-zero):
      CUDA kernels from the repository's sources, with the `-Xptxas -v`
      lines (registers, spills, shared memory) of every instantiation of
      tile_compact_kernel (the kernel of K1, K2 and K3; K2's uint8 ones
-     included) and of tile_gather's round trip and staged sublane gather;
+     included), of tile_gather's round trip and staged sublane gather and
+     of lane_roll_kernel;
   2. every kernel against its plain PyTorch version on the card, bit-exact:
      K1 (kernels/compact3.py) at uint32 with P in {1, 2, 4, 8, 16} and at
      uint64 with P in {1, 2}, with tile offsets and without (look-back);
@@ -70,9 +71,10 @@ Phases (each raises on failure; the exit code is then non-zero):
   9. the probe kernels (kernels/probes.py, the counterparts of the TPU
      probes P1-P8) against their plain versions, bit for bit: stream at
      P in {1, 2, 16} and n in {65,536, 8,060,928, 8,000,001}, with and
-     without keep; lane_roll at (k, nsel) in {(7, 0), (14, 14), (56, 56)}
-     under both masks; tile_gather, every pattern at W in {128, 256};
-     compaction_stages, every stage of K3 and K1 at densities {0, 0.055,
+     without keep; lane_roll at (k, nsel) in {(7, 0), (14, 14), (56, 56),
+     (28, 14), (13, 5), (20, 1), (64, 0), (71, 70)} under both masks, at
+     62,976, 1, 3 and 1001 rows and one word into the buffers;
+     tile_gather, every pattern at W in {128, 256}; compaction_stages, every stage of K3 and K1 at densities {0, 0.055,
      0.5, 1} (P = 2, n = 8,000,001); the round trip also against the
      identity;
   10. `probes.run_probes()` at the probes' own shapes, its launch counts
@@ -229,13 +231,16 @@ def _kernel_label(mangled: str):
         return f"sublane_gather_kernel<W={t[1]}>"
     if re.search(r"tile_gather_kernelILi8ELi256E", mangled):
         return "tile_gather_kernel<roundtrip, 256>"
+    if "lane_roll_kernel" in mangled:
+        return "lane_roll_kernel"
     return None
 
 
 def ptxas_reports(build_log: str):
-    """The `-Xptxas -v` report of each instantiation of tile_compact_kernel
-    and of tile_gather's round trip and staged sublane gather: [(label,
-    [its register / spill / shared memory lines])]."""
+    """The `-Xptxas -v` report of each instantiation of tile_compact_kernel,
+    of tile_gather's round trip and staged sublane gather and of
+    lane_roll_kernel: [(label, [its register / spill / shared memory
+    lines])]."""
     import re
 
     out, cur = [], None
@@ -713,11 +718,23 @@ def check_probes(kp, probes, dev) -> None:
     rows = 62_976
     x, mask = words(rows, 128), words(rows, 128)
     small = x % 16  # so that x > 7 is false on half the words
-    for k, nsel in ((7, 0), (14, 14), (56, 56)):
-        for data, m in ((x, mask), (small, None)):
+    # one word into their buffers: no 16-byte accesses
+    odd = (words(1001 * 128 + 1) % 16)[1:].view(1001, 128)
+    odd_mask = words(1001 * 128 + 1)[1:].view(1001, 128)
+    # row counts that leave the last warp's rows part filled
+    roll_inputs = ((x, mask), (small, None), (x[:1], mask[:1]),
+                   (small[:3], None), (small[:1001], mask[:1001]),
+                   (odd, None), (odd, odd_mask))
+    # selected and unselected rolls in one call, and remainders of the
+    # shifts' period of 7
+    roll_pairs = ((7, 0), (14, 14), (56, 56), (28, 14), (13, 5), (20, 1),
+                  (64, 0), (71, 70))
+    for k, nsel in roll_pairs:
+        for data, m in roll_inputs:
             same(lambda: kp.lane_roll(data, k, nsel, m),
                  lambda: kp.lane_roll_plain(data, k, nsel, m),
-                 f"lane_roll k={k} nsel={nsel} mask={m is not None}")
+                 f"lane_roll k={k} nsel={nsel} rows={data.shape[0]} "
+                 f"mask={m is not None}")
     patterns = [(p, W) for p in ("lanes", "sublanes", "table", "chained",
                                  "rowmove") for W in (128, 256)]
     patterns += [("deinterleave", 256), ("reinterleave", 256),
@@ -757,8 +774,8 @@ def check_probes(kp, probes, dev) -> None:
                      lambda: cut(kp.compaction_stages_plain),
                      f"{kernel} stage {stage} density {density}")
     log(f"probe kernels: bit-exact against plain (stream 18 cases, "
-        f"lane_roll 6, tile_gather {len(patterns)}, compaction stages 9 x 4 "
-        "densities)")
+        f"lane_roll {len(roll_pairs) * len(roll_inputs)}, tile_gather "
+        f"{len(patterns)}, compaction stages 9 x 4 densities)")
 
 
 def sort_passes_ms(fn, passes, reps=3):
@@ -885,7 +902,8 @@ def main() -> int:
     labels = " ".join(label for label, _ in reports)
     for want in ("tile_compact_kernel<u8, offs, full>",
                  "tile_compact_kernel<u8, look-back, full>",
-                 "sublane_gather_kernel", "tile_gather_kernel<roundtrip"):
+                 "sublane_gather_kernel", "tile_gather_kernel<roundtrip",
+                 "lane_roll_kernel"):
         if want not in labels:
             raise AssertionError(f"no ptxas report of {want}")
     for label, lines in reports:
@@ -1175,6 +1193,9 @@ def main() -> int:
         kernels_rows[key] = dict(line, bound_by="bytes",
                                  shape=f"{pid} {line['label']}: "
                                        f"{line['shape']}")
+        if line.get("select_ms", 0) > line["bound_ms"]:
+            kernels_rows[key].update(bound_ms=line["select_ms"],
+                                     bound_by="operations")
     # tile_gather's redesigned lines: the staged sublane gather, P3's round
     # trip in one launch
     kernels_rows["tile_gather"]["redesigned_lines"] = [
@@ -1182,6 +1203,12 @@ def main() -> int:
                                "floor_ms", "plain_ms", "library_ms")}
         for x in result["lines"] if x["kernel"] == "tile_gather"
         and ("sublane" in x["label"] or x["label"].startswith("deint"))]
+    # lane_roll's redesigned lines: every roll chain, with its issue bounds
+    kernels_rows["lane_roll"]["redesigned_lines"] = [
+        {k: x.get(k) for k in ("id", "label", "ms", "warm_ms", "bound_ms",
+                               "floor_ms", "select_ms", "shuffle_ms",
+                               "plain_ms", "library_ms")}
+        for x in result["lines"] if x["kernel"] == "lane_roll"]
     flagship = main_runs[CARDINALITIES[0]][1]
     launches = {"K1": flagship["K1"], "K2": flagship["K2"],
                 "K3": k3_launches["K3"], **probe_launches}

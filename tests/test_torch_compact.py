@@ -20,6 +20,9 @@ from arrowtpu.pallas import compact as jc
 from arrowtpu_torch.kernels import _build
 from arrowtpu_torch.kernels import compact as k2
 from arrowtpu_torch.kernels import compact3 as k1
+from torch_parity import TORCH_THREADS
+
+torch.set_num_threads(TORCH_THREADS)
 
 DENSITIES = [0.0, 0.02, 0.5, 0.96, 1.0]
 N = 9000  # ragged: two full 4096-row tiles and a partial one

@@ -17,6 +17,9 @@ from arrowtpu.ops import filter as jfilter
 from arrowtpu.ops import groupby as jgb
 from arrowtpu_torch.kernels import compact2 as k3
 from arrowtpu_torch.kernels import compact3 as k1
+from torch_parity import TORCH_THREADS
+
+torch.set_num_threads(TORCH_THREADS)
 
 DENSITIES = [0.0, 0.02, 0.5, 0.96, 1.0]
 N = 9000  # ragged: two full 4096-row tiles and a partial one

@@ -457,15 +457,22 @@ def test_stream_matches_plain(cuda, P, n):
                        probes.stream_plain(shifted, kraw[1:]))
 
 
+@pytest.mark.parametrize("rows", [1000, 1, 3, 1001])
 @pytest.mark.parametrize("k,nsel", [(0, 0), (7, 0), (14, 14), (28, 28),
-                                    (56, 56), (14, 3)])
+                                    (56, 56), (14, 3), (28, 14), (13, 5),
+                                    (20, 1), (64, 0), (71, 70)])
 @pytest.mark.parametrize("with_mask", [False, True])
-def test_lane_roll_matches_plain(cuda, k, nsel, with_mask):
-    x = _planes(1, 1000 * 128, torch.int32, cuda, k)[0].view(1000, 128)
-    mask = (_planes(1, 1000 * 128, torch.int32, cuda, 9)[0].view(1000, 128)
-            if with_mask else None)
-    assert torch.equal(probes.lane_roll(x, k, nsel, mask),
-                       probes.lane_roll_plain(x, k, nsel, mask))
+def test_lane_roll_matches_plain(cuda, k, nsel, with_mask, rows):
+    # rows that leave the last warp's rows part filled; at offset 1 the
+    # rows start one word into their buffers (no 16-byte accesses)
+    for offset in (0, 1):
+        flat = _planes(1, rows * 128 + offset, torch.int32, cuda, k)[0]
+        flat[::3] %= 16  # so that x > 7 is false on some words
+        x = flat[offset:].view(rows, 128)
+        mask = (_planes(1, rows * 128 + offset, torch.int32, cuda, 9)[0]
+                [offset:].view(rows, 128) if with_mask else None)
+        assert torch.equal(probes.lane_roll(x, k, nsel, mask),
+                           probes.lane_roll_plain(x, k, nsel, mask))
 
 
 def _gather_case(pattern, W, rows, device, seed):

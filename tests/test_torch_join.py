@@ -49,20 +49,37 @@ def test_hash_planes_match(dtypes, seed):
     np.testing.assert_array_equal(got.numpy()[:n], want.astype(np.int64))
 
 
-def _index_columns(rng, n_idx, src_len):
-    """int32 indices over [-3, src_len + 40): null ones, negative ones and
-    ones past the source's length (inside and past its capacity)."""
+# int64 indices outside the int32 range: both packages gather from the low
+# 32 bits read as int32 and clipped, so the values under these null rows
+# agree only if the port does the same
+WIDE_INDICES = [0, 5, 2**31, 2**32 + 3, -1, 4096, 2**40 + 7, 17, 2**63 - 1,
+                -2**63, 2**31 - 1, -2**31, -2**31 - 1, 2**32, 2**32 + 299,
+                -2**32 + 5]
+
+
+def _index_columns(rng, n_idx, src_len, dtype="int32"):
+    """Indices over [-3, src_len + 40): null ones, negative ones and ones
+    past the source's length (inside and past its capacity); as int64, the
+    WIDE_INDICES among them too."""
     idx = rng.integers(-3, src_len + 40, n_idx)
+    if dtype == "int64":
+        idx[rng.choice(n_idx, len(WIDE_INDICES), replace=False)] = \
+            WIDE_INDICES
     ok = rng.random(n_idx) > 0.15
-    return tp.jax_column(idx, ok, "int32"), tp.port_column(idx, ok, "int32")
+    return tp.jax_column(idx, ok, dtype), tp.port_column(idx, ok, dtype)
 
 
-@pytest.mark.parametrize("dtype,nulls", [("int64", 0.0), ("int64", 0.3),
-                                         ("int32", 0.2), ("bool", 0.2)])
-def test_take_matches(dtype, nulls):
+@pytest.mark.parametrize("dtype,nulls,index_dtype", [
+    pytest.param(dt, nulls, ix,
+                 id=f"{dt}-{nulls}" + ("-int64_indices" if ix == "int64"
+                                       else ""))
+    for ix in ("int32", "int64")
+    for dt, nulls in [("int64", 0.0), ("int64", 0.3), ("int32", 0.2),
+                      ("bool", 0.2)]])
+def test_take_matches(dtype, nulls, index_dtype):
     rng = np.random.default_rng(11)
     jc, pc = _columns(rng, dtype, 300, nulls)
-    ji, pi = _index_columns(rng, 500, 300)
+    ji, pi = _index_columns(rng, 500, 300, index_dtype)
     tp.assert_column_equal(jax_take(jc, ji), take(pc, pi), dtype)
 
 

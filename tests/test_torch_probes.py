@@ -20,6 +20,9 @@ from jax.experimental.pallas import tpu as pltpu
 
 from arrowtpu.ops import groupby as jgb
 from arrowtpu_torch.kernels import probes
+from torch_parity import TORCH_THREADS
+
+torch.set_num_threads(TORCH_THREADS)
 
 R = 512  # the probes' block rows
 ROWS = 2 * R
@@ -146,7 +149,8 @@ def test_roll_where_matches_prof_gather():
 
 
 @pytest.mark.parametrize("nrolls,nsel", [(0, 0), (14, 0), (14, 14), (28, 28),
-                                         (56, 56)])
+                                         (56, 56), (28, 14), (13, 5),
+                                         (20, 1)])
 def test_roll_calibration_matches_prof_v3(nrolls, nsel):
     # small values too, so that x > 7 is false on some words
     x = _words(np.random.default_rng(nrolls + nsel), (ROWS, 128)) % 16

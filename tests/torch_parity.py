@@ -12,6 +12,7 @@ payload from another, compares their bits.
 """
 
 import numpy as np
+import torch
 
 import arrowtpu as at
 from arrowtpu.core import bitmap as jbm
@@ -20,6 +21,12 @@ from arrowtpu.core import wide
 
 import arrowtpu_torch as pt
 from arrowtpu_torch.core import bitmap as pbm
+
+# The tests run in several worker processes beside JAX's emulated CPU mesh,
+# and the port's parity cases are a few thousand rows: one torch thread a
+# process keeps the workers from oversubscribing the cores.
+TORCH_THREADS = 1
+torch.set_num_threads(TORCH_THREADS)
 
 _NP = {"int8": np.int8, "int16": np.int16, "int32": np.int32,
        "int64": np.int64, "uint8": np.uint8, "float32": np.float32,
