@@ -14,10 +14,12 @@ configs 2 and 4 use).  `key_card` is the number of distinct keys.
 
 `join_step` is one rank's part of `__graft_entry__.dryrun_multichip`'s
 step (config 5): hash-partition exchange of both sides, hash join, and a
-two-phase group-by.  `example_join_shards` draws a rank's shards as the
-dryrun does, `join_oracle` / `check_join_output` hold the step's output to
-a host oracle, and `dryrun_multichip(n)` runs the dryrun on n ranks.
-`group_by_shards` runs the two-phase group-by alone on n ranks.
+two-phase group-by; with `skew_threshold` and `probe_chunks` it takes
+the skew path and chunked probes of config 5's skewed-key join.
+`example_join_shards` draws a rank's shards as the dryrun does (or with
+Zipf probe keys, `zipf`), `join_oracle` / `check_join_output` hold the
+step's output to a host oracle, and `dryrun_multichip(n)` runs the dryrun
+on n ranks.  `group_by_shards` runs the two-phase group-by alone on n ranks.
 
 `lexsort_step` is BASELINE config 3 (`bench.py` config3_lexsort): the
 lexsort of (int32, float64, dictionary-utf8) columns.
@@ -31,6 +33,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from . import ops
 from . import schema as st
@@ -87,12 +90,17 @@ def entry(device=None):
 # ---------------------------------------------------------------------------
 
 
-def join_step(left: bt.RecordBatch, right: bt.RecordBatch,
-              group: Group) -> bt.RecordBatch:
+def join_step(left: bt.RecordBatch, right: bt.RecordBatch, group: Group,
+              *, skew_threshold: Optional[float] = None,
+              probe_chunks: int = 1) -> bt.RecordBatch:
     """One rank's part of `__graft_entry__.dryrun_multichip`'s step (BASELINE
     config 5): both sides hash-partitioned on k and joined, then sum and
-    count of rv by k in two phases."""
-    joined, _ = distributed_hash_join(left, right, ["k"], group=group)
+    count of rv by k in two phases.  `skew_threshold` and `probe_chunks`
+    go to `distributed_hash_join` (the skew path and chunked probes); the
+    defaults are the dryrun's step."""
+    joined, _ = distributed_hash_join(
+        left, right, ["k"], group=group, skew_threshold=skew_threshold,
+        probe_chunks=probe_chunks)
     return distributed_group_by(joined, ["k"], [("rv", "sum"),
                                                 ("rv", "count")],
                                 group=group)
@@ -101,7 +109,8 @@ def join_step(left: bt.RecordBatch, right: bt.RecordBatch,
 def example_join_shards(rank: int, world_size: int, probe_rows: int = 256,
                         build_rows: int = 32, seed: int = 0, *,
                         key_range: int = 200, key_nulls: float = 0.0,
-                        rv_nulls: float = 0.0, permute_build: bool = False
+                        rv_nulls: float = 0.0, permute_build: bool = False,
+                        zipf: Optional[float] = None, device="cpu"
                         ) -> Tuple[Arrays, Arrays]:
     """Rank `rank`'s probe shard {k, v} and build shard {k, rv}, drawn
     with numpy as `__graft_entry__.dryrun_multichip` draws them (the
@@ -110,9 +119,18 @@ def example_join_shards(rank: int, world_size: int, probe_rows: int = 256,
     ranks, rank r holding [r * build_rows, (r + 1) * build_rows) (or, with
     `permute_build`, its slice of one seeded permutation of all build
     keys), rv in [0, 10**6).  Null masks, when asked for, are drawn after
-    the values: `key_nulls` on the probe key, `rv_nulls` on rv."""
+    the values: `key_nulls` on the probe key, `rv_nulls` on rv.
+
+    With `zipf` = s, probe key i in [0, key_range) has probability
+    proportional to 1 / (i + 1)**s instead: a uniform draw in [0, 1) per
+    row, mapped by the inverse of the keys' cumulative distribution (a
+    search of the float64 CDF, which `device` runs; the keys are the same
+    on every device)."""
     r = np.random.default_rng(seed + rank)
-    k = r.integers(0, key_range, probe_rows)
+    if zipf is None:
+        k = r.integers(0, key_range, probe_rows)
+    else:
+        k = zipf_keys(r.random(probe_rows), key_range, zipf, device)
     v = r.integers(-50, 50, probe_rows)
     k_ok = r.random(probe_rows) >= key_nulls if key_nulls else None
     rb = np.random.default_rng(seed + 1000 + rank)
@@ -126,6 +144,19 @@ def example_join_shards(rank: int, world_size: int, probe_rows: int = 256,
         ks = np.arange(lo, hi, dtype=np.int64)
     return ({"k": (k, k_ok), "v": (v, None)}, {"k": (ks, None),
                                                "rv": (rv, rv_ok)})
+
+
+def zipf_keys(u: np.ndarray, key_range: int, s: float,
+              device="cpu") -> np.ndarray:
+    """Keys in [0, key_range) from uniforms `u` in [0, 1), key i with
+    probability proportional to 1 / (i + 1)**s: the first key whose
+    cumulative probability exceeds u (the CDF summed in numpy's order,
+    searched with torch on `device`)."""
+    cdf = np.cumsum(1.0 / np.arange(1, key_range + 1, dtype=np.float64)**s)
+    cdf /= cdf[-1]
+    keys = torch.searchsorted(torch.from_numpy(cdf).to(device),
+                              torch.from_numpy(u).to(device), right=True)
+    return keys.cpu().numpy()
 
 
 def join_oracle(shards) -> Dict[str, np.ndarray]:

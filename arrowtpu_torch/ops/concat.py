@@ -1,0 +1,116 @@
+"""Concat: the live rows of several columns or batches, back to back.
+
+Counterpart of `arrowtpu/ops/concat.py` (`concat`, `concat_batches`) for
+the column classes the port has.  The JAX package places each input's
+rows at traced offsets with masked writes into a slab of the summed
+capacities; here the lengths are Python ints, so the output is a
+`torch.cat` of the live slices, zero-padded to the port's capacity (the
+total length rounded up to the capacity granule).
+
+  * validity is kept only where some input has a bitmap (an input without
+    one contributes valid rows);
+  * string views: the arenas are concatenated whole, and each input's
+    non-inline views (byte length > 12) have their arena offset rebased by
+    the start of that input's arena; `len_bound` is the inputs' largest,
+    or None if any is None;
+  * dictionary columns concatenate their keys and keep the dictionary,
+    which must be the same values object in every input (the JAX package
+    asks for the same arrays): dictionaries are not merged yet.
+
+List view, struct and fixed-size list columns are not in the port yet.
+`interleave` waits for `ops/merge.py`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import torch
+
+from .. import schema as st
+from ..config import round_up
+from ..core import batch as bt
+from ..core import bitmap as bm
+from ..core import column as col
+
+
+def _cat(parts: List[torch.Tensor], lengths: Sequence[int],
+         capacity: int) -> torch.Tensor:
+    """The first `length` rows of each part, back to back, then zeros up
+    to `capacity` rows."""
+    first = parts[0]
+    out = torch.zeros((capacity,) + tuple(first.shape[1:]), dtype=first.dtype,
+                      device=first.device)
+    total = sum(lengths)
+    if total:
+        torch.cat([p[:n] for p, n in zip(parts, lengths)], out=out[:total])
+    return out
+
+
+def concat(columns: Sequence[col.Column]) -> col.Column:
+    """The inputs' live rows back to back, in one column of their class."""
+    if not columns:
+        raise st.ComputeError("concat: no inputs")
+    first = columns[0]
+    if any(type(c) is not type(first) for c in columns):
+        raise st.ComputeError("concat: mixed column kinds")
+    lengths = [c.length for c in columns]
+    total = sum(lengths)
+    cap = round_up(max(total, 1))
+
+    if isinstance(first, col.NullColumn):
+        return col.NullColumn(total, cap, first.device)
+
+    if isinstance(first, col.DictionaryColumn):
+        if any(c.values is not first.values for c in columns[1:]):
+            raise st.ComputeError(
+                "concat: dictionary merge across distinct dictionaries not "
+                "yet supported — decode first")
+        return dataclasses.replace(first,
+                                   keys=concat([c.keys for c in columns]))
+
+    validity: Optional[torch.Tensor] = None
+    if any(c.validity is not None for c in columns):
+        validity = bm.pack(_cat([c.valid_bool() for c in columns], lengths,
+                                cap))
+
+    if isinstance(first, col.BooleanColumn):
+        values = _cat([c.values_bool() for c in columns], lengths, cap)
+        return col.BooleanColumn(bm.pack(values), validity, total)
+
+    if isinstance(first, col.PrimitiveColumn):
+        return col.PrimitiveColumn(
+            _cat([c.values for c in columns], lengths, cap), validity, total,
+            first.dtype)
+
+    if isinstance(first, col.StringViewColumn):
+        views, start = [], 0
+        for c in columns:
+            v = c.views
+            if start:
+                v = v.clone()
+                long = v[:, 0] > 12
+                v[:, 3] = torch.where(long, v[:, 3] + start, v[:, 3])
+            views.append(v)
+            start += c.arena.shape[0]
+        bounds = [c.len_bound for c in columns]
+        return col.StringViewColumn(
+            _cat(views, lengths, cap), torch.cat([c.arena for c in columns]),
+            validity, total, first.dtype,
+            None if any(b is None for b in bounds) else max(bounds))
+
+    raise st.ComputeError(f"concat: unsupported column {type(first).__name__}")
+
+
+def concat_batches(batches: Sequence[bt.RecordBatch]) -> bt.RecordBatch:
+    """The batches' rows back to back; every batch has the first's field
+    names."""
+    if not batches:
+        raise st.ComputeError("concat_batches: no inputs")
+    schema = batches[0].schema
+    for b in batches[1:]:
+        if b.schema.names != schema.names:
+            raise st.SchemaError("concat_batches: schema mismatch")
+    return bt.RecordBatch(schema, tuple(
+        concat([b.columns[i] for b in batches]) for i in range(len(schema))))

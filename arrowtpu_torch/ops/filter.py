@@ -111,6 +111,9 @@ def _planes_of(c: col.Column, plan: FilterPlan):
     n = plan.count
     if isinstance(c, col.NullColumn):
         return [], lambda outs: col.NullColumn(n, plan.out_capacity, c.device)
+    if isinstance(c, col.DictionaryColumn):  # the keys; values are shared
+        planes, rebuild = _planes_of(c.keys, plan)
+        return planes, lambda outs: dataclasses.replace(c, keys=rebuild(outs))
     valid = _validity_plane(c, plan)
     extra = [] if valid is None else [valid]
 

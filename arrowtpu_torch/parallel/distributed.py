@@ -9,38 +9,264 @@ of the group with its own shard:
                           sum of counts, min of mins, max of maxes; mean
                           as sum and count, divided after the merge)
 
+Skew (BASELINE config 5's skewed-key join, `skew_threshold`): a global
+histogram of the probe keys over 4096 hashed buckets (one all_reduce)
+marks the buckets that hold more than the threshold's share of all probe
+rows.  Rows of hot buckets, on both sides, leave the exchange: their build
+rows are replicated to every rank (one all_gather a plane) and their probe
+rows join where they are, so a Zipf head does not flood one rank.  The
+cold rows take the normal exchange.  Both sides are split by the filter
+(`_filter_bool`: K1 for the word planes, K2 for the byte planes).
+
+Chunked probes (`probe_chunks`): the build side is exchanged and its table
+built once; the probe side is cut into row chunks, each exchanged, probed
+and joined in turn on one stream (no chunk's exchange overlaps another's
+probe), and the outputs are concatenated.  A chunk is a view of the
+batch's rows (no copy).  Chunks cut at the port's capacity: where it
+differs from the JAX package's, so do the chunks, and a rank's output
+holds the same rows in another order.
+
 Output column names are the JAX package's (`sum_rv`, `count_rv`, ...).
-Not ported yet: the skew path (`skew_threshold`: `detect_hot_buckets`,
-`_replicate`, `_filter_bool`) and chunked probes (`probe_chunks`), which
-need `ops/concat.py`.
+As in `ops/join.py`, a local join without `out_capacity` holds every
+match, so `overflow` is set only when `out_capacity` cuts an output or
+when the hot build rows exceed `hot_capacity`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .. import schema as st
+from ..config import round_up
 from ..core import batch as bt
 from ..core import bitmap as bm
 from ..core import column as col
 from ..ops import groupby as gb
 from ..ops import join as jn
+from ..ops.concat import concat_batches
+from ..ops.filter import filter_record_batch
+from ..ops.take import take_record_batch
+from ..rowformat import encode as rf
+from ..rowformat import hashing as hsh
 from . import shuffle
 from .mesh import Group
+
+_HOT_SEED = 0x517E  # the JAX package's skew-histogram hash seed
+HOT_BUCKETS = 4096
+
+
+def default_hot_capacity(right: bt.RecordBatch) -> int:
+    """The hot build rows a rank may replicate unless `hot_capacity` is
+    given: a quarter of the build capacity, at least 128 rows."""
+    return round_up(max(right.capacity // 4, 128))
+
+
+def _shrink(batch: bt.RecordBatch, new_cap: int) -> bt.RecordBatch:
+    """The first `new_cap` rows of a front-packed batch (take of an
+    arange); the capacity is new_cap rounded up to the granule."""
+    if new_cap >= batch.capacity:
+        return batch
+    idx = col.PrimitiveColumn(
+        torch.arange(round_up(new_cap), dtype=torch.int32,
+                     device=batch.device),
+        None, min(batch.length, new_cap), st.int32)
+    return take_record_batch(batch, idx)
+
+
+def _filter_bool(batch: bt.RecordBatch, keep: torch.Tensor
+                 ) -> bt.RecordBatch:
+    """The live rows of `batch` where the (capacity,) bool `keep` is set:
+    one filter plan for every column (on the card one K1 launch for the
+    word planes and one K2 launch for the byte planes)."""
+    live = bm.row_mask_bool(batch.capacity, batch.length, batch.device)
+    mask = col.BooleanColumn(bm.pack(keep & live), None, batch.length)
+    return filter_record_batch(batch, mask)
+
+
+def _replicate(batch: bt.RecordBatch, group: Group) -> bt.RecordBatch:
+    """Every rank's rows on every rank, in rank order: each rank's planes
+    padded to the ranks' largest capacity (one all_reduce and its
+    read-back) and gathered, one all_gather a plane.  Dead and padding
+    rows become null rows (harmless on a build side: a null key never
+    matches); the length is the whole gathered capacity."""
+    cap = torch.tensor([batch.capacity], device=batch.device)
+    dist.all_reduce(cap, op=dist.ReduceOp.MAX)
+    cap = int(cap)  # read-back
+    total = cap * group.world_size
+
+    def gather(plane: torch.Tensor) -> torch.Tensor:
+        if plane.dtype == torch.bool:
+            return gather(plane.to(torch.uint8)) != 0
+        padded = torch.zeros(cap, dtype=plane.dtype, device=plane.device)
+        padded[:plane.shape[0]] = plane
+        out = torch.empty(total, dtype=plane.dtype, device=plane.device)
+        dist.all_gather_into_tensor(out, padded)
+        return out
+
+    cols = []
+    for c in batch.columns:
+        ok = bm.pack(gather(c.valid_bool()))
+        if isinstance(c, col.PrimitiveColumn):
+            cols.append(col.PrimitiveColumn(gather(c.values), ok, total,
+                                            c.dtype))
+        elif isinstance(c, col.BooleanColumn):
+            cols.append(col.BooleanColumn(bm.pack(gather(c.values_bool())),
+                                          ok, total))
+        else:
+            raise st.ComputeError(
+                f"replicate: unsupported column {type(c).__name__} (string "
+                "views wait for their exchange)")
+    return bt.RecordBatch(batch.schema, tuple(cols))
+
+
+def _hot_buckets_of(batch: bt.RecordBatch, on: Sequence[str],
+                    num_buckets: int) -> torch.Tensor:
+    """(capacity,) int64 skew bucket of each row's key."""
+    planes = rf.hash_planes_of([batch[k] for k in on])
+    return hsh.hash_planes(planes, seed=_HOT_SEED) % num_buckets
+
+
+def _hot_rows(batch: bt.RecordBatch, on: Sequence[str],
+              hot: torch.Tensor) -> torch.Tensor:
+    """(capacity,) bool: the live rows whose key's bucket is hot."""
+    live = bm.row_mask_bool(batch.capacity, batch.length, batch.device)
+    return hot[_hot_buckets_of(batch, on, hot.shape[0])] & live
+
+
+def detect_hot_buckets(batch: bt.RecordBatch, on: Sequence[str], *,
+                       group: Group, threshold_frac: float,
+                       num_buckets: int = HOT_BUCKETS):
+    """Global hashed key histogram -> ((num_buckets,) bool hot-bucket
+    mask, this rank's (capacity,) bool hot-row flag).  A bucket is hot
+    when its global row count exceeds threshold_frac of the global row
+    count, compared in float32 as the JAX package does (a false positive
+    only replicates a few more build rows).  Null keys are live rows and
+    all fall in one bucket.  One all_reduce of the histogram and the live
+    count together."""
+    live = bm.row_mask_bool(batch.capacity, batch.length, batch.device)
+    hb = _hot_buckets_of(batch, on, num_buckets)
+    counts = torch.bincount(torch.where(live, hb, num_buckets),
+                            minlength=num_buckets + 1)
+    counts[num_buckets] = live.sum()  # the dead rows' bin -> the live count
+    dist.all_reduce(counts)
+    frac = torch.tensor(threshold_frac, dtype=torch.float32,
+                        device=counts.device)
+    hot = counts[:num_buckets].to(torch.float32) > (
+        frac * counts[num_buckets].to(torch.float32))
+    return hot, hot[hb] & live
+
+
+def _row_chunks(batch: bt.RecordBatch, k: int) -> List[bt.RecordBatch]:
+    """The batch cut into at most k chunks of rows, as the JAX package
+    cuts them (a step of ceil(capacity / k) rounded up to the granule)
+    but at the port's capacity; each chunk is a view of its rows."""
+    cap = batch.capacity
+    step = round_up(-(-cap // k))
+    return [bt.RecordBatch(batch.schema, tuple(
+        _slice(c, lo, min(step, cap - lo),
+               min(max(batch.length - lo, 0), step)) for c in batch.columns))
+            for lo in range(0, cap, step)]
+
+
+def _slice(c: col.Column, lo: int, n: int, length: int) -> col.Column:
+    """Rows [lo, lo + n) of `c` as a column of capacity n and the given
+    length (lo and n multiples of the granule, so bitmaps cut at bytes;
+    rows past the length are the source's padding, already zero)."""
+    bits = slice(lo // 8, (lo + n) // 8)
+    validity = None if c.validity is None else c.validity[bits]
+    if isinstance(c, col.NullColumn):
+        return col.NullColumn(length, n, c.device)
+    if isinstance(c, col.PrimitiveColumn):
+        return col.PrimitiveColumn(c.values[lo:lo + n], validity, length,
+                                   c.dtype)
+    if isinstance(c, col.BooleanColumn):
+        return col.BooleanColumn(c.values[bits], validity, length)
+    if isinstance(c, col.DictionaryColumn):  # the keys; values are shared
+        return dataclasses.replace(c, keys=_slice(c.keys, lo, n, length))
+    raise st.ComputeError(f"chunk: unsupported column {type(c).__name__}")
+
+
+def _or_info(infos: Sequence[jn.JoinInfo]) -> jn.JoinInfo:
+    dup = infos[0].duplicates
+    for i in infos[1:]:
+        dup = dup | i.duplicates
+    return jn.JoinInfo(dup, any(i.overflow for i in infos))
+
+
+def _probe_join(table: jn.HashTable, left: bt.RecordBatch,
+                right: bt.RecordBatch, on: Sequence[str], *, how: str,
+                out_capacity: Optional[int]):
+    """Local join of `left` against a table built once from `right`
+    (the chunked-probe path)."""
+    match, _ = jn.probe_table(table, [left[k] for k in on])
+    return jn.join_matches(left, right, on, table, match, how=how,
+                           out_capacity=out_capacity)
+
+
+def _skew_join(left, right, on, *, group, how, out_capacity, threshold,
+               hot_capacity, probe_chunks):
+    """The skew path of distributed_hash_join: hot buckets from the probe
+    side's histogram split both sides; the cold rows join through the
+    exchange, the hot build rows (at most hot_capacity) are replicated
+    and joined with the hot probe rows where they are; -> the cold output,
+    then the hot output."""
+    hot, l_hot_mask = detect_hot_buckets(left, on, group=group,
+                                         threshold_frac=threshold)
+    r_hot_mask = _hot_rows(right, on, hot)
+    cold_out, cold_info = distributed_hash_join(
+        _filter_bool(left, ~l_hot_mask), _filter_bool(right, ~r_hot_mask),
+        on, group=group, how=how, out_capacity=out_capacity,
+        probe_chunks=probe_chunks)
+    hcap = hot_capacity or default_hot_capacity(right)
+    r_hot = _filter_bool(right, r_hot_mask)
+    hot_overflow = r_hot.length > hcap  # the filter read its count back
+    r_hot_all = _replicate(_shrink(r_hot, hcap), group)
+    hot_out, hot_info = jn.hash_join(_filter_bool(left, l_hot_mask),
+                                     r_hot_all, on, how=how,
+                                     out_capacity=out_capacity)
+    info = _or_info([cold_info, hot_info])
+    return (concat_batches([cold_out, hot_out]),
+            jn.JoinInfo(info.duplicates, info.overflow or hot_overflow))
 
 
 def distributed_hash_join(left: bt.RecordBatch, right: bt.RecordBatch,
                           on: Sequence[str], *, group: Group,
                           how: str = "inner",
-                          out_capacity: Optional[int] = None):
+                          out_capacity: Optional[int] = None,
+                          skew_threshold: Optional[float] = None,
+                          hot_capacity: Optional[int] = None,
+                          probe_chunks: int = 1):
     """Both sides hash-partitioned on the join key over the group, then
     joined locally: equal keys meet on one rank because both exchanges
-    use the same hash.  -> (batch, JoinInfo)."""
+    use the same hash.  -> (batch, JoinInfo).
+
+    skew_threshold (e.g. 0.01): keys of buckets above this share of the
+    global probe rows skip the exchange; their build rows (at most
+    hot_capacity a rank, by default a quarter of the build capacity) are
+    replicated and their probe rows join locally.  probe_chunks > 1
+    exchanges and joins the probe side in that many chunks against one
+    build table."""
+    if skew_threshold is not None:
+        return _skew_join(left, right, on, group=group, how=how,
+                          out_capacity=out_capacity,
+                          threshold=skew_threshold,
+                          hot_capacity=hot_capacity,
+                          probe_chunks=probe_chunks)
     r_ex = shuffle.exchange(right, on, group)
-    l_ex = shuffle.exchange(left, on, group)
-    return jn.hash_join(l_ex, r_ex, on, how=how, out_capacity=out_capacity)
+    if probe_chunks <= 1:
+        l_ex = shuffle.exchange(left, on, group)
+        return jn.hash_join(l_ex, r_ex, on, how=how,
+                            out_capacity=out_capacity)
+    table = jn.build_table([r_ex[k] for k in on])
+    outs = [_probe_join(table, shuffle.exchange(chunk, on, group), r_ex, on,
+                        how=how, out_capacity=out_capacity)
+            for chunk in _row_chunks(left, probe_chunks)]
+    return concat_batches([o for o, _ in outs]), _or_info(
+        [i for _, i in outs])
 
 
 _MERGE = {"sum": "sum", "count": "sum", "min": "min", "max": "max"}

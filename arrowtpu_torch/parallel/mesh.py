@@ -157,6 +157,8 @@ def run(fn: Callable, world_size: int, device=None, *args) -> List:
 def _with_validity(c: col.Column) -> col.Column:
     if c.validity is not None or isinstance(c, col.NullColumn):
         return c
+    if isinstance(c, col.DictionaryColumn):  # the validity of its keys
+        return dataclasses.replace(c, keys=_with_validity(c.keys))
     return dataclasses.replace(
         c, validity=bm.row_mask(c.capacity, c.length, c.device))
 

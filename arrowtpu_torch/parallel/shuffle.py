@@ -15,7 +15,9 @@ rank in both packages.
     JAX package's capped-bucket path, which its CPU tests run.
 
 Every column moves its validity (the batch is normalized first, so all
-ranks move the same planes); bool values and validity move as bytes.  The
+ranks move the same planes); bool values and validity move as bytes.  A
+dictionary column moves its keys and keeps its dictionary, which every
+rank holds.  String views wait for the byte matrix of `ops/strings`.  The
 output's length is the number of rows received and its capacity that
 rounded up to the capacity granule.
 """
@@ -97,6 +99,9 @@ def exchange_column(c: col.Column, plan: ExchangePlan) -> col.Column:
     total = plan.total
     if isinstance(c, col.NullColumn):
         return col.NullColumn(total, plan.out_capacity, c.device)
+    if isinstance(c, col.DictionaryColumn):
+        # every rank holds the dictionary; only the keys move
+        return dataclasses.replace(c, keys=exchange_column(c.keys, plan))
     ok = bm.pack(_move_bool(bm.unpack(c.validity), plan))
     if isinstance(c, col.BooleanColumn):
         return col.BooleanColumn(bm.pack(_move_bool(c.values_bool(), plan)),

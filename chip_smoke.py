@@ -62,6 +62,16 @@ Phases (each raises on failure; the exit code is then non-zero):
      the step's time (CUDA events, median), its
      stages, its probing rounds, its peak memory and a torch.profiler busy
      share;
+  6b. the skewed join step (BASELINE config 5's skewed-key join): phase
+     6's share and nulls, probe keys Zipf(1.0) over the key range,
+     `join_step(..., skew_threshold=0.01, probe_chunks=4)`.  Held exactly
+     against the numpy oracle, the launch counts set to 0 just before and
+     read just after: K1 and K2 must launch inside the skew path's four
+     filters (`_filter_bool`, counted around each call), and every K1 and
+     K2 call is held to the plain version as in phase 3.  Then the hot
+     buckets and rows (no hot overflow), the step's time (CUDA events,
+     median), its stages, peak memory and busy share, beside the unskewed
+     step on the same data (exact against the oracle too) and its stages;
   7. K3's own path, its entry point compact_planes, at the shape the JAX
      filter gave it: the flagship batch's five int64 columns as 10 u32
      planes x 8,000,000 rows under the flagship mask, counted, then timed
@@ -97,7 +107,8 @@ Phases (each raises on failure; the exit code is then non-zero):
 The line before the last lists the kernels as JSON (`launches` from the
 flagship step for K1 and K2, from K3's entry point for K3 and from
 run_probes for the probe kernels; every path's counts under
-`launches_by_path`); the last line is {"ok": true, "device": {...}}.
+`launches_by_path`, the skewed step's filters as a path of their own);
+the last line is {"ok": true, "device": {...}}.
 Without a CUDA device the script exits with an error and prints no
 result.
 """
@@ -124,6 +135,11 @@ PROBE_ROWS = 62_500_000
 BUILD_ROWS = 6_250_000
 PROBE_KEY_RANGE = 7_812_500
 JOIN_REPS = 10
+JOIN_AGGS = [("rv", "sum"), ("rv", "count")]
+# the skewed join step: the same share and nulls, probe keys Zipf(1.0)
+# over the key range, the skew path at 1 % and four probe chunks
+SKEW_ZIPF = 1.0
+SKEW = {"skew_threshold": 0.01, "probe_chunks": 4}
 LEXSORT_ROWS = 100_000_000  # BASELINE config 3, nothing cut
 LEXSORT_CHECK_ROWS = 1_000_000  # held to np.lexsort itself
 LEXSORT_REPS = 5
@@ -596,14 +612,49 @@ def check_k3(k1, k3, dev) -> None:
             "densities, two masks in a row each)")
 
 
+def stage_ms(fn):
+    return median_ms(fn, reps=JOIN_REPS, warmup=1)
+
+
+def join_stages(left, right, group):
+    """The unskewed join step's stages on one rank (CUDA-event medians):
+    exchange of both sides, build, probe, expand + take, the two-phase
+    group-by.  -> (stages, row and round counts)."""
+    from arrowtpu_torch.ops import join as jn
+    from arrowtpu_torch.parallel import distributed as pd
+    from arrowtpu_torch.parallel import shuffle
+
+    r_ex = shuffle.exchange(right, ["k"], group)
+    l_ex = shuffle.exchange(left, ["k"], group)
+    table = jn.build_table([r_ex["k"]])
+    match, probe_rounds = jn.probe_table(table, [l_ex["k"]])
+    joined, _ = jn.join_matches(l_ex, r_ex, ["k"], table, match)
+
+    def exchange_both():
+        shuffle.exchange(right, ["k"], group)
+        shuffle.exchange(left, ["k"], group)
+
+    stages = {
+        "exchange_ms": stage_ms(exchange_both),
+        "build_ms": stage_ms(lambda: jn.build_table([r_ex["k"]])),
+        "probe_ms": stage_ms(lambda: jn.probe_table(table, [l_ex["k"]])),
+        "expand_take_ms": stage_ms(lambda: jn.join_matches(
+            l_ex, r_ex, ["k"], table, match)),
+        "group_by_ms": stage_ms(lambda: pd.distributed_group_by(
+            joined, ["k"], JOIN_AGGS, group=group)),
+    }
+    counts = {"probe_rows": l_ex.length, "build_rows": r_ex.length,
+              "join_rows": joined.length, "build_rounds": table.rounds,
+              "probe_rounds": probe_rounds}
+    return stages, counts
+
+
 def join_phase(pe, k1, k2, k3, build, dev):
     """Phase 6: the join step at one card's share of config 5.
     -> (the launch counts of its run, K1's rows at its group-by's largest
     calls)."""
     from arrowtpu_torch.interop.numpy_bridge import batch_from_numpy
-    from arrowtpu_torch.ops import join as jn
-    from arrowtpu_torch.parallel import distributed as pd
-    from arrowtpu_torch.parallel import mesh, shuffle
+    from arrowtpu_torch.parallel import mesh
 
     t0 = time.perf_counter()
     shards = pe.example_join_shards(
@@ -642,34 +693,8 @@ def join_phase(pe, k1, k2, k3, build, dev):
 
         step_ms = median_ms(lambda: pe.join_step(left, right, group),
                             reps=JOIN_REPS, warmup=1)
-        r_ex = shuffle.exchange(right, ["k"], group)
-        l_ex = shuffle.exchange(left, ["k"], group)
-        table = jn.build_table([r_ex["k"]])
-        match, probe_rounds = jn.probe_table(table, [l_ex["k"]])
-        joined, _ = jn.join_matches(l_ex, r_ex, ["k"], table, match)
-        aggs = [("rv", "sum"), ("rv", "count")]
-
-        def stage(fn):
-            return median_ms(fn, reps=JOIN_REPS, warmup=1)
-
-        def exchange_both():
-            shuffle.exchange(right, ["k"], group)
-            shuffle.exchange(left, ["k"], group)
-
-        stages = {
-            "exchange_ms": stage(exchange_both),
-            "build_ms": stage(lambda: jn.build_table([r_ex["k"]])),
-            "probe_ms": stage(lambda: jn.probe_table(table, [l_ex["k"]])),
-            "expand_take_ms": stage(lambda: jn.join_matches(
-                l_ex, r_ex, ["k"], table, match)),
-            "group_by_ms": stage(lambda: pd.distributed_group_by(
-                joined, ["k"], aggs, group=group)),
-        }
-        counts = {"probe_rows": l_ex.length, "build_rows": r_ex.length,
-                  "join_rows": joined.length, "groups": groups,
-                  "build_rounds": table.rounds,
-                  "probe_rounds": probe_rounds}
-        del r_ex, l_ex, table, match, joined
+        stages, counts = join_stages(left, right, group)
+        counts["groups"] = groups
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         pe.join_step(left, right, group)
@@ -680,6 +705,162 @@ def join_phase(pe, k1, k2, k3, build, dev):
         log(f"join profile: "
             f"{profile(lambda: pe.join_step(left, right, group), reps=3)}")
     return launches, k1_rows
+
+
+def skew_stages(left, right, group):
+    """The skewed step's stages on one rank (CUDA-event medians): detect
+    (histogram, all_reduce, both sides' hot rows; and the probe keys' hash
+    alone), split (the four filters), cold join (exchange and chunked
+    join of the cold rows; and in one chunk), replicate (shrink and
+    all_gather of the hot build rows), hot join, concat, group-by.
+    -> (stages, counts)."""
+    from arrowtpu_torch.ops import join as jn
+    from arrowtpu_torch.ops.concat import concat_batches
+    from arrowtpu_torch.parallel import distributed as pd
+
+    on = ["k"]
+
+    def detect():
+        hot, l_hot = pd.detect_hot_buckets(
+            left, on, group=group, threshold_frac=SKEW["skew_threshold"])
+        return hot, l_hot, pd._hot_rows(right, on, hot)
+
+    def split():
+        return [pd._filter_bool(b, m) for b, m in (
+            (left, ~l_hot), (right, ~r_hot), (right, r_hot), (left, l_hot))]
+
+    hot, l_hot, r_hot = detect()
+    l_cold, r_cold, r_hot_b, l_hot_b = split()
+    hcap = pd.default_hot_capacity(right)
+
+    def cold_join():
+        return pd.distributed_hash_join(
+            l_cold, r_cold, on, group=group,
+            probe_chunks=SKEW["probe_chunks"])[0]
+
+    def replicate():
+        return pd._replicate(pd._shrink(r_hot_b, hcap), group)
+
+    cold, r_all = cold_join(), replicate()
+    hot_out = jn.hash_join(l_hot_b, r_all, on)[0]
+    joined = concat_batches([cold, hot_out])
+    stages = {
+        "detect_ms": stage_ms(detect),
+        # of which the probe keys' hash (the skew buckets)
+        "detect_hash_ms": stage_ms(lambda: pd._hot_buckets_of(
+            left, on, pd.HOT_BUCKETS)),
+        "split_ms": stage_ms(split),
+        "cold_join_ms": stage_ms(cold_join),
+        # the same cold rows in one probe chunk: what chunking costs
+        "cold_join_one_chunk_ms": stage_ms(lambda: pd.distributed_hash_join(
+            l_cold, r_cold, on, group=group)),
+        "replicate_ms": stage_ms(replicate),
+        "hot_join_ms": stage_ms(lambda: jn.hash_join(l_hot_b, r_all, on)),
+        "concat_ms": stage_ms(lambda: concat_batches([cold, hot_out])),
+        "group_by_ms": stage_ms(lambda: pd.distributed_group_by(
+            joined, on, JOIN_AGGS, group=group)),
+    }
+    counts = {"hot_buckets": int(hot.sum()), "hot_probe_rows": l_hot_b.length,
+              "hot_probe_share": l_hot_b.length / left.length,
+              "hot_build_rows": r_hot_b.length, "hot_capacity": hcap,
+              "replicated_rows": r_all.length, "cold_probe_rows":
+              l_cold.length, "cold_join_rows": cold.length,
+              "hot_join_rows": hot_out.length, "join_rows": joined.length}
+    return stages, counts
+
+
+def skew_phase(pe, k1, k2, k3, build, dev):
+    """Phase 6b: the skewed join step at phase 6's share, probe keys Zipf
+    over the key range, `join_step(..., **SKEW)`; the same data through
+    the unskewed step beside it.  -> (the launch counts of its run, the
+    launches its filters made)."""
+    from arrowtpu_torch.interop.numpy_bridge import batch_from_numpy
+    from arrowtpu_torch.parallel import distributed as pd
+    from arrowtpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    shards = pe.example_join_shards(
+        0, 1, PROBE_ROWS, BUILD_ROWS, key_range=PROBE_KEY_RANGE,
+        key_nulls=0.05, rv_nulls=0.1, permute_build=True, zipf=SKEW_ZIPF,
+        device=dev)
+    want = pe.join_oracle([shards])
+    left, right = (batch_from_numpy(a, device=dev) for a in shards)
+    torch.cuda.synchronize()
+    log(f"skewed join: data and oracle in {time.perf_counter() - t0:.1f} s; "
+        f"{PROBE_ROWS} probe x {BUILD_ROWS} build rows, probe keys "
+        f"Zipf({SKEW_ZIPF}) over {PROBE_KEY_RANGE}, {SKEW}, world size 1, "
+        "cut: 16 chips -> 1 card")
+    # the launches made inside the skew path's filters (_filter_bool)
+    filters = {"calls": 0, "K1": 0, "K2": 0, "tile_counts": 0}
+    filter_bool = pd._filter_bool
+
+    def counters():
+        return k1.launches, k2.launches, build.count_launches
+
+    def counted(batch, keep):
+        before = counters()
+        out = filter_bool(batch, keep)
+        filters["calls"] += 1
+        for name, a, b in zip(("K1", "K2", "tile_counts"), before,
+                              counters()):
+            filters[name] += b - a
+        return out
+
+    with mesh.process_group(0, 1, dev) as group:
+        args = {}
+        pd._filter_bool = counted
+        try:
+            with held_to_plain({"K1": k1, "K2": k2}, args) as calls:
+                k1.launches = k2.launches = k3.launches = 0
+                build.count_launches = 0
+                out = pe.join_step(left, right, group, **SKEW)
+                torch.cuda.synchronize()
+                launches = {"K1": k1.launches, "K2": k2.launches,
+                            "K3": k3.launches,
+                            "tile_counts": build.count_launches}
+        finally:
+            pd._filter_bool = filter_bool
+        if filters["calls"] != 4 or filters["K1"] <= 0 or filters["K2"] <= 0:
+            raise AssertionError(f"the skew path's filters launched "
+                                 f"{filters}: K1 and K2 must both run")
+        groups = pe.check_join_output([out], want)
+        extraction = group_by_calls(args, launches["tile_counts"],
+                                    "skewed join")
+        log(f"skewed join: {groups} groups exact against the numpy oracle; "
+            f"launches {launches}, of which its 4 filters {filters}; calls "
+            f"held to plain (P, n, kept, out_rows): {calls}; the "
+            f"group-by's {len(extraction)} K1 calls each "
+            f"{[c.launched for c in extraction]}")
+        del args, extraction, out
+        joined, info = pd.distributed_hash_join(left, right, ["k"],
+                                                group=group, **SKEW)
+        if info.overflow:
+            raise AssertionError("the hot build rows overflowed")
+        del joined
+        plain_groups = pe.check_join_output(
+            [pe.join_step(left, right, group)], want)
+        log(f"skewed data, unskewed step: {plain_groups} groups exact "
+            "against the numpy oracle")
+
+        step_ms = median_ms(lambda: pe.join_step(left, right, group, **SKEW),
+                            reps=JOIN_REPS, warmup=1)
+        plain_ms = median_ms(lambda: pe.join_step(left, right, group),
+                             reps=JOIN_REPS, warmup=1)
+        stages, counts = skew_stages(left, right, group)
+        plain_stages, plain_counts = join_stages(left, right, group)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        pe.join_step(left, right, group, **SKEW)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"skewed join timing: step {step_ms:.3f} ms (median of "
+            f"{JOIN_REPS}); stages {stages}; {counts}; peak "
+            f"{peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB held before "
+            "the step)")
+        log(f"skewed data, unskewed step: {plain_ms:.3f} ms (median of "
+            f"{JOIN_REPS}); stages {plain_stages}; {plain_counts}")
+        log("skewed join profile: " + str(profile(
+            lambda: pe.join_step(left, right, group, **SKEW), reps=3)))
+    return launches, filters
 
 
 def check_probes(kp, probes, dev) -> None:
@@ -1049,6 +1230,11 @@ def main() -> int:
     join_launches, join_k1_rows = join_phase(pe, k1, k2, k3, _build, dev)
     log(f"phase 6 (join step): {time.perf_counter() - t0:.1f} s")
 
+    # phase 6b
+    t0 = time.perf_counter()
+    skew_launches, skew_filters = skew_phase(pe, k1, k2, k3, _build, dev)
+    log(f"phase 6b (skewed join step): {time.perf_counter() - t0:.1f} s")
+
     # phase 7: K3's entry point on the flagship batch's int64 columns as
     # u32 planes (lo, hi of each) under the flagship mask
     batch = main_runs[CARDINALITIES[0]][0]
@@ -1213,6 +1399,8 @@ def main() -> int:
     launches = {"K1": flagship["K1"], "K2": flagship["K2"],
                 "K3": k3_launches["K3"], **probe_launches}
     by_path = {"flagship step": flagship, "join step": join_launches,
+               "skewed join step": skew_launches,
+               "skewed join step, its filters": skew_filters,
                "compact2.compact_planes": k3_launches,
                "run_probes": probe_launches,
                "config 3 lexsort": lexsort_launches}

@@ -19,14 +19,19 @@ from arrowtpu_torch.entry import (check_join_output, check_lexsort,
                                   example_lexsort_arrays, join_oracle,
                                   join_step, lexsort_columns, lexsort_keys,
                                   lexsort_step, step)
-from arrowtpu_torch.interop.numpy_bridge import batch_from_numpy
+from arrowtpu_torch import schema as st
+from arrowtpu_torch.core import column as pcol
+from arrowtpu_torch.interop.numpy_bridge import (batch_from_numpy,
+                                                 column_to_numpy)
 from arrowtpu_torch.kernels import _build
 from arrowtpu_torch.kernels import compact as k2
 from arrowtpu_torch.kernels import compact2 as k3
 from arrowtpu_torch.kernels import compact3 as k1
 from arrowtpu_torch.kernels import probes
 from arrowtpu_torch.ops.groupby import group_by
+from arrowtpu_torch.ops.concat import concat, concat_batches
 from arrowtpu_torch.ops.join import hash_join
+from arrowtpu_torch.parallel import distributed as pdist
 from arrowtpu_torch.parallel import mesh
 from arrowtpu_torch.probes import fresh_call
 
@@ -428,6 +433,78 @@ def test_join_step_on_card_against_oracle(cuda):
         out = join_step(left, right, group)
         assert k1.launches > 0
     assert check_join_output([out], join_oracle([shards])) > 0
+
+
+def _tensors_of(c):
+    return [getattr(c, n) for n in ("values", "views", "arena", "validity")
+            if isinstance(getattr(c, n, None), torch.Tensor)]
+
+
+def test_concat_on_card_matches_cpu(cuda):
+    """concat_batches of int64 (nulls), float64 and bool (nulls) columns
+    with a zero-length input, and concat of string views and of dictionary
+    columns sharing one dictionary: every tensor of the card's output
+    equals the CPU's."""
+    rng = np.random.default_rng(11)
+    arrays = [{"a": (rng.integers(-2**40, 2**40, n), rng.random(n) > 0.2),
+               "f": (rng.standard_normal(n), None),
+               "b": (rng.random(n) < 0.5, rng.random(n) > 0.1)}
+              for n in (100_000, 0, 77_777)]
+    strings = [["pear", None, "a string longer than twelve", ""], [],
+               ["x" * 40, "fig", None]]
+    words = ["b", "a long dictionary word", "c"]
+    keys = [(rng.integers(0, 3, n).astype(np.int32), rng.random(n) > 0.2)
+            for n in (5000, 0, 300)]
+    outs = []
+    for device in (cuda, "cpu"):
+        proto = pcol.dictionary_encode_host(words, device=device)
+        outs.append((
+            concat_batches([batch_from_numpy(a, device=device)
+                            for a in arrays]),
+            concat([pcol.string_view(w, device=device) for w in strings]),
+            concat([pcol.DictionaryColumn(
+                pcol.primitive(k, st.int32, validity=ok, device=device),
+                proto.values, proto.value_ranks, proto.dtype)
+                for k, ok in keys])))
+    (gb, gs, gd), (wb, ws, wd) = outs
+    assert gb.device.type == "cuda" and gb.length == 177_777
+    assert gs.to_pylist() == ws.to_pylist() == sum(strings, [])
+    assert gd.to_pylist() == wd.to_pylist()
+    for g, w in zip(gb.columns + (gs, gd.keys), wb.columns + (ws, wd.keys)):
+        assert (g.length, g.capacity) == (w.length, w.capacity)
+        for x, y in zip(_tensors_of(g), _tensors_of(w)):
+            assert torch.equal(x.cpu(), y)
+
+
+def test_skew_join_on_card_matches_cpu(cuda):
+    """The skew path and chunked probes at world size 1 over NCCL, 400k x
+    40k rows with Zipf(1.0) probe keys: the join's output and flags equal
+    the CPU's (which the CPU tests hold to the JAX package), K1 and K2
+    launch in its filters, and the step equals the numpy oracle."""
+    shards = example_join_shards(0, 1, 400_000, 40_000, key_range=50_000,
+                                 key_nulls=0.05, rv_nulls=0.1,
+                                 permute_build=True, zipf=1.0)
+    skew = {"skew_threshold": 0.01, "probe_chunks": 4}
+    outs = []
+    for device in (cuda, "cpu"):
+        left, right = (batch_from_numpy(a, device=device) for a in shards)
+        with mesh.process_group(0, 1, device) as group:
+            k1.launches = k2.launches = 0
+            out, info = pdist.distributed_hash_join(left, right, ["k"],
+                                                    group=group, **skew)
+            if device is cuda:
+                # the inner join filters nothing: these are the skew path's
+                assert k1.launches > 0 and k2.launches > 0
+                assert check_join_output(
+                    [join_step(left, right, group, **skew)],
+                    join_oracle([shards])) > 0
+        outs.append(([column_to_numpy(c) for c in out.columns],
+                     bool(info.duplicates), info.overflow))
+    (got, *flags), (want, *want_flags) = outs
+    assert flags == want_flags == [False, False]
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_dryrun_multichip_on_one_card(cuda):
