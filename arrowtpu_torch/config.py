@@ -14,10 +14,17 @@ contract).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
 CAPACITY_GRANULE = 64
+
+# Bucket count of the dense-range GROUP BY engine (ops/groupby.py): the
+# JAX package's own setting, read from the same environment variable with
+# the same default (its CPU test mesh sets 32; the card runs 256).
+DENSE_GROUPBY_BUCKETS = int(
+    os.environ.get("ARROWTPU_DENSE_GROUPBY_BUCKETS", "256"))
 
 
 def round_up(n: int, m: int = CAPACITY_GRANULE) -> int:

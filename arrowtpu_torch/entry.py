@@ -21,6 +21,13 @@ Zipf probe keys, `zipf`), `join_oracle` / `check_join_output` hold the
 step's output to a host oracle, and `dryrun_multichip(n)` runs the dryrun
 on n ranks.  `group_by_shards` runs the two-phase group-by alone on n ranks.
 
+`agg_step` is BASELINE config 4 as `bench.py` config4_hash_agg runs it:
+a plan from `plan_group_by` (`agg_plan`), then sum, count and min of an
+int64 value by an int32 key.  `example_agg_arrays` draws the bench's data
+(at 100 keys the plan takes the dense-range engine, at 1,000,000 the sort
+pipeline), and `agg_oracle` / `check_agg` hold the output to numpy:
+keys, sums, counts and mins, all exact.
+
 `lexsort_step` is BASELINE config 3 (`bench.py` config3_lexsort): the
 lexsort of (int32, float64, dictionary-utf8) columns.
 `example_lexsort_columns` draws them as the bench does, and
@@ -39,6 +46,7 @@ from . import ops
 from . import schema as st
 from .config import resolve_device
 from .core import batch as bt
+from .core import bitmap as bm
 from .core import column as col
 from .interop.numpy_bridge import (batch_from_numpy, column_from_numpy,
                                    column_to_numpy)
@@ -221,6 +229,82 @@ def check_join_output(outputs: Sequence[bt.RecordBatch], want) -> int:
     if not np.array_equal(got["sum_rv"][0][ok], want["sum"][ok]):
         raise AssertionError("sums differ from the oracle")
     return len(k)
+
+
+# ---------------------------------------------------------------------------
+# config 4: the planned hash aggregate
+# ---------------------------------------------------------------------------
+
+AGG_AGGS = [("v", "sum"), ("v", "count"), ("v", "min")]
+AGG_COLUMNS = ["k", "sum_v", "count_v", "min_v"]
+
+
+def example_agg_arrays(n: int = 4096, cardinality: int = 100,
+                       seed: int = 3) -> Arrays:
+    """BASELINE config 4's data, drawn as `bench.py` config4_hash_agg draws
+    it: an int32 key uniform in [0, cardinality), then an int64 value in
+    [-1000, 1000); no nulls."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, cardinality, n, dtype=np.int32)
+    vals = rng.integers(-1000, 1000, n)
+    return {"k": (keys, None), "v": (vals, None)}
+
+
+def example_agg_batch(n: int = 4096, cardinality: int = 100, seed: int = 3,
+                      device=None) -> bt.RecordBatch:
+    return batch_from_numpy(example_agg_arrays(n, cardinality, seed),
+                            device=resolve_device(device))
+
+
+def agg_plan(batch: bt.RecordBatch) -> gb.GroupByPlan:
+    """The bench's plan: one probe of the key range fixes the engine."""
+    return gb.plan_group_by(batch, ["k"], AGG_AGGS)
+
+
+def agg_step(plan: gb.GroupByPlan, batch: bt.RecordBatch) -> bt.RecordBatch:
+    """Config 4's step: the planned group-by of sum, count and min of v by
+    k."""
+    return plan(batch)
+
+
+def agg_oracle(arrays: Arrays) -> Dict[str, np.ndarray]:
+    """Per key (ascending) the sum, count and min of v, in numpy; the keys
+    must be non-negative and nothing null, as in the bench's data."""
+    (k, k_ok), (v, v_ok) = arrays["k"], arrays["v"]
+    if k_ok is not None or v_ok is not None or (len(k) and k.min() < 0):
+        raise ValueError("the oracle takes non-negative keys and no nulls")
+    count = np.bincount(k)
+    keys = np.flatnonzero(count)
+    sums = np.zeros(len(count), np.int64)
+    np.add.at(sums, k, v)
+    mins = np.full(len(count), np.iinfo(np.int64).max)
+    np.minimum.at(mins, k, v)
+    return {"k": keys, "sum_v": sums[keys], "count_v": count[keys],
+            "min_v": mins[keys]}
+
+
+def check_agg(out: bt.RecordBatch, want: Dict[str, np.ndarray]) -> int:
+    """Raise AssertionError unless `agg_step`'s output equals `agg_oracle`'s
+    answer exactly: the groups in key order, sum and min valid in every
+    group, key and count without validity, zeros past the length.  -> the
+    number of groups."""
+    if out.schema.names != AGG_COLUMNS:
+        raise AssertionError(f"output columns {out.schema.names}")
+    g = len(want["k"])
+    if out.length != g:
+        raise AssertionError(f"{out.length} groups, oracle {g}")
+    for name in AGG_COLUMNS:
+        c = out[name]
+        vals, ok, _ = column_to_numpy(c)
+        if not np.array_equal(vals, want[name]):
+            raise AssertionError(f"{name}: values differ from the oracle")
+        if c.values[g:].any():
+            raise AssertionError(f"{name}: padding past the length not zero")
+        if (c.validity is None) != (name in ("k", "count_v")) or not ok.all():
+            raise AssertionError(f"{name}: validity differs from the oracle")
+        if c.validity is not None and bm.unpack(c.validity)[g:].any():
+            raise AssertionError(f"{name}: validity past the length set")
+    return g
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,8 @@ toolkit, and only a launch on a CUDA tensor builds, and raises if the
 build fails.  The second half holds what the kernel wrappers share:
 operand checks, output allocation, host arrays of plane pointers, and the
 compaction calls into the library on PyTorch's current stream, each
-checked for a CUDA error.
+checked for a CUDA error (kernels/probes.py and kernels/dense_agg.py make
+their own calls, checked the same way).
 """
 
 from __future__ import annotations
@@ -116,10 +117,23 @@ def library() -> ctypes.CDLL:
     lib.arrowtpu_lane_roll.restype = i32
     lib.arrowtpu_tile_gather.argtypes = [i32, i32, vp, vp, vp, i64, vp]
     lib.arrowtpu_tile_gather.restype = i32
+    lib.arrowtpu_dense_agg.argtypes = [
+        i32, vp, vp, vp, i32, i32, i64, i32, ctypes.POINTER(vp),
+        ctypes.POINTER(vp), ctypes.POINTER(i32), i32, vp, vp]
+    lib.arrowtpu_dense_agg.restype = i32
+    for fn in (lib.arrowtpu_dense_agg_max_cols,
+               lib.arrowtpu_dense_agg_max_buckets):
+        fn.argtypes, fn.restype = [], i32
     if (lib.arrowtpu_compact_tile_rows(), lib.arrowtpu_compact_max_planes()) \
             != (TILE_ROWS, MAX_PLANES):
         raise RuntimeError(f"{path.name}: tile or plane limit differs from "
                            "TILE_ROWS / MAX_PLANES")
+    from . import dense_agg
+    if (lib.arrowtpu_dense_agg_max_cols(),
+            lib.arrowtpu_dense_agg_max_buckets()) \
+            != (dense_agg.MAX_COLS, dense_agg.MAX_BUCKETS):
+        raise RuntimeError(f"{path.name}: column or bucket limit differs "
+                           "from dense_agg.MAX_COLS / MAX_BUCKETS")
     return lib
 
 
@@ -303,8 +317,9 @@ def compact2_cuda(plist, outs, keep: torch.Tensor,
 
 
 def plane_ptrs(tensors) -> ctypes.Array:
-    """A host array of the tensors' device pointers."""
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    """A host array of the tensors' device pointers (null for None)."""
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
 
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:

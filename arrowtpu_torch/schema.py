@@ -48,12 +48,15 @@ class Boolean(DataType):
         return "bool"
 
 
-# torch's uint16/uint32/uint64 lack comparisons and reductions, so the
-# unsigned types wider than a byte wait for a later slice.
+# torch's uint16 and uint32 store, copy, index and convert but lack
+# comparisons and reductions, so code that computes on them widens to
+# int64 first (a lossless widening).  uint64 has no such widening and waits
+# for a later slice.
 _INT_TORCH = {
     (8, True): torch.int8, (16, True): torch.int16,
     (32, True): torch.int32, (64, True): torch.int64,
-    (8, False): torch.uint8,
+    (8, False): torch.uint8, (16, False): torch.uint16,
+    (32, False): torch.uint32,
 }
 
 
@@ -120,6 +123,8 @@ int16 = Int(16)
 int32 = Int(32)
 int64 = Int(64)
 uint8 = Int(8, signed=False)
+uint16 = Int(16, signed=False)
+uint32 = Int(32, signed=False)
 float32 = Float(32)
 float64 = Float(64)
 utf8 = Utf8()

@@ -102,12 +102,32 @@ Phases (each raises on failure; the exit code is then non-zero):
      each stable sort pass's device time from a torch.profiler trace of
      the step), the words pack forms, its peak memory and a
      torch.profiler busy share.  It
-     runs no kernel of the port: PyTorch's sort does the work.
+     runs no kernel of the port: PyTorch's sort does the work;
+  12. BASELINE config 4 as `bench.py` config4_hash_agg runs it, at its
+     full 8,000,000 rows (int32 key in [0, 100) and [0, 1,000,000), int64
+     value in [-1000, 1000), seed 3; sum, count and min): the plan
+     (`entry.agg_plan`, plan_group_by) must choose the dense engine at 128
+     buckets at 100 keys and the sort pipeline at 1,000,000, as the
+     reference does; the launch counts set to 0 just before the step
+     (`entry.agg_step`) and read just after: one dense_agg launch and no
+     K1 at 100 keys, K1 and no dense_agg at 1,000,000; the output exact
+     against the numpy oracle (`entry.check_agg`: keys, sums, counts,
+     mins), every dense_agg call of the step bit for bit equal to
+     `dense_aggregate_plain` on its own inputs and every K1 call to its
+     plain version, and unplanned `group_by` equal to the plan's output.
+     Then the step's time (CUDA events, warm-up, median of 30 with its
+     min and max), peak memory and torch.profiler busy share; dense_agg
+     at the step's call beside its bytes bound (at 3.35 TB/s and at the
+     measured copy floor), its plain version and the library calls
+     (bincount + index_add_ + two scatter_reduce, one sequence); K1 at
+     the high-cardinality step's calls as in phase 4.
 
 The line before the last lists the kernels as JSON (`launches` from the
-flagship step for K1 and K2, from K3's entry point for K3 and from
-run_probes for the probe kernels; every path's counts under
-`launches_by_path`, the skewed step's filters as a path of their own);
+flagship step for K1 and K2, from K3's entry point for K3, from
+run_probes for the probe kernels and from config 4 at 100 keys for
+dense_agg; every path's counts under `launches_by_path`, the skewed
+step's filters as a path of their own; the flagship, join and skewed join
+steps, int64-keyed, must launch no dense_agg);
 the last line is {"ok": true, "device": {...}}.
 Without a CUDA device the script exits with an error and prints no
 result.
@@ -143,6 +163,11 @@ SKEW = {"skew_threshold": 0.01, "probe_chunks": 4}
 LEXSORT_ROWS = 100_000_000  # BASELINE config 3, nothing cut
 LEXSORT_CHECK_ROWS = 1_000_000  # held to np.lexsort itself
 LEXSORT_REPS = 5
+# BASELINE config 4 as bench.py config4_hash_agg runs it, nothing cut: the
+# plan's engine and bucket count expected at each cardinality
+AGG_ROWS = 8_000_000
+AGG_CASES = (("low_card", 100, "dense", 128), ("high_card", 1_000_000,
+                                               "sort", 0))
 
 
 def log(*args):
@@ -156,8 +181,9 @@ def smi_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def median_ms(fn, reps=REPS, warmup=3) -> float:
-    """Median of `reps` CUDA-event timings of fn() (each a separate run)."""
+def run_times_ms(fn, reps=REPS, warmup=3) -> list:
+    """`reps` CUDA-event timings of fn() (each a separate run, after
+    `warmup` runs), ascending."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -170,7 +196,12 @@ def median_ms(fn, reps=REPS, warmup=3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return sorted(times)
+
+
+def median_ms(fn, reps=REPS, warmup=3) -> float:
+    """Median of `reps` CUDA-event timings of fn() (each a separate run)."""
+    return statistics.median(run_times_ms(fn, reps, warmup))
 
 
 def _profiled(fn, reps):
@@ -228,6 +259,7 @@ def bytes_bound_ms(nbytes: int) -> float:
 
 
 WORDS = {"h": "u8", "j": "u32", "m": "u64", "y": "u64"}
+KEYS = {"a": "i8", "s": "i16", "i": "i32", "h": "u8", "t": "u16", "j": "u32"}
 FRAMES = {"0": "offs", "1": "look-back"}
 STAGE_NAMES = {"0": "copy", "1": "rank", "2": "lookback", "3": "kept",
                "4": "full"}
@@ -249,14 +281,17 @@ def _kernel_label(mangled: str):
         return "tile_gather_kernel<roundtrip, 256>"
     if "lane_roll_kernel" in mangled:
         return "lane_roll_kernel"
+    t = re.search(r"dense_agg_kernelI(\w)E", mangled)
+    if t:
+        return f"dense_agg_kernel<{KEYS.get(t[1], t[1])} key>"
     return None
 
 
 def ptxas_reports(build_log: str):
     """The `-Xptxas -v` report of each instantiation of tile_compact_kernel,
-    of tile_gather's round trip and staged sublane gather and of
-    lane_roll_kernel: [(label, [its register / spill / shared memory
-    lines])]."""
+    of tile_gather's round trip and staged sublane gather, of
+    lane_roll_kernel and of dense_agg_kernel: [(label, [its register /
+    spill / shared memory lines])]."""
     import re
 
     out, cur = [], None
@@ -654,6 +689,7 @@ def join_phase(pe, k1, k2, k3, build, dev):
     -> (the launch counts of its run, K1's rows at its group-by's largest
     calls)."""
     from arrowtpu_torch.interop.numpy_bridge import batch_from_numpy
+    from arrowtpu_torch.kernels import dense_agg as dk
     from arrowtpu_torch.parallel import mesh
 
     t0 = time.perf_counter()
@@ -669,15 +705,17 @@ def join_phase(pe, k1, k2, k3, build, dev):
     with mesh.process_group(0, 1, dev) as group:
         args = {}
         with held_to_plain({"K1": k1, "K2": k2}, args) as calls:
-            k1.launches = k2.launches = k3.launches = 0
+            k1.launches = k2.launches = k3.launches = dk.launches = 0
             build.count_launches = 0
             out = pe.join_step(left, right, group)
             torch.cuda.synchronize()
             launches = {"K1": k1.launches, "K2": k2.launches,
-                        "K3": k3.launches,
+                        "K3": k3.launches, "dense_agg": dk.launches,
                         "tile_counts": build.count_launches}
         if launches["K1"] <= 0 or not calls["K1"]:
             raise AssertionError("K1 was not launched by the join step")
+        if launches["dense_agg"]:
+            raise AssertionError("the join's int64 key took the dense engine")
         groups = pe.check_join_output([out], want)
         extraction = group_by_calls(args, launches["tile_counts"], "join")
         log(f"join: {groups} groups exact against the numpy oracle; "
@@ -775,6 +813,7 @@ def skew_phase(pe, k1, k2, k3, build, dev):
     the unskewed step beside it.  -> (the launch counts of its run, the
     launches its filters made)."""
     from arrowtpu_torch.interop.numpy_bridge import batch_from_numpy
+    from arrowtpu_torch.kernels import dense_agg as dk
     from arrowtpu_torch.parallel import distributed as pd
     from arrowtpu_torch.parallel import mesh
 
@@ -811,15 +850,18 @@ def skew_phase(pe, k1, k2, k3, build, dev):
         pd._filter_bool = counted
         try:
             with held_to_plain({"K1": k1, "K2": k2}, args) as calls:
-                k1.launches = k2.launches = k3.launches = 0
+                k1.launches = k2.launches = k3.launches = dk.launches = 0
                 build.count_launches = 0
                 out = pe.join_step(left, right, group, **SKEW)
                 torch.cuda.synchronize()
                 launches = {"K1": k1.launches, "K2": k2.launches,
-                            "K3": k3.launches,
+                            "K3": k3.launches, "dense_agg": dk.launches,
                             "tile_counts": build.count_launches}
         finally:
             pd._filter_bool = filter_bool
+        if launches["dense_agg"]:
+            raise AssertionError("the skewed join's int64 key took the dense "
+                                 "engine")
         if filters["calls"] != 4 or filters["K1"] <= 0 or filters["K2"] <= 0:
             raise AssertionError(f"the skew path's filters launched "
                                  f"{filters}: K1 and K2 must both run")
@@ -1053,6 +1095,161 @@ def lexsort_phase(pe, dev) -> dict:
     return row
 
 
+@contextlib.contextmanager
+def recorded(mod, attr):
+    """While active, every call of mod.<attr> is kept: yields a list that
+    gets (args, result) of each call."""
+    fn, calls = getattr(mod, attr), []
+
+    def kept(*args):
+        out = fn(*args)
+        calls.append((args, out))
+        return out
+
+    setattr(mod, attr, kept)
+    try:
+        yield calls
+    finally:
+        setattr(mod, attr, fn)
+
+
+def dense_library(key, key_validity, kmin, off, nb, n, values):
+    """The PyTorch library calls that compute dense_agg's outputs on a key
+    and values without nulls: bincount + index_add_ + two scatter_reduce,
+    one sequence."""
+    if key_validity is not None or any(ok is not None for _, ok in values):
+        raise ValueError("the library sequence takes no validity")
+    b = key[:n].to(torch.int64) - kmin.reshape(()) + off
+    rows = torch.bincount(b, minlength=nb)
+    out = []
+    for v, _ in values:
+        x = v[:n].to(torch.int64)
+        out.append(torch.stack([
+            rows, torch.zeros(nb, dtype=torch.int64, device=b.device
+                              ).index_add_(0, b, x),
+            torch.full((nb,), torch.iinfo(torch.int64).max, device=b.device
+                       ).scatter_reduce_(0, b, x, "amin"),
+            torch.full((nb,), torch.iinfo(torch.int64).min, device=b.device
+                       ).scatter_reduce_(0, b, x, "amax")]))
+    return rows, torch.stack(out)
+
+
+def batches_equal(a, b) -> bool:
+    """Two port batches with the same names, lengths, values and
+    validity, bit for bit."""
+    return a.schema == b.schema and a.length == b.length and all(
+        torch.equal(x.values, y.values)
+        and (x.validity is None) == (y.validity is None)
+        and (x.validity is None or torch.equal(x.validity, y.validity))
+        for x, y in zip(a.columns, b.columns))
+
+
+def agg_phase(pe, k1, dk, build, dev, floor_bytes_per_s):
+    """Phase 12: BASELINE config 4 at 8,000,000 rows, both cardinalities.
+    -> (the launch counts of each case's step, the dense kernel's row, K1's
+    rows at the high-cardinality step's group extraction)."""
+    from arrowtpu_torch.ops import groupby as gb
+
+    launches, dense_row, k1_rows = {}, None, []
+    for label, cardinality, engine, buckets in AGG_CASES:
+        t0 = time.perf_counter()
+        arrays = pe.example_agg_arrays(AGG_ROWS, cardinality)
+        want = pe.agg_oracle(arrays)
+        batch = pe.batch_from_numpy(arrays, device=dev)
+        plan = pe.agg_plan(batch)
+        log(f"config 4 {label} ({cardinality} keys, {AGG_ROWS} rows): plan "
+            f"engine {plan.engine}, {plan.buckets} buckets; data and oracle "
+            f"in {time.perf_counter() - t0:.1f} s")
+        if (plan.engine, plan.buckets) != (engine, buckets):
+            raise AssertionError(f"config 4 {label}: the plan chose "
+                                 f"{plan.engine} at {plan.buckets} buckets, "
+                                 f"the reference {engine} at {buckets}")
+        torch.cuda.synchronize()
+        args = {}
+        with held_to_plain({"K1": k1}, args) as calls, \
+                recorded(dk, "dense_aggregate") as dense_calls:
+            k1.launches = dk.launches = 0
+            build.count_launches = 0
+            out = pe.agg_step(plan, batch)
+            torch.cuda.synchronize()
+            run = {"K1": k1.launches, "dense_agg": dk.launches,
+                   "tile_counts": build.count_launches}
+        launches[label] = run
+        expect = ({"dense_agg": 1, "K1": 0} if engine == "dense"
+                  else {"dense_agg": 0})
+        if any(run[k] != v for k, v in expect.items()) or (
+                engine == "sort" and run["K1"] <= 0):
+            raise AssertionError(f"config 4 {label}: launches {run}, "
+                                 f"expected {expect} (and K1 > 0 on the "
+                                 "sort pipeline)")
+        groups = pe.check_agg(out, want)
+        for d_args, got in dense_calls:
+            plain = dk.dense_aggregate_plain(*d_args)
+            if not all(torch.equal(a, b) for a, b in zip(got, plain)):
+                raise AssertionError(f"config 4 {label}: dense_agg differs "
+                                     "from its plain version on the step")
+        unplanned = gb.group_by(batch, ["k"], pe.AGG_AGGS)
+        if not batches_equal(unplanned, out):
+            raise AssertionError(f"config 4 {label}: group_by differs from "
+                                 "the plan's output")
+        log(f"config 4 {label}: {groups} groups exact against the numpy "
+            f"oracle (keys, sums, counts, mins); launches {run}; K1 calls "
+            f"held to plain (P, n, kept, out_rows): {calls['K1']}; "
+            f"{len(dense_calls)} dense_agg call(s) bit-exact against "
+            "dense_aggregate_plain; unplanned group_by equal to the plan")
+
+        times = run_times_ms(lambda: pe.agg_step(plan, batch))
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        pe.agg_step(plan, batch)
+        peak = torch.cuda.max_memory_allocated()
+        step = {"step_ms": statistics.median(times), "min_ms": times[0],
+                "max_ms": times[-1], "reps": len(times),
+                "group_by_unplanned_ms": median_ms(
+                    lambda: gb.group_by(batch, ["k"], pe.AGG_AGGS)),
+                "peak_gib": peak / 2**30, "held_before_gib": held / 2**30,
+                "rows_per_s": AGG_ROWS / statistics.median(times) * 1e3}
+        log(f"config 4 {label} timing: {step}")
+        log(f"config 4 {label} profile: "
+            f"{profile(lambda: pe.agg_step(plan, batch))}")
+
+        if engine == "sort":
+            extraction = group_by_calls(args, run["tile_counts"],
+                                        f"config 4 {label}")
+            k1_rows = [dict(row, config4=label) for row in
+                       time_k1_group_calls(k1, f"config 4 {label}",
+                                           extraction)]
+            continue
+        (d_args, got), = dense_calls
+        key, key_validity, kmin, off, nb, n, values = d_args
+        bitmaps = [ok for ok in [key_validity] + [ok for _, ok in values]
+                   if ok is not None]
+        nbytes = (n * key.element_size()
+                  + sum(n * v.element_size() for v, _ in values)
+                  + len(bitmaps) * -(-n // 8)
+                  + (1 + 4 * len(values)) * nb * 8)
+        err = max(int((a - b).abs().max())
+                  for a, b in zip(got, dk.dense_aggregate_plain(*d_args)))
+        dense_row = {
+            "ms": cold_ms(lambda: dk.dense_aggregate(*d_args)),
+            "warm_ms": warm_ms(lambda: dk.dense_aggregate(*d_args)),
+            "plain_ms": cold_ms(lambda: dk.dense_aggregate_plain(*d_args)),
+            "library_ms": cold_ms(lambda: dense_library(*d_args)),
+            "library": "bincount + index_add_ + 2 scatter_reduce, one "
+                       "sequence",
+            "bound_ms": bytes_bound_ms(nbytes), "bound_by": "bytes",
+            "floor_ms": nbytes / floor_bytes_per_s * 1e3,
+            "max_abs_err": float(err),
+            "shape": f"n={n} int32 key -> {nb} buckets, "
+                     f"{len(values)} int64 value column(s), "
+                     f"{nbytes} bytes"}
+        if err:
+            raise AssertionError("dense_agg differs at the main shape")
+        log(f"  dense_agg at config 4 {label}: {dense_row}")
+        del dense_calls
+    return launches, dense_row, k1_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1064,6 +1261,7 @@ def main() -> int:
     from arrowtpu_torch.kernels import compact as k2
     from arrowtpu_torch.kernels import compact2 as k3
     from arrowtpu_torch.kernels import compact3 as k1
+    from arrowtpu_torch.kernels import dense_agg as dk
     from arrowtpu_torch.kernels import probes as kp
     from arrowtpu_torch.ops import groupby as gb
     from arrowtpu_torch import probes
@@ -1084,7 +1282,7 @@ def main() -> int:
     for want in ("tile_compact_kernel<u8, offs, full>",
                  "tile_compact_kernel<u8, look-back, full>",
                  "sublane_gather_kernel", "tile_gather_kernel<roundtrip",
-                 "lane_roll_kernel"):
+                 "lane_roll_kernel", "dense_agg_kernel<i32 key>"):
         if want not in labels:
             raise AssertionError(f"no ptxas report of {want}")
     for label, lines in reports:
@@ -1107,14 +1305,19 @@ def main() -> int:
         with held_to_plain({"K1": k1, "K2": k2}, args) as calls:
             k1.launches = 0
             k2.launches = 0
+            dk.launches = 0
             _build.count_launches = 0
             out = pe.step(batch)
             torch.cuda.synchronize()
             launches = {"K1": k1.launches, "K2": k2.launches,
+                        "dense_agg": dk.launches,
                         "tile_counts": _build.count_launches}
         for name in ("K1", "K2"):
             if launches[name] <= 0 or not calls[name]:
                 raise AssertionError(f"{name} was not launched by the step")
+        if launches["dense_agg"]:
+            raise AssertionError("the flagship's int64 key took the dense "
+                                 "engine")
         check_against_oracle(out, want, bm)
         # the filter's plan is the step's one count kernel launch, and its
         # byte planes one K2 launch
@@ -1319,18 +1522,27 @@ def main() -> int:
 
     # phase 11
     t0 = time.perf_counter()
-    k1.launches = k2.launches = k3.launches = 0
+    k1.launches = k2.launches = k3.launches = dk.launches = 0
     for name in kp.launches:
         kp.launches[name] = 0
     lexsort = lexsort_phase(pe, dev)
     lexsort_launches = {"K1": k1.launches, "K2": k2.launches,
-                        "K3": k3.launches, **kp.launches}
+                        "K3": k3.launches, "dense_agg": dk.launches,
+                        **kp.launches}
     log(f"phase 11 (config 3 lexsort): {time.perf_counter() - t0:.1f} s; "
         f"kernel launches {lexsort_launches} (its path runs none)")
     log(f"config 3: {json.dumps(lexsort)}")
 
+    # phase 12
+    t0 = time.perf_counter()
+    agg_launches, dense_row, agg_k1_rows = agg_phase(
+        pe, k1, dk, _build, dev, floor * 1e9)
+    log(f"phase 12 (config 4): {time.perf_counter() - t0:.1f} s")
+
     kernels_rows["K1"]["group_by_calls"] = group_by_rows
     kernels_rows["K1"]["join_calls"] = join_k1_rows
+    kernels_rows["K1"]["config4_calls"] = agg_k1_rows
+    kernels_rows["dense_agg"] = dense_row
     source = {"K1": "arrowtpu_torch/csrc/compact.cu",
               "K2": "arrowtpu_torch/csrc/compact.cu",
               "K3": "arrowtpu_torch/csrc/compact2.cu",
@@ -1338,7 +1550,8 @@ def main() -> int:
               "lane_roll": "arrowtpu_torch/csrc/probes.cu",
               "tile_gather": "arrowtpu_torch/csrc/probes.cu",
               "stages_k3": "arrowtpu_torch/csrc/compact2.cu",
-              "stages_k1": "arrowtpu_torch/csrc/compact.cu"}
+              "stages_k1": "arrowtpu_torch/csrc/compact.cu",
+              "dense_agg": "arrowtpu_torch/csrc/dense_agg.cu"}
     replaces = {"K1": "arrowtpu/pallas/compact3.py:126",
                 "K2": "arrowtpu/pallas/compact.py:158",
                 "K3": "arrowtpu/pallas/compact2.py:93",
@@ -1354,7 +1567,9 @@ def main() -> int:
                                "scripts/prof_v3.py:140, :174",
                 "stages_k3": "scripts/prof_v3.py:65-78 "
                              "(arrowtpu/pallas/compact2.py:95 stages)",
-                "stages_k1": "scripts/prof_kernel.py:147"}
+                "stages_k1": "scripts/prof_kernel.py:147",
+                "dense_agg": "arrowtpu/ops/groupby.py:599 (_dense_agg_column, "
+                             "XLA-fused; no pallas_call)"}
     names = {"K1": "compact3 (tile_compact_kernel, u32/u64, tile offsets "
                    "or look-back)",
              "K2": "compact (tile_compact_kernel, u8/u32, tile offsets "
@@ -1366,7 +1581,8 @@ def main() -> int:
              "stages_k3": "compaction_stages K3 "
                           "(tile_compact_kernel<u32, look-back, stage>)",
              "stages_k1": "compaction_stages K1 "
-                          "(tile_compact_kernel<u32, offs, stage>)"}
+                          "(tile_compact_kernel<u32, offs, stage>)",
+             "dense_agg": "dense_agg (dense_agg_kernel)"}
     # each probe kernel's row in the JSON: its line at one probe shape
     shown = {"stream": ("P4", "x + keep, P=2"),
              "lane_roll": ("P1", "14 roll+where"),
@@ -1397,15 +1613,18 @@ def main() -> int:
         for x in result["lines"] if x["kernel"] == "lane_roll"]
     flagship = main_runs[CARDINALITIES[0]][1]
     launches = {"K1": flagship["K1"], "K2": flagship["K2"],
-                "K3": k3_launches["K3"], **probe_launches}
+                "K3": k3_launches["K3"], **probe_launches,
+                "dense_agg": agg_launches["low_card"]["dense_agg"]}
     by_path = {"flagship step": flagship, "join step": join_launches,
                "skewed join step": skew_launches,
                "skewed join step, its filters": skew_filters,
                "compact2.compact_planes": k3_launches,
                "run_probes": probe_launches,
-               "config 3 lexsort": lexsort_launches}
+               "config 3 lexsort": lexsort_launches,
+               **{f"config 4 {label}": c
+                  for label, c in agg_launches.items()}}
     kernels = []
-    for key in ("K1", "K2", "K3", *shown):
+    for key in ("K1", "K2", "K3", *shown, "dense_agg"):
         row = kernels_rows[key]
         kernels.append({
             "name": names[key], "route": "cuda", "source": source[key],
@@ -1420,7 +1639,8 @@ def main() -> int:
                 p: c["tile_counts"] for p, c in by_path.items()
                 if "tile_counts" in c}} if key == "K1" else {}),
             **{k: row[k] for k in ("group_by_calls", "join_calls",
-                                   "redesigned_lines") if k in row}})
+                                   "config4_calls", "redesigned_lines",
+                                   "library", "floor_ms") if k in row}})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

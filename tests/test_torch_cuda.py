@@ -6,20 +6,27 @@ imports no JAX, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: bit-exact (count and zero tail included).
+Tolerance: bit-exact (count and zero tail included), except float sums
+and means of random values, whose cumsum the card adds in another order
+than the CPU: those are held within 2**-40 x the sum of |v| over the
+column (over the count for a mean).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from arrowtpu_torch.entry import (check_join_output, check_lexsort,
+from arrowtpu_torch.entry import (agg_oracle, agg_plan, agg_step, check_agg,
+                                  check_join_output, check_lexsort,
+                                  example_agg_arrays,
                                   dryrun_multichip, example_batch,
                                   example_join_shards,
                                   example_lexsort_arrays, join_oracle,
                                   join_step, lexsort_columns, lexsort_keys,
                                   lexsort_step, step)
 from arrowtpu_torch import schema as st
+from arrowtpu_torch.core import batch as pbt
+from arrowtpu_torch.core import bitmap as bm
 from arrowtpu_torch.core import column as pcol
 from arrowtpu_torch.interop.numpy_bridge import (batch_from_numpy,
                                                  column_to_numpy)
@@ -27,7 +34,9 @@ from arrowtpu_torch.kernels import _build
 from arrowtpu_torch.kernels import compact as k2
 from arrowtpu_torch.kernels import compact2 as k3
 from arrowtpu_torch.kernels import compact3 as k1
+from arrowtpu_torch.kernels import dense_agg as dk
 from arrowtpu_torch.kernels import probes
+from arrowtpu_torch.ops import groupby as gb
 from arrowtpu_torch.ops.groupby import group_by
 from arrowtpu_torch.ops.concat import concat, concat_batches
 from arrowtpu_torch.ops.join import hash_join
@@ -654,3 +663,203 @@ def test_full_stage_is_the_production_kernel(cuda, kernel, module,
         want = k1.compact_planes(
             planes, keep, k1.tile_offsets(keep) if with_offs else None)
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the dense-range aggregate (kernels/dense_agg.py) and config 4
+# ---------------------------------------------------------------------------
+
+I64 = torch.iinfo(torch.int64)
+DENSE_VALUE_DTYPES = [torch.int8, torch.int16, torch.int32, torch.int64,
+                      torch.uint8, torch.uint32]
+
+
+def _dense_inputs(nb, n, nullable, key_dtype, ncols, device, seed):
+    """A key over nb + 4 values around kmin (so some rows fall outside the
+    buckets), values of every width with their extremes, validity bitmaps
+    when nullable."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    cap = -(-max(n, 1) // 64) * 64
+    kmin = 3 if key_dtype != torch.uint32 else 2**32 - nb - 1
+    key = (kmin - 2 + torch.randint(0, nb + 4, (cap,), generator=g,
+                                    device=device)).to(key_dtype)
+
+    def bitmap():
+        if not nullable:
+            return None
+        return bm.pack(torch.rand(cap, generator=g, device=device) > 0.2)
+
+    values = []
+    for c in range(ncols):
+        dt = DENSE_VALUE_DTYPES[c % len(DENSE_VALUE_DTYPES)]
+        if dt == torch.uint32:
+            v = torch.randint(0, 2**32, (cap,), generator=g, device=device)
+            v[:2] = torch.tensor([0, 2**32 - 1])
+            v = v.to(dt)
+        else:
+            info = torch.iinfo(dt)
+            v = torch.randint(info.min, info.max, (cap,), dtype=dt,
+                              generator=g, device=device)
+            v[:4] = torch.tensor([info.min, info.max, info.max, info.min])
+        values.append((v, bitmap()))
+    kmin_t = torch.tensor([kmin], dtype=torch.int64, device=device)
+    return key, bitmap(), kmin_t, values
+
+
+@pytest.mark.parametrize("nullable", [False, True])
+@pytest.mark.parametrize("n", [1, 4097, 1_000_003, 8_000_000])
+@pytest.mark.parametrize("nb,key_dtype", [(2, torch.int8), (128, torch.int32),
+                                          (256, torch.uint32)])
+def test_dense_agg_matches_plain(cuda, nb, key_dtype, n, nullable):
+    """The kernel against its plain version, bit for bit, twice in a row
+    (atomics land in another order each run; integer results do not
+    care): int8-int64 and uint8 / uint32 values with their extremes, sums
+    that wrap, rows outside the buckets and past n."""
+    key, kvalid, kmin, values = _dense_inputs(nb, n, nullable, key_dtype, 6,
+                                              cuda, n + nb)
+    want = dk.dense_aggregate_plain(key, kvalid, kmin, int(nullable), nb, n,
+                                    values)
+    for _ in range(2):
+        dk.launches = 0
+        got = dk.dense_aggregate(key, kvalid, kmin, int(nullable), nb, n,
+                                 values)
+        torch.cuda.synchronize()
+        assert dk.launches == 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("nb,ncols,launches", [(256, 9, 2), (4096, 2, 2),
+                                               (128, 0, 1)])
+def test_dense_agg_launch_splits(cuda, nb, ncols, launches):
+    """More value columns than one launch's shared memory holds: the
+    columns split over launches, the rows counted in the first; no value
+    column: the rows alone."""
+    key, kvalid, kmin, values = _dense_inputs(nb, 100_003, True, torch.int32,
+                                              ncols, cuda, nb)
+    want = dk.dense_aggregate_plain(key, kvalid, kmin, 1, nb, 100_003, values)
+    dk.launches = 0
+    got = dk.dense_aggregate(key, kvalid, kmin, 1, nb, 100_003, values)
+    torch.cuda.synchronize()
+    assert dk.launches == launches
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_dense_agg_never_falls_back(cuda):
+    key = torch.zeros(64, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        dk.dense_aggregate(key, None, torch.zeros(1, dtype=torch.int64,
+                                                  device=cuda), 0, 4, 64, [])
+
+
+def _columns_equal(got, want, tol=None):
+    """Two port batches (card, CPU): names, length, dtypes, validity,
+    values (floats by their bits, or within tol[name] where given; a
+    dictionary by its keys), zero padding."""
+    assert got.schema.names == want.schema.names
+    assert got.length == want.length
+    for name in want.schema.names:
+        g, w = got[name], want[name]
+        if isinstance(w, pcol.DictionaryColumn):
+            g, w = g.keys, w.keys
+        gv, gok, _ = column_to_numpy(g)
+        wv, wok, _ = column_to_numpy(w)
+        assert str(g.dtype) == str(w.dtype), name
+        np.testing.assert_array_equal(gok, wok, name)
+        if tol is not None and name in tol:
+            assert (np.abs(gv - wv) <= tol[name]).all(), name
+        elif gv.dtype.kind == "f":
+            ui = np.uint64 if gv.itemsize == 8 else np.uint32
+            np.testing.assert_array_equal(gv.view(ui), wv.view(ui), name)
+        else:
+            np.testing.assert_array_equal(gv, wv, name)
+        assert not g.values[got.length:].any(), name
+
+
+@pytest.mark.parametrize("span,nulls,engine", [
+    (100, 0.1, "dense"), (200, 0.0, "dense"), (1_000_000, 0.1, "sort")])
+def test_group_by_on_card_matches_cpu(cuda, span, nulls, engine):
+    """plan_group_by and group_by on the card against the port on the
+    CPU, both engines: an int32 key (nonzero under its nulls) with int64
+    and int16 values, every aggregate."""
+    rng = np.random.default_rng(span)
+    n = 300_000
+    k = rng.integers(-5, span - 5, n).astype(np.int32)
+    k_ok = rng.random(n) > nulls if nulls else None
+    arrays = {"k": (k, k_ok),
+              "v": (rng.integers(-10**12, 10**12, n), rng.random(n) > 0.2),
+              "w": (rng.integers(-2**15, 2**15, n).astype(np.int16), None)}
+    aggs = [(c, a) for c in ("v", "w")
+            for a in ("sum", "count", "min", "max", "mean")]
+    on = {d: batch_from_numpy(arrays, device=d) for d in (cuda, "cpu")}
+    plan = gb.plan_group_by(on[cuda], ["k"], aggs)
+    assert plan.engine == engine
+    dk.launches = k1.launches = 0
+    got = plan(on[cuda])
+    torch.cuda.synchronize()
+    assert (dk.launches, k1.launches > 0) == (
+        (1, False) if engine == "dense" else (0, True))
+    want = gb.plan_group_by(on["cpu"], ["k"], aggs)(on["cpu"])
+    _columns_equal(got, want)
+    _columns_equal(group_by(on[cuda], ["k"], aggs), want)
+
+
+def test_float_bool_dictionary_group_by_on_card_matches_cpu(cuda):
+    """The sort pipeline's float, boolean and dictionary columns on the
+    card against the CPU: a float key with +-0, +-inf and NaN, a
+    dictionary key, float64 / float32 and boolean values."""
+    rng = np.random.default_rng(5)
+    n = 200_000
+    fk = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.5])[
+        rng.integers(0, 6, n)]
+    fk_ok = rng.random(n) > 0.05
+    v = rng.standard_normal(n) * 1e3
+    valid = rng.random(n) > 0.1
+    words = [f"w{i:02d}" for i in rng.permutation(20)]
+    keys = rng.integers(0, 20, n, dtype=np.int32)
+    float_aggs = [("v", "sum"), ("v", "mean"), ("v", "min"), ("s", "max"),
+                  ("s", "sum"), ("b", "sum"), ("b", "max")]
+    dict_aggs = [("b", "min"), ("v", "max"), ("v", "count")]
+    out = {}
+    for d in (cuda, "cpu"):
+        b = batch_from_numpy({"f": (fk, fk_ok), "v": (v, valid),
+                              "s": (v.astype(np.float32), None),
+                              "b": (v > 0, ~valid)}, device=d)
+        proto = pcol.dictionary_encode_host(
+            words, st.Dictionary(st.int32, st.utf8), device=d)
+        dcol = pcol.DictionaryColumn(
+            pcol.primitive(keys, st.int32, validity=valid, device=d),
+            proto.values, proto.value_ranks, proto.dtype)
+        b = pbt.RecordBatch(
+            st.Schema(b.schema.fields + (st.Field("d", dcol.dtype),)),
+            b.columns + (dcol,))
+        out[d] = (group_by(b, ["f"], float_aggs),
+                  group_by(b, ["d"], dict_aggs))
+    want = out["cpu"][0]
+    bound = 2.0**-40 * np.abs(v).sum()
+    count = column_to_numpy(group_by(
+        batch_from_numpy({"f": (fk, fk_ok), "v": (v, valid)}, device="cpu"),
+        ["f"], [("v", "count")])["count_v"])[0]
+    _columns_equal(out[cuda][0], want, tol={
+        "sum_v": bound, "mean_v": bound / np.maximum(count, 1),
+        # float32 sums: the bound, then one float32 rounding of the result
+        "sum_s": bound + np.abs(column_to_numpy(want["sum_s"])[0]) * 2.0**-23})
+    _columns_equal(out[cuda][1], out["cpu"][1])
+
+
+@pytest.mark.parametrize("cardinality,engine", [(100, "dense"),
+                                                (1_000_000, "sort")])
+def test_agg_step_on_card_against_oracle(cuda, cardinality, engine):
+    """BASELINE config 4 at its full 8,000,000 rows, as bench.py runs it:
+    the plan's engine and buckets, one dense_agg launch and no K1 at 100
+    keys, K1 and no dense_agg at 1,000,000, exact against numpy."""
+    arrays = example_agg_arrays(8_000_000, cardinality)
+    batch = batch_from_numpy(arrays, device=cuda)
+    plan = agg_plan(batch)
+    assert (plan.engine, plan.buckets) == (
+        (engine, 128) if engine == "dense" else (engine, 0))
+    dk.launches = k1.launches = 0
+    out = agg_step(plan, batch)
+    torch.cuda.synchronize()
+    assert (dk.launches == 1, k1.launches == 0) == (
+        (True, True) if engine == "dense" else (False, False))
+    assert check_agg(out, agg_oracle(arrays)) > 0

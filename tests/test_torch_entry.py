@@ -40,3 +40,23 @@ def test_entry_with_nulls(null_density, key_card):
     out = pe.step(pb)
     assert out.length > 0
     tp.assert_batch_equal(jax.jit(jstep)(_jax_batch(arrays)), out)
+
+
+@pytest.mark.parametrize("cardinality,engine", [(12, "dense"),
+                                                (100_000, "sort")])
+def test_agg_step_is_the_bench_plan(cardinality, engine):
+    """BASELINE config 4 as bench.py runs it, at 4096 rows: the port's plan
+    against the JAX package's plan_group_by on the bench's data (the CPU
+    tests run 32 dense buckets, so 12 keys take the dense engine and 100
+    would not), and against the numpy oracle."""
+    from arrowtpu.ops import groupby as jgb
+
+    arrays = pe.example_agg_arrays(4096, cardinality)
+    jb = at.record_batch({"k": tp.jax_column(arrays["k"][0], None, "int32"),
+                          "v": tp.jax_column(arrays["v"][0], None, "int64")})
+    pb = pe.example_agg_batch(4096, cardinality, device="cpu")
+    plan = pe.agg_plan(pb)
+    assert plan.engine == engine
+    out = pe.agg_step(plan, pb)
+    tp.assert_batch_equal(jgb.plan_group_by(jb, ["k"], pe.AGG_AGGS)(jb), out)
+    assert pe.check_agg(out, pe.agg_oracle(arrays)) == out.length > 0

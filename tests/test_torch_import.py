@@ -16,16 +16,19 @@ for m in pkgutil.walk_packages(arrowtpu_torch.__path__, "arrowtpu_torch."):
     importlib.import_module(m.name)
 for name in ("kernels.compact2", "ops.join", "ops.take", "rowformat.hashing",
              "parallel.mesh", "parallel.shuffle", "parallel.distributed",
-             "kernels.probes", "probes", "ops.sort"):
+             "kernels.probes", "probes", "ops.sort", "kernels.dense_agg",
+             "ops.groupby"):
     assert "arrowtpu_torch." + name in sys.modules, name
 import torch
 assert not torch.cuda.is_available()
-from arrowtpu_torch.entry import (dryrun_multichip, entry, example_batch,
+from arrowtpu_torch.entry import (agg_plan, agg_step, dryrun_multichip,
+                                  entry, example_agg_batch, example_batch,
                                   example_lexsort_columns)
 from arrowtpu_torch.parallel import run
 from arrowtpu_torch.probes import run_probes
 for call in (entry, example_batch, lambda: dryrun_multichip(1),
-             lambda: run(print, 1), example_lexsort_columns, run_probes):
+             lambda: run(print, 1), example_lexsort_columns, run_probes,
+             example_agg_batch):
     try:
         call()
     except RuntimeError as e:
@@ -35,6 +38,8 @@ for call in (entry, example_batch, lambda: dryrun_multichip(1),
 step, (batch,) = entry(device="cpu")
 assert step(batch).length > 0
 assert dryrun_multichip(1, device="cpu") > 0
+small = example_agg_batch(device="cpu")
+assert agg_step(agg_plan(small), small).length == 100
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "arrowtpu"))
 assert not bad, bad

@@ -29,8 +29,8 @@ TORCH_THREADS = 1
 torch.set_num_threads(TORCH_THREADS)
 
 _NP = {"int8": np.int8, "int16": np.int16, "int32": np.int32,
-       "int64": np.int64, "uint8": np.uint8, "float32": np.float32,
-       "float64": np.float64}
+       "int64": np.int64, "uint8": np.uint8, "uint16": np.uint16,
+       "uint32": np.uint32, "float32": np.float32, "float64": np.float64}
 
 
 def jax_column(values, valid, dtype_name):
