@@ -51,3 +51,11 @@ class SortOptions:
 
     descending: bool = False
     nulls_first: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class TakeOptions:
+    """check_bounds: take also reports whether a valid index falls outside
+    the source (ops/take.py)."""
+
+    check_bounds: bool = False

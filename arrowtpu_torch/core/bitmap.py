@@ -64,11 +64,16 @@ def row_mask(capacity: int, length: int, device) -> torch.Tensor:
 
 def clip(bitmap: torch.Tensor, length: int) -> torch.Tensor:
     """`bitmap` with the bits of rows >= length cleared (no work when the
-    length is the whole capacity)."""
+    length is the whole capacity): a copy whose tail bytes are written,
+    not a mask of the whole capacity."""
     capacity = capacity_of(bitmap)
     if length >= capacity:
         return bitmap
-    return bitmap & row_mask(capacity, length, bitmap.device)
+    out = bitmap.clone()
+    out[-(-length // _W):] = 0
+    if length % _W:
+        out[length // _W] &= (1 << (length % _W)) - 1
+    return out
 
 
 def all_valid(capacity: int, device) -> torch.Tensor:

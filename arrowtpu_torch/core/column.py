@@ -15,12 +15,20 @@ Differences from the JAX package, by design: 64-bit integers are native
 `torch.int64` (not u32 limb pairs), bitmaps are Arrow LSB order, and
 `length` is a Python int (PyTorch runs eagerly; an operator whose output
 length depends on the data reads it back from the device once).
+
+Decimals, intervals and fixed-size binary are PrimitiveColumns whose
+values are (capacity, W) int32 words (`schema.words_per_row`), the JAX
+package's u32 words bit for bit.  The nested classes (list view, struct,
+fixed-size list, run-end, union) hold child columns; a fixed-size list's
+child has `size` rows per row, its length `length * size`.  Every class
+takes an explicit device (None: the card).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import decimal as _pydec
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +36,7 @@ import torch
 from .. import schema as st
 from ..config import resolve_device, round_up
 from . import bitmap as bm
+from . import limbs as lb
 
 
 class Column:
@@ -82,11 +91,38 @@ class PrimitiveColumn(Column):
 
     def to_pylist(self):
         n = self.length
-        vals = self.values[:n].cpu().tolist()
+        if self.values.dim() == 2:
+            vals = _words_to_py(self.values[:n].cpu().numpy(), self.dtype)
+        else:
+            vals = self.values[:n].cpu().tolist()
         valid = self._valid_list(n)
         if valid is None:
             return vals
         return [v if ok else None for v, ok in zip(vals, valid)]
+
+
+def _words_to_py(words: np.ndarray, dtype: st.DataType) -> list:
+    """(n, W) int32 words -> Python values: Decimal (under an 80-digit
+    context: the default 28 digits would round Decimal128/256), bytes of a
+    fixed-size binary, or an interval's int / tuple."""
+    u = words.astype(np.uint32)
+    if st.decimal_limbs(dtype) is not None:
+        with _pydec.localcontext(_pydec.Context(prec=80)):
+            return [_pydec.Decimal(v).scaleb(-dtype.scale)
+                    for v in lb.join_ints(u)]
+    if isinstance(dtype, st.FixedSizeBinary):
+        raw = u.astype("<u4").tobytes()
+        row = u.shape[1] * 4
+        return [raw[i * row: i * row + dtype.byte_width]
+                for i in range(u.shape[0])]
+    i32 = u.view(np.int32)
+    if dtype.unit == "year_month":
+        return [int(x) for x in i32[:, 0]]
+    if dtype.unit == "day_time":
+        return [(int(a), int(b)) for a, b in i32[:, :2]]
+    nanos = np.ascontiguousarray(u[:, 2:4]).view(np.int64)[:, 0]
+    return [(int(m), int(d), int(x))
+            for m, d, x in zip(i32[:, 0], i32[:, 1], nanos)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,6 +260,189 @@ class DictionaryColumn(Column):
         return [None if k is None else vals[k] for k in self.keys.to_pylist()]
 
 
+@dataclasses.dataclass(frozen=True)
+class ListViewColumn(Column):
+    """List (or Map) as a list view: row i is child rows [starts[i],
+    starts[i] + sizes[i]) of a shared child, so filter and take move only
+    the (start, size) pairs.  A Map's child is its (key, value) struct."""
+
+    starts: torch.Tensor  # (capacity,) int32 into child rows
+    sizes: torch.Tensor  # (capacity,) int32
+    child: Column
+    validity: Optional[torch.Tensor]
+    length: int
+    dtype: st.DataType  # st.List | st.Map
+
+    @property
+    def capacity(self) -> int:
+        return self.starts.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.starts.device
+
+    def to_pylist(self):
+        n = self.length
+        starts = self.starts[:n].cpu().tolist()
+        sizes = self.sizes[:n].cpu().tolist()
+        valid = self._valid_list(n)
+        items = self.child.to_pylist()
+        is_map = isinstance(self.dtype, st.Map)
+        out = []
+        for i in range(n):
+            if valid is not None and not valid[i]:
+                out.append(None)
+                continue
+            row = items[starts[i]:starts[i] + sizes[i]]
+            out.append([(d["key"], d["value"]) for d in row] if is_map
+                       else row)
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class StructColumn(Column):
+    """Parallel children of the struct's capacity and length, plus the
+    struct's own validity."""
+
+    children: Tuple[Column, ...]
+    validity: Optional[torch.Tensor]
+    length: int
+    dtype: st.Struct
+
+    @property
+    def capacity(self) -> int:
+        return self.children[0].capacity if self.children else 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.children[0].device
+
+    def field(self, name: str) -> Column:
+        for f, c in zip(self.dtype.fields, self.children):
+            if f.name == name:
+                return c
+        raise st.SchemaError(f"struct has no field {name!r}")
+
+    def to_pylist(self):
+        n = self.length
+        valid = self._valid_list(n)
+        cols = [c.to_pylist() for c in self.children]
+        names = [f.name for f in self.dtype.fields]
+        rows = zip(*cols) if cols else [()] * n
+        return [dict(zip(names, vals)) if valid is None or valid[i] else None
+                for i, vals in enumerate(rows)]
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedSizeListColumn(Column):
+    """Row i's items are child rows [i * size, (i + 1) * size); the child
+    has capacity * size rows and length * size live ones."""
+
+    child: Column
+    validity: Optional[torch.Tensor]
+    length: int
+    dtype: st.FixedSizeList
+
+    @property
+    def capacity(self) -> int:
+        return self.child.capacity // self.dtype.size
+
+    @property
+    def device(self) -> torch.device:
+        return self.child.device
+
+    def to_pylist(self):
+        n, size = self.length, self.dtype.size
+        valid = self._valid_list(n)
+        items = self.child.to_pylist()
+        return [items[i * size:(i + 1) * size]
+                if valid is None or valid[i] else None for i in range(n)]
+
+
+@dataclasses.dataclass(frozen=True)
+class RunEndColumn(Column):
+    """Run-end encoded: run_ends[j] is the cumulative logical end of
+    physical run j, and logical row i lives in the first run whose end
+    exceeds i.  Runs occupy rows [0, n_runs); the padding run ends hold the
+    logical length (at least 1), as in the JAX package, so a search never
+    lands on them.  Nulls live on the values; there is no validity of its
+    own."""
+
+    run_ends: torch.Tensor  # (run capacity,) int32
+    values: Column  # one row per run
+    length: int  # logical rows
+    dtype: st.RunEndEncoded
+
+    validity = None
+
+    @property
+    def capacity(self) -> int:
+        return self.run_ends.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.run_ends.device
+
+    @property
+    def n_runs(self) -> int:
+        return self.values.length
+
+    def physical_index(self, logical_idx: torch.Tensor) -> torch.Tensor:
+        """Logical row index -> physical run index."""
+        return torch.searchsorted(self.run_ends, logical_idx.to(torch.int32),
+                                  right=True).to(torch.int32)
+
+    def to_pylist(self):
+        ends = self.run_ends.cpu().tolist()
+        vals = self.values.to_pylist()
+        out, run = [], 0
+        for i in range(self.length):
+            while run < len(ends) and i >= ends[run]:
+                run += 1
+            out.append(vals[run] if run < len(vals) else None)
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class UnionColumn(Column):
+    """Sparse or dense union: a type code a row (int8 codes held as
+    int32), offsets into the children iff dense; no validity of its own
+    (nulls live in the children)."""
+
+    type_id_arr: torch.Tensor  # (capacity,) int32
+    offsets: Optional[torch.Tensor]  # (capacity,) int32 iff dense
+    children: Tuple[Column, ...]
+    length: int
+    dtype: st.Union
+
+    validity = None
+
+    @property
+    def capacity(self) -> int:
+        return self.type_id_arr.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.type_id_arr.device
+
+    @property
+    def is_dense(self) -> bool:
+        return self.dtype.mode == "dense"
+
+    def child_by_type_id(self, type_id: int) -> Column:
+        return self.children[self.dtype.child_index(type_id)]
+
+    def to_pylist(self):
+        n = self.length
+        tids = self.type_id_arr[:n].cpu().tolist()
+        offs = (self.offsets[:n].cpu().tolist() if self.offsets is not None
+                else range(n))
+        kids = [c.to_pylist() for c in self.children]
+        codes = self.dtype.type_ids or tuple(range(len(self.children)))
+        child_of = {t: i for i, t in enumerate(codes)}
+        return [kids[child_of[t]][o] for t, o in zip(tids, offs)]
+
+
 # ---------------------------------------------------------------------------
 # constructors
 # ---------------------------------------------------------------------------
@@ -252,7 +471,8 @@ def _pad(t: torch.Tensor, capacity: int) -> torch.Tensor:
         raise st.InvalidArgumentError(f"capacity {capacity} < data length {n}")
     if capacity == n:
         return t.contiguous()
-    out = torch.zeros(capacity, dtype=t.dtype, device=t.device)
+    out = torch.zeros((capacity,) + tuple(t.shape[1:]), dtype=t.dtype,
+                      device=t.device)
     out[:n] = t
     return out
 
@@ -271,15 +491,88 @@ def _bitmap(validity, capacity: int, device) -> Optional[torch.Tensor]:
     return v.contiguous()
 
 
+def _unscaled(v, scale: int) -> int:
+    """A decimal's Python value (int, Decimal or None) as its unscaled
+    integer, rounded half up under an 80-digit context."""
+    if v is None:
+        return 0
+    if isinstance(v, _pydec.Decimal):
+        with _pydec.localcontext(_pydec.Context(prec=80)):
+            return int(v.scaleb(scale).to_integral_value(
+                rounding=_pydec.ROUND_HALF_UP))
+    return int(v)
+
+
+def _host_words(values, dtype: st.DataType, nw: int) -> np.ndarray:
+    """Python values of a decimal, interval or fixed-size binary type ->
+    (n, nw) uint32 words, laid out as the JAX package lays them out."""
+    nl = st.decimal_limbs(dtype)
+    if nl is not None:
+        return lb.split_ints([_unscaled(v, dtype.scale) for v in values], nl)
+    buf = np.zeros((len(values), nw), np.uint32)
+    if isinstance(dtype, st.FixedSizeBinary):
+        raw = np.zeros((len(values), nw * 4), np.uint8)
+        for i, v in enumerate(values):
+            if v is None:
+                continue
+            b = bytes(v)
+            if len(b) != dtype.byte_width:
+                raise st.InvalidArgumentError(
+                    f"fixed_size_binary[{dtype.byte_width}]: value {i} has "
+                    f"{len(b)} bytes")
+            raw[i, :len(b)] = np.frombuffer(b, np.uint8)
+        return raw.view("<u4").reshape(len(values), nw).astype(np.uint32)
+    for i, v in enumerate(values):
+        if v is None:
+            continue
+        parts = v if isinstance(v, tuple) else (v,)
+        if dtype.unit == "month_day_nano":
+            m, d, nanos = parts
+            nv = np.int64(nanos).view(np.uint64)
+            buf[i] = [np.int32(m).view(np.uint32), np.int32(d).view(np.uint32),
+                      nv & np.uint64(_M32), nv >> np.uint64(32)]
+        else:
+            buf[i, :nw] = [np.int32(x).view(np.uint32) for x in parts[:nw]]
+    return buf
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _words(values, dtype: st.DataType, device) -> torch.Tensor:
+    """A decimal, interval or fixed-size binary column's values -> (n, W)
+    int32 words on `device`: a (n, W) tensor or uint32 / int32 array is
+    taken as the words themselves, anything else as Python values."""
+    nw = st.words_per_row(dtype)
+    if isinstance(values, torch.Tensor) or (
+            isinstance(values, np.ndarray) and values.ndim == 2
+            and values.dtype in (np.uint32, np.int32)):
+        t = _tensor(values, device)
+        if t.dim() != 2 or t.shape[1] != nw:
+            raise st.InvalidArgumentError(
+                f"{dtype} values must be (n, {nw}) 32-bit words")
+        if t.dtype == torch.uint32:
+            t = t.view(torch.int32)
+        return t.to(torch.int32)
+    host = _host_words(list(values), dtype, nw)
+    return torch.from_numpy(host.view(np.int32)).to(resolve_device(device))
+
+
 def primitive(values, dtype: st.DataType = None, validity=None, length=None,
               device=None) -> PrimitiveColumn:
     """A PrimitiveColumn from a tensor or host array, zero-padded to the
     capacity (the number of values rounded up to the granule).  `length`
-    defaults to the number of values; rows past it are zeroed."""
-    t = _tensor(values, device)
+    defaults to the number of values; rows past it are zeroed.  Decimal,
+    interval and fixed-size binary values are (n, W) 32-bit words or
+    Python values (ints or Decimals, tuples, bytes; None for 0)."""
+    if dtype is not None and st.words_per_row(dtype) is not None:
+        t = _words(values, dtype, device)
+    else:
+        t = _tensor(values, device)
     if dtype is None:
         dtype = st.from_torch(t.dtype)
-    t = t.to(dtype.to_torch())
+    if t.dim() == 1:
+        t = t.to(dtype.to_torch())
     n = _length(length, t.shape[0])
     cap = round_up(max(t.shape[0], 1))
     t = _pad(t, cap)
@@ -366,14 +659,228 @@ def dictionary_encode_host(data, dtype: st.Dictionary = None,
     keys_col = primitive(np.asarray(keys, dtype=np.int64), dtype.key,
                          validity=None if valid.all() else valid,
                          device=device)
-    if isinstance(dtype.value, (st.Utf8, st.Binary)):
-        values_col = string_view(values_list, dtype.value, device=device)
-    else:
-        values_col = primitive(np.asarray(values_list), dtype.value,
-                               device=device)
+    values_col = from_pylist(values_list, dtype.value, device=device)
     order = np.argsort(np.asarray(values_list, dtype=object), kind="stable")
     ranks = np.zeros(values_col.capacity, dtype=np.int32)
     ranks[:len(values_list)][order] = np.arange(len(values_list),
                                                 dtype=np.int32)
     return DictionaryColumn(keys_col, values_col,
                             torch.from_numpy(ranks).to(keys_col.device), dtype)
+
+
+def _set_length(c: Column, n: int) -> Column:
+    """`c` cut to length n <= its length: rows past n were built as nulls
+    (zeros), so only the length changes, and a bitmap goes when rows
+    [0, n) are all valid."""
+    if isinstance(c, DictionaryColumn):
+        return dataclasses.replace(c, keys=_set_length(c.keys, n))
+    if isinstance(c, (NullColumn, RunEndColumn, UnionColumn)):
+        return dataclasses.replace(c, length=n)
+    validity = c.validity
+    if validity is not None:
+        validity = bm.clip(validity, n)
+        if int(bm.count_set_bits(validity)) == n:
+            validity = None
+    return dataclasses.replace(c, validity=validity, length=n)
+
+
+def _host_validity(valid: np.ndarray, cap: int, device):
+    return None if valid.all() else bm.from_numpy_bools(valid, cap, device)
+
+
+def from_pylist(data, dtype: st.DataType = None, device=None) -> Column:
+    """A column from a Python list, None for a null (the dtype inferred
+    from the first value when not given)."""
+    device = resolve_device(device)
+    n = len(data)
+    valid = np.array([x is not None for x in data], dtype=bool)
+    if dtype is None:
+        probe = next((x for x in data if x is not None), None)
+        if probe is None:
+            return null_column(n, device)
+        dtype = _infer_dtype(probe)
+    if isinstance(dtype, st.Null):
+        return null_column(n, device)
+    if isinstance(dtype, (st.List, st.Map)):
+        return list_view(data, dtype, device)
+    if isinstance(dtype, st.Struct):
+        return struct_column(data, dtype, device)
+    if isinstance(dtype, st.FixedSizeList):
+        return fixed_size_list(data, dtype, device)
+    if isinstance(dtype, st.Boolean):
+        vals = np.array([bool(x) if x is not None else False for x in data],
+                        bool)
+        return boolean(vals, validity=None if valid.all() else valid,
+                       device=device)
+    if isinstance(dtype, (st.Utf8, st.Binary)):
+        return string_view(data, dtype, device)
+    if isinstance(dtype, st.Dictionary):
+        return dictionary_encode_host(data, dtype, device)
+    if st.words_per_row(dtype) is not None:
+        return primitive(list(data), dtype,
+                         validity=None if valid.all() else valid,
+                         length=n, device=device)
+    npdt = torch.empty(0, dtype=dtype.to_torch()).numpy().dtype
+    vals = np.array([x if x is not None else 0 for x in data], dtype=npdt)
+    return primitive(vals, dtype, validity=None if valid.all() else valid,
+                     device=device)
+
+
+def _infer_dtype(probe) -> st.DataType:
+    if isinstance(probe, bool):
+        return st.bool_
+    if isinstance(probe, int):
+        return st.int64
+    if isinstance(probe, float):
+        return st.float64
+    if isinstance(probe, str):
+        return st.utf8
+    if isinstance(probe, bytes):
+        return st.binary
+    if isinstance(probe, dict):
+        return st.Struct(tuple(st.Field(k, _infer_dtype(v))
+                               for k, v in probe.items()))
+    if isinstance(probe, (list, tuple)):
+        inner = next((x for x in probe if x is not None), None)
+        return st.List(_infer_dtype(inner) if inner is not None else st.int64)
+    raise st.InvalidArgumentError(f"cannot infer dtype from {type(probe)}")
+
+
+def list_view(data, dtype: st.DataType = None, device=None) -> ListViewColumn:
+    """A list view from Python lists (None for a null row); a Map's rows
+    are lists of (key, value) pairs or dicts."""
+    device = resolve_device(device)
+    n = len(data)
+    cap = round_up(max(n, 1))
+    starts = np.zeros(cap, dtype=np.int32)
+    sizes = np.zeros(cap, dtype=np.int32)
+    valid = np.zeros(n, dtype=bool)
+    flat = []
+    is_map = isinstance(dtype, st.Map)
+    for i, row in enumerate(data):
+        if row is None:
+            continue
+        valid[i] = True
+        starts[i] = len(flat)
+        if is_map:
+            pairs = row.items() if isinstance(row, dict) else row
+            items = [{"key": k, "value": v} for k, v in pairs]
+        else:
+            items = list(row)
+        sizes[i] = len(items)
+        flat.extend(items)
+    if dtype is None:
+        probe = next((x for x in flat if x is not None), None)
+        dtype = st.List(_infer_dtype(probe) if probe is not None
+                        else st.int64)
+    child = from_pylist(flat, dtype.entry_struct if is_map else dtype.value,
+                        device)
+    return ListViewColumn(torch.from_numpy(starts).to(device),
+                          torch.from_numpy(sizes).to(device), child,
+                          _host_validity(valid, cap, device), n, dtype)
+
+
+def struct_column(data, dtype: st.Struct = None, device=None) -> StructColumn:
+    """A struct from Python dicts (None for a null row, whose children get
+    null rows)."""
+    device = resolve_device(device)
+    n = len(data)
+    cap = round_up(max(n, 1))
+    valid = np.array([x is not None for x in data], bool)
+    if dtype is None:
+        probe = next((x for x in data if x is not None), {})
+        dtype = st.Struct(tuple(
+            st.Field(k, _infer_dtype(v) if v is not None else st.int64)
+            for k, v in probe.items()))
+    children = tuple(
+        from_pylist([None if row is None else row.get(f.name)
+                     for row in data], f.dtype, device)
+        for f in dtype.fields)
+    return StructColumn(children, _host_validity(valid, cap, device), n,
+                        dtype)
+
+
+def fixed_size_list(data, dtype: st.FixedSizeList = None,
+                    device=None) -> FixedSizeListColumn:
+    """A fixed-size list from Python lists of `size` items (None for a null
+    row, whose items are null)."""
+    device = resolve_device(device)
+    n = len(data)
+    cap = round_up(max(n, 1))
+    if dtype is None:
+        probe = next((x for x in data if x is not None), None)
+        dtype = st.FixedSizeList(_infer_dtype(probe[0]) if probe
+                                 else st.int64, len(probe) if probe else 1)
+    size = dtype.size
+    valid = np.array([x is not None for x in data], bool)
+    flat = []
+    for row in data:
+        if row is None:
+            flat.extend([None] * size)
+            continue
+        if len(row) != size:
+            raise st.InvalidArgumentError(
+                f"fixed_size_list: row has {len(row)} items, expected {size}")
+        flat.extend(row)
+    # the child's capacity is the list's times size: its rows past
+    # length * size are built as nulls, then cut off by the length
+    child = from_pylist(flat + [None] * ((cap - n) * size), dtype.value,
+                        device)
+    return FixedSizeListColumn(_set_length(child, n * size),
+                               _host_validity(valid, cap, device), n, dtype)
+
+
+def run_end_encoded(run_ends, values: Column, length=None,
+                    dtype: st.RunEndEncoded = None) -> RunEndColumn:
+    """A run-end column from cumulative run ends (positive, strictly
+    increasing; the last is the logical length) and one value a run, on
+    the values' device."""
+    ends = np.asarray(run_ends, dtype=np.int32)
+    n_runs = ends.shape[0]
+    if n_runs and (np.any(np.diff(ends) <= 0) or ends[0] <= 0):
+        raise st.InvalidArgumentError(
+            "run_ends must be positive and strictly increasing")
+    logical_n = int(ends[-1]) if n_runs else 0
+    cap = round_up(max(n_runs, 1))
+    padded = np.full(cap, max(logical_n, 1), dtype=np.int32)
+    padded[:n_runs] = ends
+    if dtype is None:
+        dtype = st.RunEndEncoded(st.int32, values.dtype)
+    return RunEndColumn(torch.from_numpy(padded).to(values.device), values,
+                        logical_n if length is None else int(length), dtype)
+
+
+def run_end_from_pylist(data, value_dtype: st.DataType = None,
+                        device=None) -> RunEndColumn:
+    """Run-length compress a Python list."""
+    ends, vals = [], []
+    for i, x in enumerate(data):
+        if vals and x == vals[-1] and (x is None) == (vals[-1] is None):
+            ends[-1] = i + 1
+        else:
+            vals.append(x)
+            ends.append(i + 1)
+    return run_end_encoded(np.asarray(ends, np.int32),
+                           from_pylist(vals, value_dtype, device))
+
+
+def union_column(type_id_arr, children, dtype: st.Union, offsets=None,
+                 length=None, device=None) -> UnionColumn:
+    """A union from a type code a row, its children and (dense mode only)
+    an offset a row into its child."""
+    device = resolve_device(device)
+    tids = np.asarray(type_id_arr, dtype=np.int32)
+    n = tids.shape[0]
+    cap = round_up(max(n, 1))
+    tids = np.pad(tids, (0, cap - n))
+    offs = None
+    if dtype.mode == "dense":
+        if offsets is None:
+            raise st.InvalidArgumentError("dense union requires offsets")
+        o = np.asarray(offsets, dtype=np.int32)
+        offs = torch.from_numpy(np.pad(o, (0, cap - o.shape[0]))).to(device)
+    elif offsets is not None:
+        raise st.InvalidArgumentError("sparse union must not have offsets")
+    return UnionColumn(torch.from_numpy(tids).to(device), offs,
+                       tuple(children), n if length is None else int(length),
+                       dtype)

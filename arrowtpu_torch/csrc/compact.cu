@@ -7,8 +7,11 @@
 // bound), the port's one compaction kernel:
 //   * arrowtpu/pallas/compact3.py, _compact3_kernel (entry compact_planes):
 //     the u32 plane compaction of the filter and of group extraction (K1),
-//     here at uint32 and uint64 words, so 8-byte columns move as whole
-//     words with no limb split;
+//     here at uint32, uint64 and 16-byte (uint4) words, so 8-byte columns
+//     move as whole words with no limb split, and a row of four int32
+//     words (a Decimal128, an interval month_day_nano, a string view) as
+//     one word with no transpose (the JAX package transposes such a value
+//     into four u32 planes, arrowtpu/ops/filter.py:141-151);
 //   * arrowtpu/pallas/compact.py, _compact_kernel (entries
 //     compact_planes_info / compact_words / compact_bytes): the same
 //     contract in u8 or u32 mode, plus the count (K2), here at uint8 (the
@@ -112,7 +115,7 @@ int arrowtpu_tile_counts(const void* keep, int64_t n, void* counts,
 }
 
 // K1 and K2: in: host array of num_planes (1..16) device pointers to n
-// words of 1, 4 or 8 bytes each; out: the same to out_rows words each,
+// words of 1, 4, 8 or 16 bytes each (16-byte words 16-byte aligned); out: the same to out_rows words each,
 // count <= out_rows <= n (words from out_rows on, all zeros of the tail,
 // are not written).  offs: the tile offsets (kFrameOffs), or null for the
 // look-back frame, in which scratch (ceil(n / kTile) 8-byte status words)
@@ -148,6 +151,12 @@ int arrowtpu_compact_tiles(int word_bytes, const void* keep, int64_t n,
           keep, n, offs, num_planes, in, out, out_rows, nullptr, nullptr, s);
     case 17:
       return launch_tile_compact<uint64_t, kFrameLookback, kStageFull>(
+          keep, n, nullptr, num_planes, in, out, out_rows, scratch, count, s);
+    case 32:
+      return launch_tile_compact<uint4, kFrameOffs, kStageFull>(
+          keep, n, offs, num_planes, in, out, out_rows, nullptr, nullptr, s);
+    case 33:
+      return launch_tile_compact<uint4, kFrameLookback, kStageFull>(
           keep, n, nullptr, num_planes, in, out, out_rows, scratch, count, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -2,13 +2,16 @@
 // passed by value, the in-block ranking of a tile's kept rows, the
 // decoupled look-back, and tile_compact_kernel, the one compaction kernel
 // of the port: K1 (csrc/compact.cu, 4- and 8-byte words), K2 (the same
-// source, 1- and 4-byte words) and K3 (csrc/compact2.cu).
+// source, 1- and 4-byte words) and K3 (csrc/compact2.cu).  K1 also moves
+// 16-byte words (uint4): a row of a (n, 4) int32 tensor (a Decimal128, an
+// interval month_day_nano, a string view) is one word, loaded and stored
+// whole, with no transpose into 4-byte planes.
 //
 // A block owns one tile of kTile = 4096 rows.  Row order inside a tile is
 // (round, warp, lane): row = tile + r*256 + tid, so a warp touches 32
 // consecutive rows of every plane in each round.
 //
-// tile_compact_kernel, for (P, n) planes of 1-, 4- or 8-byte words and an
+// tile_compact_kernel, for (P, n) planes of 1-, 4-, 8- or 16-byte words and an
 // (n,) u8 keep mask; kept words first in row order, then zeros up to
 // out_rows:
 //   1. rank: the tile's mask staged in shared memory (one 16-byte load a
@@ -19,19 +22,23 @@
 //   3. the kept gather: consecutive threads take consecutive kept rows of
 //      one plane, so the stores to out[p][kept_before + k] are coalesced.
 //      A tile is dense when kept * kDenseDiv<T> >= rows (a quarter of
-//      the rows for u32, half for u64, a fifth for u8), else sparse:
+//      the rows for u32, half for u64 and 16-byte words, a fifth for u8),
+//      else sparse:
 //      - a dense tile copies its planes' tile rows whole into shared
 //        memory with cp.async.bulk (the TMA unit) on an mbarrier, into
 //        chunk buffers of 16 KB in turn: one plane's tile (u32), half a
-//        plane's tile (u64) or four planes' tiles (u8, 4 KB each) a
+//        plane's tile (u64), a quarter of one (16-byte words: 1024 rows,
+//        so a tile is four chunks) or four planes' tiles (u8, 4 KB each) a
 //        buffer, two buffers for words, one for bytes (so that 7 blocks
 //        of bytes fit an SM); the few words outside the copies' 16-byte
-//        units are read from global memory;
-//      - a sparse tile of 4- or 8-byte words loads only its kept words, by
-//        per-word cp.async over flattened work items (plane, kept row)
-//        into 32 KB of shared memory, so that many loads are in flight
-//        with no register held for them: 16 u32 or 8 u64 items a thread a
-//        half, two halves in flight, across planes;
+//        units are read from global memory (none for 16-byte words, whose
+//        planes are 16-byte aligned);
+//      - a sparse tile of 4-, 8- or 16-byte words loads only its kept
+//        words, by per-word cp.async over flattened work items (plane,
+//        kept row) into 32 KB of shared memory, so that many loads are in
+//        flight with no register held for them: 16 u32, 8 u64 or 4
+//        16-byte items a thread a half, two halves in flight, across
+//        planes;
 //      - a sparse tile of bytes (cp.async moves 4, 8 or 16 bytes, never 1)
 //        loads its kept bytes with plain loads into registers, 8 items a
 //        thread a batch, over the same flattened items;
@@ -80,10 +87,12 @@ constexpr unsigned kFull = 0xffffffffu;
 // every 32-byte sector holds a kept word; a fifth for bytes, between the
 // densities where the card read plain loads faster (up to 12.5 % kept) and
 // bulk copies faster (from 25 %), though the sectors are all touched from
-// about 12 %.
+// about 12 %.  16-byte words take half too: a sector holds two of them, so
+// the sector rule would stage a tile only when every row is kept, and a
+// sparse item is already one 16-byte copy.
 template <typename T>
 constexpr int kDenseDiv =
-    sizeof(T) == 1 ? 5 : 16 / static_cast<int>(sizeof(T));
+    sizeof(T) == 1 ? 5 : (sizeof(T) == 16 ? 2 : 16 / static_cast<int>(sizeof(T)));
 
 static_assert(kRounds * kWarps == 4 * 32, "warp 0 scans 4 counts per lane");
 static_assert(kTile <= 65536, "kept rows are listed as u16");
@@ -199,7 +208,7 @@ __device__ __forceinline__ void copy_tile(int64_t n, int num_planes,
     T v[kRounds];
 #pragma unroll
     for (int r = 0; r < kRounds; ++r) {
-      v[r] = tile + r * kThreads + threadIdx.x < n ? src[r * kThreads] : T(0);
+      v[r] = tile + r * kThreads + threadIdx.x < n ? src[r * kThreads] : T{};
     }
 #pragma unroll
     for (int r = 0; r < kRounds; ++r) {
@@ -289,11 +298,11 @@ __device__ __forceinline__ int64_t look_back(Status* status, int64_t t,
 
 namespace {
 
-// A thread's cp.async of one 4- or 8-byte word into shared memory; its
-// groups; a wait until at most kPending of its groups are in flight.
+// A thread's cp.async of one 4-, 8- or 16-byte word into shared memory;
+// its groups; a wait until at most kPending of its groups are in flight.
 template <typename T>
 __device__ __forceinline__ void copy_async(T* shared, const T* global) {
-  static_assert(sizeof(T) == 4 || sizeof(T) == 8,
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8 || sizeof(T) == 16,
                 "cp.async moves 4, 8 or 16 bytes");
   const unsigned dst =
       static_cast<unsigned>(__cvta_generic_to_shared(shared));
@@ -406,8 +415,8 @@ __device__ __forceinline__ void zero_fill(const PlanePtrs<T>& planes,
     if (head > hi - lo) head = hi - lo;
     const int64_t vecs = (hi - lo - head) / kPerVec;
     const int64_t tail = lo + head + vecs * kPerVec;
-    if (threadIdx.x < head) out[lo + threadIdx.x] = T(0);
-    if (tail + threadIdx.x < hi) out[tail + threadIdx.x] = T(0);
+    if (threadIdx.x < head) out[lo + threadIdx.x] = T{};
+    if (tail + threadIdx.x < hi) out[tail + threadIdx.x] = T{};
     uint4* __restrict__ v = reinterpret_cast<uint4*>(out + lo + head);
     for (int64_t q = threadIdx.x; q < vecs; q += kThreads) {
       v[q] = make_uint4(0u, 0u, 0u, 0u);
@@ -435,7 +444,8 @@ tile_compact_kernel(const uint8_t* __restrict__ keep, int64_t n,
   // kUnitPlanes planes, one bulk copy each, into one of kBuffers buffers
   // of kUnitPlanes slots (each 16 bytes longer than its chunk, for the
   // pad): a 16 KB buffer holds one plane's tile of u32, half of one of
-  // u64, or the tiles of four planes of bytes.  Bytes keep one buffer (the
+  // u64, a quarter of one of 16-byte words, or the tiles of four planes
+  // of bytes.  Bytes keep one buffer (the
   // sparse byte path stages nothing), so that 7 blocks fit an SM.
   constexpr int kChunkBytes = kStagedBytes / 2;
   constexpr int kPlaneBytes = kTile * kWord;
@@ -567,7 +577,7 @@ tile_compact_kernel(const uint8_t* __restrict__ keep, int64_t n,
       ++w.p;
     }
   };
-  // 4- and 8-byte words land in the thread's own column of `staged` by
+  // 4-, 8- and 16-byte words land in the thread's own column of `staged` by
   // cp.async, so no register holds them: two halves of kHalf items each,
   // one half stored while the other is in flight
   constexpr int kHalf = kStagedBytes / (2 * kThreads * kWord);
@@ -688,13 +698,14 @@ tile_compact_kernel(const uint8_t* __restrict__ keep, int64_t n,
   // for them (the words outside the copies filled in first) held 8 (u32)
   // or 21-28 (u64) more registers and was 1-3 % slower at 96 % kept.
   if (dense) {
-    // the (round, warp) where chunk 1 starts (8-byte words only)
+    // the (round, warp) entries a chunk spans (8- and 16-byte words cut a
+    // tile into chunks: chunk c starts at entry c * kSplit)
     constexpr int kSplit =
         kChunkRows < kTile ? (kChunkRows / kThreads) * kWarps : 0;
     for (int u = 0; u < units; ++u) {
       const int c = u % chunks;
-      const int k0 = c == 0 ? 0 : ranks.prefix[kSplit];
-      const int k1 = c + 1 == chunks ? kept : ranks.prefix[kSplit];
+      const int k0 = c == 0 ? 0 : ranks.prefix[c * kSplit];
+      const int k1 = c + 1 == chunks ? kept : ranks.prefix[(c + 1) * kSplit];
       const int first = u / chunks * kUnitPlanes;
       const int row0 = c * kChunkRows;
       barrier_wait(&bars[u % kBuffers], (u / kBuffers) & 1);

@@ -28,6 +28,16 @@ int64 value by an int32 key.  `example_agg_arrays` draws the bench's data
 pipeline), and `agg_oracle` / `check_agg` hold the output to numpy:
 keys, sums, counts and mins, all exact.
 
+`q6_step` is TPC-H Q6 (Clause 2.4.6) with the kept rows materialized:
+its predicate on a Date32 and two Decimal128(15, 2) columns, then
+`filter_record_batch` of all 16 `lineitem` columns (BASELINE config 1 over
+a schema users run: keys, decimals, dates, string views, dictionaries) and
+the revenue, sum(l_extendedprice * l_discount), by decimal limb
+arithmetic.  `example_lineitem_arrays` draws `lineitem` by Clause 4.2.3,
+`lineitem_batch` builds its batch on the card, and `q6_oracle` /
+`check_q6` hold the step to numpy, every kept column and the revenue
+exactly.
+
 `lexsort_step` is BASELINE config 3 (`bench.py` config3_lexsort): the
 lexsort of (int32, float64, dictionary-utf8) columns.
 `example_lexsort_columns` draws them as the bench does, and
@@ -37,6 +47,7 @@ host sort.
 
 from __future__ import annotations
 
+import decimal as _pydec
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -49,7 +60,8 @@ from .core import batch as bt
 from .core import bitmap as bm
 from .core import column as col
 from .interop.numpy_bridge import (batch_from_numpy, column_from_numpy,
-                                   column_to_numpy)
+                                   column_to_numpy, decimal_from_int64,
+                                   resolve_views, string_view_from_numpy)
 from .ops import groupby as gb
 from .parallel.distributed import distributed_group_by, distributed_hash_join
 from .parallel.mesh import Group, run
@@ -426,3 +438,237 @@ def dryrun_multichip(n: int, device=None) -> int:
     print(f"dryrun_multichip({n}): ok, {groups} groups, values exact vs "
           "host oracle")
     return groups
+
+
+# ---------------------------------------------------------------------------
+# TPC-H Q6 over lineitem: decimals, dates and strings through the filter
+# ---------------------------------------------------------------------------
+
+LINEITEM_COLUMNS = [
+    "l_orderkey", "l_partkey", "l_suppkey", "l_linenumber", "l_quantity",
+    "l_extendedprice", "l_discount", "l_tax", "l_returnflag", "l_linestatus",
+    "l_shipdate", "l_commitdate", "l_receiptdate", "l_shipinstruct",
+    "l_shipmode", "l_comment"]
+LINEITEM_DECIMALS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax")
+LINEITEM_DATES = ("l_shipdate", "l_commitdate", "l_receiptdate")
+# the one-character flags: each row's code indexes its alphabet
+LINEITEM_FLAGS = {"l_returnflag": b"RAN", "l_linestatus": b"OF"}
+# TPC-H 4.2.2.13's lists, held as dictionaries of utf8
+SHIPINSTRUCT = ["DELIVER IN PERSON", "COLLECT COD", "NONE",
+                "TAKE BACK RETURN"]
+SHIPMODE = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
+DECIMAL_15_2 = st.Decimal128(15, 2)
+# dbgen draws every comment as a substring of one text pool of 300 MB
+TEXT_POOL_BYTES = 300 * 2**20
+
+
+def _days(iso: str) -> int:
+    return int(np.datetime64(iso, "D").astype(np.int64))
+
+
+def example_lineitem_arrays(sf: float = 1.0, seed: int = 6) -> dict:
+    """lineitem at scale factor `sf` by TPC-H Clause 4.2.3's rules, drawn
+    in numpy with no loop over rows: 1,500,000 x sf orders with the sparse
+    order keys (the first 8 of every 32), 1-7 lines each; part keys in [1,
+    sf x 200,000], supplier keys by the spec's formula (S = sf x 10,000);
+    quantity 1-50, discount 0.00-0.10, tax 0.00-0.08, extended price =
+    quantity x the part's retail price, all in cents; ship, commit and
+    receipt dates from the order date; return flag and line status
+    against CURRENTDATE 1995-06-17; ship instructions and modes from the
+    spec's lists; comments of 10-43 bytes, each a substring of one text
+    pool (as dbgen takes them).  -> {name: array}, flags and dictionaries
+    as codes, the comment as its pool, starts and lengths."""
+    rng = np.random.default_rng(seed)
+    orders = int(1_500_000 * sf)
+    lines = rng.integers(1, 8, orders, dtype=np.int8)
+    n = int(lines.sum(dtype=np.int64))
+    order_of = np.repeat(np.arange(orders, dtype=np.int64), lines)
+    first_line = np.repeat(np.cumsum(lines, dtype=np.int64) - lines, lines)
+    okey = order_of // 8 * 32 + order_of % 8 + 1
+    start, end = _days("1992-01-01"), _days("1998-12-31") - 151
+    odate = rng.integers(start, end + 1, orders, dtype=np.int32)[order_of]
+    parts, supps = int(sf * 200_000), int(sf * 10_000)
+    pkey = rng.integers(1, parts + 1, n, dtype=np.int64)
+    i = rng.integers(0, 4, n, dtype=np.int64)
+    skey = (pkey + i * (supps // 4 + (pkey - 1) // supps)) % supps + 1
+    qty = rng.integers(1, 51, n, dtype=np.int64)
+    retail = 90_000 + (pkey // 10) % 20_001 + 100 * (pkey % 1000)
+    ship = odate + rng.integers(1, 122, n, dtype=np.int32)
+    commit = odate + rng.integers(30, 91, n, dtype=np.int32)
+    receipt = ship + rng.integers(1, 31, n, dtype=np.int32)
+    current = _days("1995-06-17")
+    returnflag = np.where(receipt <= current,
+                          rng.integers(0, 2, n, dtype=np.int8), 2)
+    pool_bytes = min(TEXT_POOL_BYTES, 43 * n + 64)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", np.uint8)
+    pool = letters[rng.integers(0, 27, pool_bytes, dtype=np.uint8)]
+    clen = rng.integers(10, 44, n, dtype=np.int32)
+    cstart = (rng.random(n) * (pool_bytes - clen)).astype(np.int64)
+    return {
+        "l_orderkey": okey, "l_partkey": pkey, "l_suppkey": skey,
+        "l_linenumber": (np.arange(n, dtype=np.int64) - first_line + 1
+                         ).astype(np.int32),
+        "l_quantity": qty * 100, "l_extendedprice": qty * retail,
+        "l_discount": rng.integers(0, 11, n, dtype=np.int64),
+        "l_tax": rng.integers(0, 9, n, dtype=np.int64),
+        "l_returnflag": returnflag.astype(np.int8),
+        "l_linestatus": (ship <= current).astype(np.int8),
+        "l_shipdate": ship, "l_commitdate": commit, "l_receiptdate": receipt,
+        "l_shipinstruct": rng.integers(0, len(SHIPINSTRUCT), n,
+                                       dtype=np.int32),
+        "l_shipmode": rng.integers(0, len(SHIPMODE), n, dtype=np.int32),
+        "l_comment": (pool, cstart, clen)}
+
+
+def _words_dictionary(codes: np.ndarray, words: Sequence[str], device):
+    """Dictionary<int32, utf8> of `words` with the given keys."""
+    values = col.string_view(list(words), st.utf8, device)
+    order = np.argsort(np.asarray(words, dtype=object), kind="stable")
+    ranks = np.zeros(values.capacity, np.int32)
+    ranks[:len(words)][order] = np.arange(len(words), dtype=np.int32)
+    return col.DictionaryColumn(
+        col.primitive(torch.from_numpy(codes).to(device), st.int32),
+        values, torch.from_numpy(ranks).to(device),
+        st.Dictionary(st.int32, st.utf8))
+
+
+def lineitem_batch(arrays: dict, device=None) -> bt.RecordBatch:
+    """The 16-column lineitem batch (NOT NULL, as TPC-H declares it): int64
+    keys, an int32 line number, four Decimal128(15, 2) columns, three
+    Date32 columns, the flags as utf8 views, ship instructions and modes
+    as dictionaries of utf8, the comment as a utf8 view over its pool."""
+    device = resolve_device(device)
+    cols = {}
+    for name in LINEITEM_COLUMNS:
+        a = arrays[name]
+        if name in LINEITEM_DECIMALS:
+            cols[name] = decimal_from_int64(a, DECIMAL_15_2, device=device)
+        elif name in LINEITEM_DATES:
+            cols[name] = col.primitive(torch.from_numpy(a).to(device),
+                                       st.Date32())
+        elif name in LINEITEM_FLAGS:
+            alphabet = np.frombuffer(LINEITEM_FLAGS[name], np.uint8)
+            cols[name] = string_view_from_numpy(
+                alphabet, a.astype(np.int64), np.ones(len(a), np.int32),
+                device=device)
+        elif name == "l_shipinstruct":
+            cols[name] = _words_dictionary(a, SHIPINSTRUCT, device)
+        elif name == "l_shipmode":
+            cols[name] = _words_dictionary(a, SHIPMODE, device)
+        elif name == "l_comment":
+            cols[name] = string_view_from_numpy(*a, device=device)
+        else:
+            cols[name] = col.primitive(torch.from_numpy(a).to(device))
+    return bt.record_batch(cols)
+
+
+Q6_DATE, Q6_DISCOUNT, Q6_QUANTITY = "1994-01-01", "0.06", 24
+
+
+def q6_predicate(batch: bt.RecordBatch, date: str = Q6_DATE,
+                 discount: str = Q6_DISCOUNT,
+                 quantity: int = Q6_QUANTITY) -> col.BooleanColumn:
+    """l_shipdate >= date AND l_shipdate < date + 1 year AND l_discount
+    BETWEEN discount - 0.01 AND discount + 0.01 AND l_quantity <
+    quantity, on the card (Kleene AND of five comparisons)."""
+    lo = np.datetime64(date, "D")
+    hi = (lo.astype("datetime64[Y]") + 1).astype("datetime64[D]") + (
+        lo - lo.astype("datetime64[Y]").astype("datetime64[D]"))
+    d = _pydec.Decimal(discount)
+    ship, disc = batch["l_shipdate"], batch["l_discount"]
+    terms = [ops.gt_eq(ship, int(lo.astype(np.int64))),
+             ops.lt(ship, int(hi.astype(np.int64))),
+             ops.gt_eq(disc, d - _pydec.Decimal("0.01")),
+             ops.lt_eq(disc, d + _pydec.Decimal("0.01")),
+             ops.lt(batch["l_quantity"], quantity)]
+    mask = terms[0]
+    for t in terms[1:]:
+        mask = ops.and_kleene(mask, t)
+    return mask
+
+
+def q6_step(batch: bt.RecordBatch, date: str = Q6_DATE,
+            discount: str = Q6_DISCOUNT, quantity: int = Q6_QUANTITY):
+    """TPC-H Q6 (Clause 2.4.6) with the whole kept row materialized: the
+    predicate, `filter_record_batch` of all 16 columns by its one plan,
+    and sum(l_extendedprice * l_discount) over the kept rows.  -> (the
+    filtered batch, the revenue as a Decimal)."""
+    from .ops import decimal as dec
+
+    kept = ops.filter_record_batch(
+        batch, q6_predicate(batch, date, discount, quantity))
+    product = dec.mul(kept["l_extendedprice"], kept["l_discount"])
+    limbs, _ = dec.sum_(product)
+    return kept, dec.to_decimal(limbs, product.dtype.scale)
+
+
+def q6_oracle(arrays: dict, date: str = Q6_DATE, discount: str = Q6_DISCOUNT,
+              quantity: int = Q6_QUANTITY) -> dict:
+    """Q6 on the host: the same predicate in numpy on the integer cents and
+    day numbers; -> {"mask": kept rows, "revenue": the exact sum in units
+    of 1e-4 (a Python int)}."""
+    lo = np.datetime64(date, "D")
+    hi = (lo.astype("datetime64[Y]") + 1).astype("datetime64[D]") + (
+        lo - lo.astype("datetime64[Y]").astype("datetime64[D]"))
+    d = int(_pydec.Decimal(discount).scaleb(2))
+    ship, disc = arrays["l_shipdate"], arrays["l_discount"]
+    mask = ((ship >= lo.astype(np.int64)) & (ship < hi.astype(np.int64))
+            & (disc >= d - 1) & (disc <= d + 1)
+            & (arrays["l_quantity"] < quantity * 100))
+    revenue = int((arrays["l_extendedprice"][mask] * disc[mask]).sum())
+    return {"mask": mask, "revenue": revenue}
+
+
+def check_q6(out, arrays: dict, want: dict) -> int:
+    """Hold q6_step's output to the oracle, exactly: the length; every
+    column's kept rows (integers and dates as values, decimals as limbs,
+    views resolved to bytes, dictionaries by key with the dictionary
+    shared); no validity and zero padding; the revenue as an integer in
+    units of 1e-4.  -> the kept row count."""
+    from .core import limbs as lb
+
+    kept, revenue = out
+    mask = want["mask"]
+    count = int(mask.sum())
+    if kept.length != count:
+        raise AssertionError(f"{kept.length} rows kept, oracle {count}")
+    for name in LINEITEM_COLUMNS:
+        c, a = kept[name], arrays[name]
+        if c.validity is not None:
+            raise AssertionError(f"{name}: a NOT NULL column has a bitmap")
+        if isinstance(c, col.DictionaryColumn):
+            got, expect = c.keys.values, a[mask]
+            if c.keys.validity is not None:
+                raise AssertionError(f"{name}: keys have a bitmap")
+        elif isinstance(c, col.StringViewColumn):
+            got = c.views
+            if name == "l_comment":
+                pool, starts, lengths = a
+                width = 43
+                idx = starts[mask][:, None] + np.arange(width)
+                expect = np.where(np.arange(width) < lengths[mask][:, None],
+                                  pool[np.minimum(idx, len(pool) - 1)], 0)
+            else:
+                width = 1
+                expect = np.frombuffer(LINEITEM_FLAGS[name],
+                                       np.uint8)[a[mask]][:, None]
+            resolved, _ = resolve_views(c.views[:count].cpu().numpy(),
+                                        c.arena.cpu().numpy(), width)
+            if not np.array_equal(resolved, expect):
+                raise AssertionError(f"{name}: kept strings differ")
+        elif name in LINEITEM_DECIMALS:
+            got = c.values
+            expect = lb.split_int64(a[mask], 4).view(np.int32)
+        else:
+            got, expect = c.values, a[mask]
+        host = got.cpu().numpy()
+        if not isinstance(c, col.StringViewColumn) and not np.array_equal(
+                host[:count], expect):
+            raise AssertionError(f"{name}: kept values differ")
+        if host[count:].any():
+            raise AssertionError(f"{name}: padding past the length not zero")
+    got_rev = int(revenue.scaleb(4))
+    if got_rev != want["revenue"]:
+        raise AssertionError(f"revenue {got_rev} != oracle {want['revenue']}"
+                             " (units of 1e-4)")
+    return count

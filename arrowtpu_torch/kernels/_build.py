@@ -15,12 +15,14 @@ their own calls, checked the same way).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -154,11 +156,20 @@ MAX_PLANES = 16    # planes per launch (kMaxPlanes)
 count_launches = 0  # launches of tile_counts_kernel (tile_offsets)
 
 
-def check_operands(planes, keep: torch.Tensor, word_bytes) -> list:
-    """Validate a compaction call; returns the planes as a list of (n,)
-    tensors.  `planes` is a (P, n) tensor or a sequence of (n,) tensors of
-    one dtype whose element size is in `word_bytes`; `keep` is (n,) uint8
-    0/1 or bool, on the same device."""
+def word_bytes(plane: torch.Tensor) -> int:
+    """The bytes of one word of a plane: its element size for an (n,)
+    plane, the whole row for an (n, k) one (a (n, 4) int32 plane is one
+    16-byte word a row)."""
+    return plane.element_size() * (plane.shape[1] if plane.dim() == 2 else 1)
+
+
+def check_operands(planes, keep: torch.Tensor, word_sizes) -> list:
+    """Validate a compaction call; returns the planes as a list of (n,) or
+    (n, k) tensors.  `planes` is a (P, n) or (P, n, k) tensor or a sequence
+    of (n,) or (n, k) tensors of one dtype and shape, whose word
+    (`word_bytes`) is one of `word_sizes`; 16-byte words on the card must
+    be 16-byte aligned; `keep` is (n,) uint8 0/1 or bool, on the same
+    device."""
     if keep.dim() != 1 or keep.dtype not in (torch.uint8, torch.bool):
         raise ValueError("keep must be a 1-D uint8 0/1 or bool tensor")
     if not keep.is_contiguous():
@@ -167,18 +178,25 @@ def check_operands(planes, keep: torch.Tensor, word_bytes) -> list:
         else list(planes)
     if not plist:
         raise ValueError("no planes to compact")
-    dt = plist[0].dtype
+    first = plist[0]
     for p in plist:
-        if p.dim() != 1 or p.shape[0] != keep.shape[0]:
+        if p.dim() not in (1, 2) or p.shape[0] != keep.shape[0]:
             raise ValueError(f"plane of shape {tuple(p.shape)} does not "
                              f"match keep of shape {tuple(keep.shape)}")
-        if p.dtype != dt or p.device != keep.device:
-            raise ValueError("planes must share one dtype and keep's device")
+        if p.dtype != first.dtype or p.shape != first.shape \
+                or p.device != keep.device:
+            raise ValueError("planes must share one dtype, one shape and "
+                             "keep's device")
         if not p.is_contiguous():
             raise ValueError("planes must be contiguous")
-    if dt.itemsize not in word_bytes:
-        raise ValueError(f"{dt} planes: this kernel moves {word_bytes}-byte "
-                         "words")
+    w = word_bytes(first)
+    if w not in word_sizes:
+        raise ValueError(f"{w}-byte words ({first.dtype}, "
+                         f"{tuple(first.shape[1:])}): this kernel moves "
+                         f"{word_sizes}-byte words")
+    if w == 16 and keep.device.type == "cuda" and any(
+            p.data_ptr() % 16 for p in plist):
+        raise ValueError("16-byte words must be 16-byte aligned")
     return plist
 
 
@@ -224,14 +242,15 @@ def tile_offsets(keep: torch.Tensor) -> torch.Tensor:
 
 def empty_outputs(planes, plist, out_rows):
     """Outputs of `out_rows` words per plane, shaped like the input: a
-    (P, out_rows) tensor for a tensor, else a list.  -> (what the wrapper
+    (P, out_rows) (or (P, out_rows, k)) tensor for a tensor, else a list.  -> (what the wrapper
     returns, the list of (out_rows,) output planes)."""
     like = plist[0]
+    row = (out_rows,) + tuple(like.shape[1:])
     if isinstance(planes, torch.Tensor):
-        out = torch.empty((len(plist), out_rows), dtype=like.dtype,
+        out = torch.empty((len(plist),) + row, dtype=like.dtype,
                           device=like.device)
         return out, list(out.unbind(0))
-    outs = [torch.empty(out_rows, dtype=like.dtype, device=like.device)
+    outs = [torch.empty(row, dtype=like.dtype, device=like.device)
             for _ in plist]
     return outs, outs
 
@@ -277,7 +296,8 @@ def lookback_scratch(keep: torch.Tensor) -> torch.Tensor:
 def tiles_cuda(plist, outs, keep: torch.Tensor, offs, scratch,
                count: torch.Tensor = None) -> None:
     """One tile_compact_kernel launch for K1 or K2 (csrc/compact.cu): up to
-    MAX_PLANES (n,) 1-, 4- or 8-byte planes into the (out_rows,) planes of
+    MAX_PLANES (n,) planes of 1-, 4-, 8- or 16-byte words (a 16-byte
+    word is a row of an (n, 4) int32 plane) into the out_rows-row planes of
     `outs`, written in full, zero tail included.  Given `offs` (the tile
     offsets) a tile reads its offset there; with offs None the tiles look
     back, in `scratch` (lookback_scratch(keep)), and the last one writes
@@ -292,12 +312,38 @@ def tiles_cuda(plist, outs, keep: torch.Tensor, offs, scratch,
         raise ValueError("count must be one int64 on keep's device")
     with torch.cuda.device(keep.device):
         _check(library().arrowtpu_compact_tiles(
-            plist[0].dtype.itemsize, keep.data_ptr(), keep.shape[0],
+            word_bytes(plist[0]), keep.data_ptr(), keep.shape[0],
             None if offs is None else offs.data_ptr(), len(plist),
             plane_ptrs(plist), plane_ptrs(outs), outs[0].shape[0],
             None if offs is not None else scratch.data_ptr(),
             None if count is None else count.data_ptr(), _stream(keep)),
             "tile_compact_kernel")
+
+
+# the wrappers that launch tile_compact_kernel through tiles_cuda
+_KERNEL_OF_CALLER = {f"{__package__}.compact3": "K1",
+                     f"{__package__}.compact": "K2"}
+
+
+@contextlib.contextmanager
+def launch_words():
+    """While active, each tiles_cuda launch is recorded as (kernel, word
+    bytes): kernel "K1" or "K2" by the wrapper that made it, else the
+    calling module's name.  Yields the list."""
+    global tiles_cuda
+    seen, real = [], tiles_cuda
+
+    def recorded(plist, *args, **kw):
+        caller = sys._getframe(1).f_globals.get("__name__", "")
+        seen.append((_KERNEL_OF_CALLER.get(caller, caller),
+                     word_bytes(plist[0])))
+        return real(plist, *args, **kw)
+
+    tiles_cuda = recorded
+    try:
+        yield seen
+    finally:
+        tiles_cuda = real
 
 
 def compact2_cuda(plist, outs, keep: torch.Tensor,

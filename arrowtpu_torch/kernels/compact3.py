@@ -1,15 +1,19 @@
-"""K1: compaction of 4- and 8-byte planes by one keep mask, in CUDA.
+"""K1: compaction of 4-, 8- and 16-byte planes by one keep mask, in CUDA.
 
 Counterpart of `arrowtpu/pallas/compact3.py` (`compact_planes` ->
 `_compact3_call` -> `_compact3_kernel`).  The kernel is
 `tile_compact_kernel` (`csrc/tile_rank.cuh`, launched from
-`csrc/compact.cu`), instantiated for uint32 and uint64 words, so int64
-columns move as whole 8-byte words.  Its design and its bound on the card
-are in those files' headers.
+`csrc/compact.cu`), instantiated for uint32, uint64 and 16-byte (uint4)
+words, so int64 columns move as whole 8-byte words and a row of four
+int32 words (a Decimal128, an interval month_day_nano, a string view) as
+one 16-byte word, where the JAX package transposes it into four u32
+planes.  Its design and its bound on the card are in those files' headers.
 
 Contract: (P, n) planes of one dtype and an (n,) uint8 0/1 (or bool) keep
 mask -> (P, out_rows) planes whose first `count` words are the kept words
-in row order and whose other words are 0.  `out_rows` defaults to n (the
+in row order and whose other words are 0.  A word is a plane's element,
+or the whole row of an (n, k) plane (`_build.word_bytes`): (P, n, 4) int32
+planes are 16-byte words, (P, n, 2) int32 planes 8-byte words.  `out_rows` defaults to n (the
 JAX package's contract); a caller that knows the count may ask for fewer
 rows, down to the count.  Any n: there are no tile multiples.
 
@@ -29,7 +33,7 @@ import torch
 
 from . import _build
 
-WORD_BYTES = (4, 8)
+WORD_BYTES = (4, 8, 16)
 
 launches = 0
 
@@ -55,7 +59,7 @@ def compact_planes_plain(planes, keep: torch.Tensor, out_rows: int = None):
 def compact_planes(planes, keep: torch.Tensor, offs: torch.Tensor = None,
                    out_rows: int = None):
     """Compact (P, n) planes (a tensor, or a sequence of (n,) tensors; the
-    result takes the same form) of a 4- or 8-byte dtype by `keep`.  `offs`
+    result takes the same form) of 4-, 8- or 16-byte words by `keep`.  `offs`
     is `tile_offsets(keep)` when the caller already has it."""
     global launches
     if keep.device.type == "cpu":

@@ -44,10 +44,11 @@ def _operands(a, b):
 
 
 def _zero_padding(values: torch.Tensor, base: col.Column) -> torch.Tensor:
-    if base.length == base.capacity:
-        return values
-    live = bm.row_mask_bool(base.capacity, base.length, values.device)
-    return torch.where(live, values, torch.zeros_like(values))
+    """`values` (an op's fresh output) with the rows past the length
+    zeroed in place: a write of the tail alone."""
+    if base.length < base.capacity:
+        values[base.length:] = 0
+    return values
 
 
 def binary(a, b, fn) -> col.PrimitiveColumn:

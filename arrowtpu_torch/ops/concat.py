@@ -17,7 +17,15 @@ total length rounded up to the capacity granule).
     which must be the same values object in every input (the JAX package
     asks for the same arrays): dictionaries are not merged yet.
 
-List view, struct and fixed-size list columns are not in the port yet.
+  * list views concatenate their children's live rows and rebase each
+    input's starts by the rows of the children before it (the JAX package
+    concatenates whole child capacities; either way a row reads the same
+    items);
+  * a struct concatenates each child, a fixed-size list its children's
+    `length * size` live rows, into a child of the output's capacity times
+    the size;
+  * run-end and union columns raise, as in the JAX package.
+
 `interleave` waits for `ops/merge.py`.
 """
 
@@ -52,12 +60,16 @@ def concat(columns: Sequence[col.Column]) -> col.Column:
     """The inputs' live rows back to back, in one column of their class."""
     if not columns:
         raise st.ComputeError("concat: no inputs")
+    return _concat(columns, round_up(max(sum(c.length for c in columns), 1)))
+
+
+def _concat(columns: Sequence[col.Column], cap: int) -> col.Column:
+    """concat into a column of capacity `cap` (at least the total)."""
     first = columns[0]
     if any(type(c) is not type(first) for c in columns):
         raise st.ComputeError("concat: mixed column kinds")
     lengths = [c.length for c in columns]
     total = sum(lengths)
-    cap = round_up(max(total, 1))
 
     if isinstance(first, col.NullColumn):
         return col.NullColumn(total, cap, first.device)
@@ -68,7 +80,10 @@ def concat(columns: Sequence[col.Column]) -> col.Column:
                 "concat: dictionary merge across distinct dictionaries not "
                 "yet supported — decode first")
         return dataclasses.replace(first,
-                                   keys=concat([c.keys for c in columns]))
+                                   keys=_concat([c.keys for c in columns], cap))
+    if isinstance(first, (col.RunEndColumn, col.UnionColumn)):
+        raise st.ComputeError(f"concat: unsupported column "
+                              f"{type(first).__name__}")
 
     validity: Optional[torch.Tensor] = None
     if any(c.validity is not None for c in columns):
@@ -99,6 +114,28 @@ def concat(columns: Sequence[col.Column]) -> col.Column:
             _cat(views, lengths, cap), torch.cat([c.arena for c in columns]),
             validity, total, first.dtype,
             None if any(b is None for b in bounds) else max(bounds))
+
+    if isinstance(first, col.ListViewColumn):
+        starts, rebase = [], 0
+        for c in columns:
+            starts.append(c.starts + rebase if rebase else c.starts)
+            rebase += c.child.length
+        return col.ListViewColumn(
+            _cat(starts, lengths, cap),
+            _cat([c.sizes for c in columns], lengths, cap),
+            concat([c.child for c in columns]), validity, total, first.dtype)
+
+    if isinstance(first, col.StructColumn):
+        return col.StructColumn(
+            tuple(_concat([c.children[i] for c in columns], cap)
+                  for i in range(len(first.children))),
+            validity, total, first.dtype)
+
+    if isinstance(first, col.FixedSizeListColumn):
+        size = first.dtype.size
+        return col.FixedSizeListColumn(
+            _concat([c.child for c in columns], cap * size), validity, total,
+            first.dtype)
 
     raise st.ComputeError(f"concat: unsupported column {type(first).__name__}")
 

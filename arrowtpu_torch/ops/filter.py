@@ -3,17 +3,33 @@
 Counterpart of `arrowtpu/ops/filter.py`.  A `FilterPlan` is built once per
 mask (a null predicate row selects nothing) and applied to any number of
 columns.  Every plane moves through a hand-written CUDA kernel on the card,
-grouped so that one launch serves all planes of a kind:
+grouped by its word size, so that one launch serves all planes of a size:
 
-  * 4- and 8-byte planes (int32 / int64 / float values) -> K1,
-    kernels/compact3.py;
+  * 4-, 8- and 16-byte words -> K1, kernels/compact3.py: int32 / float32 /
+    Date32 values and dictionary keys as 4-byte words, int64 / float64 /
+    temporal values and (n, 2) int32 rows (Decimal64, interval day_time)
+    as 8-byte words, and (n, 4) int32 rows (Decimal128, interval
+    month_day_nano, string views) as one 16-byte word a row, with no
+    transpose;
   * byte planes (bool values, validity, int8 / uint8) -> K2 in u8 mode,
     kernels/compact.py;
-  * 2-byte planes widen to 4 bytes for K1 and narrow back.
+  * 2-byte planes widen to 4 bytes for K1 and narrow back;
+  * wider rows: a Decimal256 (or any row of a multiple of 4 words) is
+    that many 16-byte words under the keep mask repeated per row (the form
+    the JAX package gives a fixed-size list's child); a fixed-size binary
+    of another width goes through one 4-byte plane per word, transposed
+    in and out (the slow form).
 
-A whole batch thus costs one K1 and one K2 launch, where the JAX package
+A whole batch thus costs one launch per word size, where the JAX package
 launches per column.  The tile offsets of the keep mask are computed once,
-in `build_plan`, and shared by every launch.
+in `build_plan`, and shared by every launch; a repeated mask (a
+fixed-size list's child, a wide row) gets its own, once.
+
+Nested columns: a list view compacts its (start, size) pairs and shares
+its child; a struct compacts each child and its own validity in the same
+grouped launches; a fixed-size list compacts its child under the mask
+repeated `size` times.  Run-end and union columns raise, as in the JAX
+package.  A string view's arena never moves: it is shared untouched.
 
 Output columns have length = the plan's count, read back once when the
 plan is built, and the port's own capacity: that count rounded up to the
@@ -25,7 +41,7 @@ downstream of a selective filter works on the kept rows alone.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -34,6 +50,7 @@ from ..config import round_up
 from ..core import batch as bt
 from ..core import bitmap as bm
 from ..core import column as col
+from ..kernels import _build
 from ..kernels import compact as k2
 from ..kernels import compact3 as k1
 
@@ -45,12 +62,16 @@ class FilterPlan:
     `folded_validity` is the mask's validity bitmap, which `build_plan`
     ANDed into `keep`: a column whose validity IS that object has every
     kept row valid, so its output needs no bitmap and its validity plane
-    is not compacted at all."""
+    is not compacted at all.  `rows` overrides the output capacity (a
+    repeated plan's is its parent's times the repeat)."""
 
     keep: torch.Tensor  # (capacity,) bool
     count: int
     offs: torch.Tensor  # tile offsets of keep (kernels/_build.tile_offsets)
     folded_validity: Optional[torch.Tensor] = None
+    rows: Optional[int] = None
+    _repeats: Dict[int, "FilterPlan"] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
 
     @property
     def capacity(self) -> int:
@@ -58,7 +79,19 @@ class FilterPlan:
 
     @property
     def out_capacity(self) -> int:
-        return round_up(max(self.count, 1))
+        return round_up(max(self.count, 1)) if self.rows is None else self.rows
+
+    def repeated(self, r: int) -> "FilterPlan":
+        """The plan of each row's keep repeated r times (r rows a row), its
+        output capacity r times this one's; made once per r."""
+        if r == 1:
+            return self
+        if r not in self._repeats:
+            keep = self.keep.repeat_interleave(r)
+            self._repeats[r] = FilterPlan(keep, self.count * r,
+                                          k1.tile_offsets(keep), None,
+                                          self.out_capacity * r)
+        return self._repeats[r]
 
 
 def build_plan(mask: col.BooleanColumn) -> FilterPlan:
@@ -72,28 +105,79 @@ def build_plan(mask: col.BooleanColumn) -> FilterPlan:
     return FilterPlan(keep, int(offs[-1]), offs, mask.validity)
 
 
+# ---------------------------------------------------------------------------
+# planes: each as a word of one size, moved by one launch per size and plan
+# ---------------------------------------------------------------------------
+
+_WORD_VIEW = {4: torch.int32, 8: torch.int64}
+
+
+def _word_of(p: torch.Tensor):
+    """A (n,) or (n, k) plane as the kernels' word: -> (word bytes, the
+    plane viewed as (n,) words of that size, or (n, 4) int32 for 16; a
+    2-byte word rides as 4)."""
+    w = _build.word_bytes(p)
+    if w == 2:  # no 2-byte kernel: the bits widened to a 4-byte word
+        return 4, p.contiguous().view(torch.int16).reshape(
+            p.shape[0]).to(torch.int32)
+    if w == 16:
+        return w, p.view(torch.int32).reshape(p.shape[0], 4)
+    if w == 1:
+        return w, p.view(torch.uint8).reshape(p.shape[0])
+    return w, p.contiguous().view(_WORD_VIEW[w]).reshape(p.shape[0])
+
+
+def _unword(out: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A compacted word plane back in `like`'s dtype and row shape."""
+    if _build.word_bytes(like) == 2:
+        out = out.to(torch.int16)
+    return out.view(like.dtype).reshape((out.shape[0],) + tuple(like.shape[1:]))
+
+
 def compact_planes(planes: List[torch.Tensor], plan: FilterPlan
                    ) -> List[torch.Tensor]:
-    """Compact (capacity,) planes of any fixed-width dtype by the plan into
-    (out_capacity,) planes, one kernel launch per dtype; results in input
-    order."""
-    by_dtype: dict = {}
-    for i, p in enumerate(planes):
-        by_dtype.setdefault(p.dtype, []).append(i)
-    out: List[Optional[torch.Tensor]] = [None] * len(planes)
-    keep, offs, rows = plan.keep, plan.offs, plan.out_capacity
-    for dt, idx in by_dtype.items():
-        group = [planes[i] for i in idx]
-        if dt.itemsize == 1:
+    """Compact (capacity,) or (capacity, k) planes of any fixed width by the
+    plan into out_capacity-row planes, one kernel launch per word size;
+    results in input order."""
+    return _compact([(p, plan) for p in planes])
+
+
+def _compact(items) -> List[torch.Tensor]:
+    """[(plane, plan)] -> compacted planes in input order: planes of one
+    plan and one word size share a launch."""
+    groups: dict = {}
+    out: List[Optional[torch.Tensor]] = [None] * len(items)
+    for i, (p, plan) in enumerate(items):
+        word, plane = _word_of(p)
+        groups.setdefault((id(plan), word), (plan, []))[1].append((i, plane))
+    for (_, word), (plan, members) in groups.items():
+        keep, offs, rows = plan.keep, plan.offs, plan.out_capacity
+        group = [plane for _, plane in members]
+        if word == 1:
             res, _ = k2.compact_planes_info(group, keep, offs, rows)
-        elif dt.itemsize == 2:
-            wide = [p.to(torch.int32) for p in group]
-            res = [r.to(dt) for r in k1.compact_planes(wide, keep, offs, rows)]
         else:
             res = k1.compact_planes(group, keep, offs, rows)
-        for i, r in zip(idx, res):
-            out[i] = r
+        for (i, _), r in zip(members, res):
+            out[i] = _unword(r, items[i][0])
     return out
+
+
+def _row_planes(values: torch.Tensor, plan: FilterPlan):
+    """A (capacity, W) int32 value -> ([(plane, plan)], rebuild(outs) ->
+    compacted values): one plane of W words for W in {1, 2, 4}; W a
+    multiple of 4 -> W / 4 16-byte words a row under the plan repeated;
+    otherwise W 4-byte planes, transposed in and out (the slow form)."""
+    cap, w = values.shape
+    if w in (1, 2, 4):
+        return [(values, plan)], lambda outs: outs[0]
+    if w % 4 == 0:
+        r = w // 4
+        sub = plan.repeated(r)
+        return ([(values.reshape(cap * r, 4), sub)],
+                lambda outs: outs[0].reshape(-1, w))
+    cols = list(values.t().contiguous())
+    return ([(c, plan) for c in cols],
+            lambda outs: torch.stack(outs, dim=1))
 
 
 def _validity_plane(c: col.Column, plan: FilterPlan):
@@ -105,38 +189,73 @@ def _validity_plane(c: col.Column, plan: FilterPlan):
 
 
 def _planes_of(c: col.Column, plan: FilterPlan):
-    """-> (planes to compact, rebuild(compacted planes) -> column)."""
+    """-> ([(plane, plan)] to compact, rebuild(compacted planes) ->
+    column)."""
     if c.capacity != plan.capacity:
         raise st.ComputeError("filter: capacity mismatch")
     n = plan.count
     if isinstance(c, col.NullColumn):
         return [], lambda outs: col.NullColumn(n, plan.out_capacity, c.device)
     if isinstance(c, col.DictionaryColumn):  # the keys; values are shared
-        planes, rebuild = _planes_of(c.keys, plan)
-        return planes, lambda outs: dataclasses.replace(c, keys=rebuild(outs))
+        items, rebuild = _planes_of(c.keys, plan)
+        return items, lambda outs: dataclasses.replace(c, keys=rebuild(outs))
+    if isinstance(c, (col.RunEndColumn, col.UnionColumn)):
+        raise st.ComputeError(f"filter: unsupported column {type(c).__name__}")
     valid = _validity_plane(c, plan)
-    extra = [] if valid is None else [valid]
+    extra = [] if valid is None else [(valid, plan)]
 
     def validity(outs):
-        return None if valid is None else bm.pack(outs[1])
+        return None if valid is None else bm.pack(outs[-1])
 
     if isinstance(c, col.BooleanColumn):
-        return [c.values_bool()] + extra, lambda outs: col.BooleanColumn(
-            bm.pack(outs[0]), validity(outs), n)
+        return [(c.values_bool(), plan)] + extra, lambda outs: \
+            col.BooleanColumn(bm.pack(outs[0]), validity(outs), n)
+    if isinstance(c, col.StringViewColumn):
+        # the views compacted as 16-byte words; the arena shared untouched
+        return [(c.views, plan)] + extra, lambda outs: col.StringViewColumn(
+            outs[0], c.arena, validity(outs), n, c.dtype, c.len_bound)
     if isinstance(c, col.PrimitiveColumn):
-        return [c.values] + extra, lambda outs: col.PrimitiveColumn(
+        if c.values.dim() == 2:
+            items, rows = _row_planes(c.values, plan)
+            k = len(items)
+            return items + extra, lambda outs: col.PrimitiveColumn(
+                rows(outs[:k]), validity(outs), n, c.dtype)
+        return [(c.values, plan)] + extra, lambda outs: col.PrimitiveColumn(
             outs[0], validity(outs), n, c.dtype)
+    if isinstance(c, col.ListViewColumn):
+        # the (start, size) pairs; the child is shared
+        return ([(c.starts, plan), (c.sizes, plan)] + extra,
+                lambda outs: col.ListViewColumn(outs[0], outs[1], c.child,
+                                                validity(outs), n, c.dtype))
+    if isinstance(c, col.StructColumn):
+        parts = [_planes_of(ch, plan) for ch in c.children]
+        items = [it for its, _ in parts for it in its]
+
+        def rebuild_struct(outs):
+            children, at = [], 0
+            for its, rebuild in parts:
+                children.append(rebuild(outs[at:at + len(its)]))
+                at += len(its)
+            return col.StructColumn(tuple(children), validity(outs), n,
+                                    c.dtype)
+        return items + extra, rebuild_struct
+    if isinstance(c, col.FixedSizeListColumn):
+        # the child under the mask repeated `size` times
+        items, rebuild = _planes_of(c.child, plan.repeated(c.dtype.size))
+        k = len(items)
+        return items + extra, lambda outs: col.FixedSizeListColumn(
+            rebuild(outs[:k]), validity(outs), n, c.dtype)
     raise st.ComputeError(f"filter: unsupported column {type(c).__name__}")
 
 
 def _apply(columns, plan: FilterPlan) -> List[col.Column]:
     parts = [_planes_of(c, plan) for c in columns]
-    flat = [p for planes, _ in parts for p in planes]
-    outs = compact_planes(flat, plan)
+    flat = [it for items, _ in parts for it in items]
+    outs = _compact(flat)
     result, at = [], 0
-    for planes, rebuild in parts:
-        result.append(rebuild(outs[at:at + len(planes)]))
-        at += len(planes)
+    for items, rebuild in parts:
+        result.append(rebuild(outs[at:at + len(items)]))
+        at += len(items)
     return result
 
 

@@ -11,8 +11,10 @@ Phases (each raises on failure; the exit code is then non-zero):
      included), of tile_gather's round trip and staged sublane gather and
      of lane_roll_kernel;
   2. every kernel against its plain PyTorch version on the card, bit-exact:
-     K1 (kernels/compact3.py) at uint32 with P in {1, 2, 4, 8, 16} and at
-     uint64 with P in {1, 2}, with tile offsets and without (look-back);
+     K1 (kernels/compact3.py) at uint32 with P in {1, 2, 4, 8, 16}, at
+     uint64 with P in {1, 2} and at 16-byte words ((P, n, 4) int32, P in
+     {1, 2, 4}, also at 5.5 % kept), with tile offsets and without
+     (look-back);
      K2 (kernels/compact.py) at uint8 and uint32, with tile offsets and
      without (the count then written on the card), count included;
      keep densities {0, 0.02, 0.5, 0.96, 1}; n in {65,536, 8,000,000} (the
@@ -120,12 +122,37 @@ Phases (each raises on failure; the exit code is then non-zero):
      at the step's call beside its bytes bound (at 3.35 TB/s and at the
      measured copy floor), its plain version and the library calls
      (bincount + index_add_ + two scatter_reduce, one sequence); K1 at
-     the high-cardinality step's calls as in phase 4.
+     the high-cardinality step's calls as in phase 4;
+  13. TPC-H Q6 (`entry.q6_step`: the predicate on a Date32 and two
+     Decimal128(15, 2) columns, `filter_record_batch` of all 16 `lineitem`
+     columns by one plan, the revenue by decimal limb arithmetic) over a
+     whole `lineitem` at SF10 (`entry.example_lineitem_arrays`, about 60M
+     rows by TPC-H Clause 4.2.3, nothing cut): the launch counts set to 0
+     just before the step and read just after, K1 launched at 16-, 8- and
+     4-byte words (counted by `_build.launch_words`), every K1 call held to
+     its plain version; exact against `entry.q6_oracle` (every kept column
+     and the revenue as an integer); the profiler's kernels of the filter
+     past its plan (K1 alone: no transpose or copy feeds it); the step's
+     time (CUDA events, median of 10), its stages (predicate, plan,
+     filter, revenue), busy share and peak memory; K1's 16-byte launch at
+     its call shape beside its bytes bound (3.35 TB/s and the copy floor),
+     its plain version and the library's boolean index, and at 50 / 96 %
+     kept; then `take_record_batch` of 1,000,000 uniform ids (1 % null, 1
+     % past the end) held to a numpy gather of every column, and timed;
+  14. the nested classes at config 1's 8,000,000 rows
+     (list_view<int64> of 0-7 items, struct<i: int32, s: utf8> with
+     strings of 0-20 bytes, fixed_size_list<float32, 4>, bool; 10 % nulls
+     on every top-level column and on the struct's children): a mask
+     keeping 50 % with 10 % null rows through `filter_record_batch`, its
+     launches counted (K1 and K2 must both launch) and by word size,
+     every K1 and K2 call held to its plain version, and
+     `take_record_batch` of 4,000,000 ids (1 % null, 1 % past the end),
+     both held to numpy gathers of the inputs' own arrays, and timed.
 
 The line before the last lists the kernels as JSON (`launches` from the
 flagship step for K1 and K2, from K3's entry point for K3, from
-run_probes for the probe kernels and from config 4 at 100 keys for
-dense_agg; every path's counts under `launches_by_path`, the skewed
+run_probes for the probe kernels, from config 4 at 100 keys for
+dense_agg and from the Q6 step for K1's 16-byte words; every path's counts under `launches_by_path`, the skewed
 step's filters as a path of their own; the flagship, join and skewed join
 steps, int64-keyed, must launch no dense_agg);
 the last line is {"ok": true, "device": {...}}.
@@ -258,7 +285,7 @@ def bytes_bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-WORDS = {"h": "u8", "j": "u32", "m": "u64", "y": "u64"}
+WORDS = {"h": "u8", "j": "u32", "m": "u64", "y": "u64", "5uint4": "16 B"}
 KEYS = {"a": "i8", "s": "i16", "i": "i32", "h": "u8", "t": "u16", "j": "u32"}
 FRAMES = {"0": "offs", "1": "look-back"}
 STAGE_NAMES = {"0": "copy", "1": "rank", "2": "lookback", "3": "kept",
@@ -270,7 +297,7 @@ def _kernel_label(mangled: str):
     resources chip_smoke prints, else None."""
     import re
 
-    t = re.search(r"tile_compact_kernelI(\w)Li(\d)ELi(\d)E", mangled)
+    t = re.search(r"tile_compact_kernelI(5uint4|\w)Li(\d)ELi(\d)E", mangled)
     if t:
         return (f"tile_compact_kernel<{WORDS.get(t[1], t[1])}, "
                 f"{FRAMES[t[2]]}, {STAGE_NAMES[t[3]]}>")
@@ -317,12 +344,18 @@ def check_kernels(k1, k2, dev) -> None:
     cases = [("K1", torch.int32, P) for P in (1, 2, 4, 8, 16)]
     cases += [("K1", torch.int64, P) for P in (1, 2)]
     cases += [("K2", torch.uint8, 4), ("K2", torch.int32, 1)]
+    # K1's 16-byte word: (P, n, 4) int32 planes, a word a row
+    cases += [("K1", "16 B", P) for P in (1, 2, 4)]
     for n in (65_536, N_MAIN):
         for kernel, dtype, P in cases:
+            wide = dtype == "16 B"
+            dtype = torch.int32 if wide else dtype
             info = torch.iinfo(dtype)
-            planes = torch.randint(info.min, info.max, (P, n), dtype=dtype,
-                                   device=dev, generator=g)
-            for density in (0.0, 0.02, 0.5, 0.96, 1.0):
+            planes = torch.randint(info.min, info.max,
+                                   (P, n, 4) if wide else (P, n),
+                                   dtype=dtype, device=dev, generator=g)
+            for density in ((0.0, 0.02, 0.055, 0.5, 0.96, 1.0) if wide
+                            else (0.0, 0.02, 0.5, 0.96, 1.0)):
                 keep = torch.rand(n, device=dev, generator=g) < density
                 if kernel == "K1":
                     got = k1.compact_planes(planes, keep)
@@ -366,8 +399,9 @@ def check_kernels(k1, k2, dev) -> None:
                         f"{kernel} {dtype} P={P} n={n} density={density}: "
                         f"out_rows={rows} differs from its plain version")
         log(f"kernels: bit-exact against plain at n={n} "
-            f"({len(cases)} shapes x 5 densities; K1 with tile offsets and "
-            "with the look-back; K2 in both frames, count included)")
+            f"({len(cases)} shapes x 5 densities, 6 for 16-byte words; K1 "
+            "with tile offsets and with the look-back, at 4-, 8- and "
+            "16-byte words; K2 in both frames, count included)")
 
 
 def k2_density_sweep(k1, k2, planes, dev) -> None:
@@ -457,7 +491,7 @@ def held_to_plain(modules, args=None):
             want = plain(planes, keep, out_rows)
             a, b = _tensors(got), _tensors(want)
             shape = (len(planes), keep.shape[0], int(keep.sum()),
-                     a[0].shape[-1])
+                     keep.shape[0] if out_rows is None else out_rows)
             if len(a) != len(b) or not all(
                     torch.equal(x, y) for x, y in zip(a, b)):
                 raise AssertionError(f"{name} call {shape} on the path "
@@ -535,7 +569,9 @@ def time_kernel(name, wrapper, plain, library, planes, keep, out_rows):
     (the zero tail is part of the output).  There is no arithmetic to bound
     it."""
     P, n = len(planes), keep.shape[0]
-    w = planes[0].element_size()
+    from arrowtpu_torch.kernels import _build
+
+    w = _build.word_bytes(planes[0])
     kept = int(keep.sum())
     nbytes = n * keep.element_size() + P * w * kept + P * w * out_rows
     row = {"ms": cold_ms(wrapper), "warm_ms": warm_ms(wrapper),
@@ -1250,6 +1286,324 @@ def agg_phase(pe, k1, dk, build, dev, floor_bytes_per_s):
     return launches, dense_row, k1_rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: TPC-H Q6 over lineitem; phase 14: the nested classes
+# ---------------------------------------------------------------------------
+
+Q6_SF = 10  # 60M rows, the whole of lineitem at SF10 on one card
+Q6_REPS = 10
+TAKE_IDS = 1_000_000
+NESTED_ROWS = 8_000_000  # BASELINE config 1's rows
+NESTED_TAKE_IDS = 4_000_000
+
+
+def _host(t):
+    return t.cpu().numpy()
+
+
+def check_gather(out, src, rows, ok, what, bm, col):
+    """A filter's or take's output column against a numpy gather of its
+    input's own arrays: output row r is input row rows[r] (clipped), valid
+    where the input row is and ok[r]; values under nulls included; zero
+    padding past the length; shared children and arenas are the same
+    objects.  Recursive over the nested classes."""
+    n = len(rows)
+    if out.length != n:
+        raise AssertionError(f"{what}: length {out.length}, expected {n}")
+
+    def same(got, want, name):
+        g = _host(got)
+        if not np.array_equal(g[:n], want):
+            raise AssertionError(f"{what}: {name} differs from numpy")
+        if g[n:].any():
+            raise AssertionError(f"{what}: {name} padding not zero")
+
+    src_ok = (np.ones(src.capacity, bool) if src.validity is None
+              else bm.to_numpy_bools(src.validity, src.capacity))
+    want_ok = src_ok[rows] & ok
+    if out.validity is None:
+        if not want_ok.all():
+            raise AssertionError(f"{what}: no bitmap, but null rows")
+    else:
+        same(bm.unpack(out.validity), want_ok, "validity")
+    if isinstance(src, col.StructColumn):
+        for i, (a, b) in enumerate(zip(out.children, src.children)):
+            check_gather(a, b, rows, ok, f"{what}.{i}", bm, col)
+    elif isinstance(src, col.FixedSizeListColumn):
+        k = src.dtype.size
+        check_gather(out.child, src.child,
+                     (rows[:, None] * k + np.arange(k)).ravel(),
+                     np.repeat(ok, k), f"{what}.child", bm, col)
+    elif isinstance(src, col.ListViewColumn):
+        same(out.starts, _host(src.starts)[rows], "starts")
+        same(out.sizes, _host(src.sizes)[rows], "sizes")
+        if out.child is not src.child:
+            raise AssertionError(f"{what}: the child is not shared")
+    elif isinstance(src, col.StringViewColumn):
+        same(out.views, _host(src.views)[rows], "views")
+        if out.arena is not src.arena:
+            raise AssertionError(f"{what}: the arena is not shared")
+    elif isinstance(src, col.BooleanColumn):
+        same(bm.unpack(out.values), _host(bm.unpack(src.values))[rows],
+             "values")
+    else:
+        same(out.values, _host(src.values)[rows], "values")
+
+
+def q6_stages(pe, ops, batch):
+    """The Q6 step's stages, each timed alone (CUDA events, median)."""
+    from arrowtpu_torch.ops import decimal as dec
+    from arrowtpu_torch.ops import filter as flt
+
+    mask = pe.q6_predicate(batch)
+    plan = flt.build_plan(mask)
+    kept = flt.filter_record_batch(batch, mask)
+
+    def revenue():
+        product = dec.mul(kept["l_extendedprice"], kept["l_discount"])
+        return dec.to_decimal(dec.sum_(product)[0], product.dtype.scale)
+
+    reps = dict(reps=Q6_REPS, warmup=2)
+    return {"predicate_ms": median_ms(lambda: pe.q6_predicate(batch), **reps),
+            "plan_ms": median_ms(lambda: flt.build_plan(mask), **reps),
+            "filter_ms": median_ms(
+                lambda: flt._apply(batch.columns, plan), **reps),
+            "revenue_ms": median_ms(revenue, **reps)}, mask, plan
+
+
+def q6_phase(pe, ops, k1, k2, build, dev, floor_bytes_per_s):
+    """Phase 13: TPC-H Q6 over lineitem at SF10.  -> (the launches of the
+    step, the 16-byte K1 row)."""
+    from arrowtpu_torch.core import bitmap as bm
+    from arrowtpu_torch.core import column as col
+    from arrowtpu_torch.ops import filter as flt
+
+    t0 = time.perf_counter()
+    arrays = pe.example_lineitem_arrays(Q6_SF, 6)
+    n = len(arrays["l_orderkey"])
+    t_gen = time.perf_counter() - t0
+    want = pe.q6_oracle(arrays)
+    t_oracle = time.perf_counter() - t0 - t_gen
+    torch.cuda.synchronize()
+    held_before = torch.cuda.memory_allocated()
+    batch = pe.lineitem_batch(arrays, device=dev)
+    torch.cuda.synchronize()
+    batch_gib = (torch.cuda.memory_allocated() - held_before) / 2**30
+    log(f"Q6: lineitem at SF{Q6_SF}, {n} rows: drawn in {t_gen:.1f} s, "
+        f"oracle {t_oracle:.1f} s, batch on the card in "
+        f"{time.perf_counter() - t0 - t_gen - t_oracle:.1f} s "
+        f"({batch_gib:.2f} GiB, {batch_gib * 2**30 / n:.1f} bytes a row)")
+
+    args = {}
+    with held_to_plain({"K1": k1}, args) as calls, \
+            build.launch_words() as words:
+        k1.launches = k2.launches = 0
+        build.count_launches = 0
+        out = pe.q6_step(batch)
+        torch.cuda.synchronize()
+        run = {"K1": k1.launches, "K2": k2.launches,
+               "tile_counts": build.count_launches,
+               **{f"{k}_{w}": words.count((k, w))
+                  for k, w in sorted(set(words))}}
+    for w in (4, 8, 16):
+        run.setdefault(f"K1_{w}", 0)
+    if not (run["K1_16"] >= 1 and run["K1_8"] >= 1 and run["K1_4"] >= 1):
+        raise AssertionError(f"Q6: K1 launches by word size {run}, expected "
+                             "16-, 8- and 4-byte words")
+    kept = pe.check_q6(out, arrays, want)
+    log(f"Q6: exact against q6_oracle, {kept} rows kept ({kept / n:.3%}), "
+        f"all 16 columns and the revenue {out[1]}; launches {run}; every K1 "
+        f"call held to plain (P, n, kept, out_rows or row words): "
+        f"{calls['K1']}")
+
+    stages, mask, plan = q6_stages(pe, ops, batch)
+    # what feeds K1: the plan's planes reach it as views, so the filter
+    # past its plan runs K1 alone (no transpose, no copy)
+    moved = device_kernel_names(lambda: flt._apply(batch.columns, plan))
+    extra = [nm for nm in moved if "tile_compact_kernel" not in nm]
+    if any("transpose" in nm.lower() or "copy" in nm.lower() for nm in moved):
+        raise AssertionError(f"Q6: a transpose or copy kernel feeds K1: "
+                             f"{moved}")
+    log(f"Q6: the filter past its plan runs {moved} (other kernels: "
+        f"{extra}); the plan runs "
+        f"{device_kernel_names(lambda: flt.build_plan(mask))}")
+
+    times = run_times_ms(lambda: pe.q6_step(batch), reps=Q6_REPS, warmup=2)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    pe.q6_step(batch)
+    peak = torch.cuda.max_memory_allocated()
+    step = {"step_ms": statistics.median(times), "min_ms": times[0],
+            "max_ms": times[-1], "reps": len(times), **stages,
+            "rows": n, "kept": kept, "rows_per_s":
+            n / statistics.median(times) * 1e3,
+            "peak_gib": peak / 2**30, "held_before_gib": held / 2**30}
+    log(f"Q6 timing: {step}")
+    log(f"Q6 profile: {profile(lambda: pe.q6_step(batch), reps=3)}")
+
+    # K1's 16-byte launch at its call shape on the step
+    (call,) = [c for c in args["K1"] if build.word_bytes(c.planes[0]) == 16]
+    planes, keep, offs = list(call.planes), call.keep, call.offs
+    rows = call.out_rows
+    stacked = torch.stack(planes)
+    row = time_kernel("K1 16-byte words, Q6 filter",
+                      lambda: k1.compact_planes(planes, keep, offs, rows),
+                      lambda: k1.compact_planes_plain(planes, keep, rows),
+                      lambda: stacked[:, keep], planes, keep, rows)
+    del stacked
+    nbytes = (keep.shape[0] + 16 * len(planes) * (int(keep.sum()) + rows))
+    row.update(launches=run["K1_16"], floor_ms=nbytes / floor_bytes_per_s
+               * 1e3, shape=f"P={len(planes)} x n={keep.shape[0]} x 16 B "
+               f"-> {rows} rows, kept {int(keep.sum())}")
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+              for a, b in zip(k1.compact_planes(planes, keep, offs, rows),
+                              k1.compact_planes_plain(planes, keep, rows)))
+    if err:
+        raise AssertionError("K1 16-byte: differs at the Q6 call")
+    row["max_abs_err"] = float(err)
+    log(f"  K1 16-byte at the Q6 call: bound at the copy floor "
+        f"{row['floor_ms']:.4f} ms")
+    for density in (0.5, 0.96):  # the same planes, denser masks
+        dense = torch.rand(keep.shape[0], device=dev) < density
+        offs_d = k1.tile_offsets(dense)
+        cnt = int(offs_d[-1])
+        out_rows = -(-cnt // 64) * 64
+        bound = bytes_bound_ms(keep.shape[0]
+                               + 16 * len(planes) * (cnt + out_rows))
+        log(f"  K1 16-byte at {density:.0%} kept: "
+            f"{cold_ms(lambda: k1.compact_planes(planes, dense, offs_d, out_rows)):.4f}"
+            f" ms, bound {bound:.4f} ms")
+
+    # take_record_batch: 1M uniform ids, 1 % null, 1 % past the end
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, n, TAKE_IDS)
+    ids[rng.random(TAKE_IDS) < 0.01] = n + 5
+    id_ok = rng.random(TAKE_IDS) > 0.01
+    index = col.primitive(ids, validity=id_ok, device=dev)
+    taken = ops.take_record_batch(batch, index)
+    ok = id_ok & (ids < n)
+    rows_idx = np.minimum(ids, batch.capacity - 1)
+    for name in pe.LINEITEM_COLUMNS:
+        c = batch[name]
+        check_gather(taken[name].keys if isinstance(c, col.DictionaryColumn)
+                     else taken[name],
+                     c.keys if isinstance(c, col.DictionaryColumn) else c,
+                     rows_idx, ok, f"take {name}", bm, col)
+    take_ms = median_ms(lambda: ops.take_record_batch(batch, index),
+                        reps=Q6_REPS, warmup=2)
+    log(f"Q6 batch take_record_batch: {TAKE_IDS} ids (1 % null, 1 % past "
+        f"the end), exact against a numpy gather of every column; "
+        f"{take_ms:.3f} ms")
+    del batch, taken, out
+    return run, row
+
+
+def nested_batch(n, dev, rng):
+    """Phase 14's batch: list_view<int64> (sizes 0-7), struct<i: int32, s:
+    utf8> (strings of 0-20 bytes), fixed_size_list<float32, 4>, bool; 10 %
+    nulls on every top-level column and on the struct's children."""
+    from arrowtpu_torch import schema as st
+    from arrowtpu_torch.core import column as col
+    from arrowtpu_torch.interop.numpy_bridge import string_view_from_numpy
+
+    def valid():
+        return rng.random(n) > 0.1
+
+    sizes = rng.integers(0, 8, n).astype(np.int32)
+    starts = (np.cumsum(sizes, dtype=np.int64) - sizes).astype(np.int32)
+    child = col.primitive(rng.integers(-2**40, 2**40, int(sizes.sum())),
+                          device=dev)
+    cap = -(-n // 64) * 64
+
+    def padded(a):
+        out = np.zeros(cap, a.dtype)
+        out[:n] = a
+        return torch.from_numpy(out).to(dev)
+
+    from arrowtpu_torch.core import bitmap as bm
+    lv = col.ListViewColumn(padded(starts), padded(sizes), child,
+                            bm.from_numpy_bools(valid(), cap, dev), n,
+                            st.List(st.int64))
+    pool = rng.integers(97, 123, 1 << 20).astype(np.uint8)
+    slen = rng.integers(0, 21, n)
+    s_ok = valid()
+    strs = string_view_from_numpy(pool, rng.integers(0, len(pool) - 21, n),
+                                  slen, s_ok, device=dev)
+    ints = col.primitive(rng.integers(-10**9, 10**9, n).astype(np.int32),
+                         validity=valid(), device=dev)
+    struct = col.StructColumn((ints, strs), bm.from_numpy_bools(
+        valid(), cap, dev), n, st.Struct((st.Field("i", st.int32),
+                                          st.Field("s", st.utf8))))
+    fl = col.FixedSizeListColumn(
+        col.primitive(torch.from_numpy(np.pad(
+            rng.standard_normal(n * 4).astype(np.float32),
+            (0, (cap - n) * 4))).to(dev), length=n * 4),
+        bm.from_numpy_bools(valid(), cap, dev), n,
+        st.FixedSizeList(st.float32, 4))
+    b = col.boolean(rng.random(n) < 0.5, validity=valid(), device=dev)
+    from arrowtpu_torch.core import batch as bt
+    return bt.record_batch({"lv": lv, "st": struct, "fl": fl, "b": b})
+
+
+def nested_phase(ops, k1, k2, build, dev):
+    """Phase 14: the nested classes at config 1's 8M rows through
+    filter_record_batch and take_record_batch.  -> the launches of the
+    filter and of the take."""
+    from arrowtpu_torch.core import bitmap as bm
+    from arrowtpu_torch.core import column as col
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(8)
+    batch = nested_batch(NESTED_ROWS, dev, rng)
+    keep = rng.random(NESTED_ROWS) < 0.5
+    keep_ok = rng.random(NESTED_ROWS) > 0.1
+    mask = col.boolean(keep, validity=keep_ok, device=dev)
+    torch.cuda.synchronize()
+    with held_to_plain({"K1": k1, "K2": k2}) as calls, \
+            build.launch_words() as words:
+        k1.launches = k2.launches = 0
+        build.count_launches = 0
+        out = ops.filter_record_batch(batch, mask)
+        torch.cuda.synchronize()
+        run = {"K1": k1.launches, "K2": k2.launches,
+               "tile_counts": build.count_launches,
+               **{f"{k}_{w}": words.count((k, w))
+                  for k, w in sorted(set(words))}}
+    if run["K1"] <= 0 or run["K2"] <= 0 or not (calls["K1"] and calls["K2"]):
+        raise AssertionError(f"nested filter: launches {run}, K1 and K2 "
+                             "must both launch")
+    log(f"nested filter: every K1 and K2 call held to plain (P, n, kept, "
+        f"out_rows): {calls}")
+    rows = np.flatnonzero(keep & keep_ok)
+    for name, c in zip(batch.schema.names, batch.columns):
+        check_gather(out[name], c, rows, np.ones(len(rows), bool),
+                     f"filter {name}", bm, col)
+    ids = rng.integers(0, NESTED_ROWS, NESTED_TAKE_IDS)
+    ids[rng.random(NESTED_TAKE_IDS) < 0.01] = NESTED_ROWS + 3
+    id_ok = rng.random(NESTED_TAKE_IDS) > 0.01
+    index = col.primitive(ids, validity=id_ok, device=dev)
+    k1.launches = k2.launches = 0
+    taken = ops.take_record_batch(batch, index)
+    torch.cuda.synchronize()
+    take_run = {"K1": k1.launches, "K2": k2.launches}
+    ok = id_ok & (ids < NESTED_ROWS)
+    for name, c in zip(batch.schema.names, batch.columns):
+        check_gather(taken[name], c, np.minimum(ids, batch.capacity - 1), ok,
+                     f"take {name}", bm, col)
+    timing = {
+        "filter_ms": median_ms(lambda: ops.filter_record_batch(batch, mask),
+                               reps=Q6_REPS, warmup=2),
+        "take_ms": median_ms(lambda: ops.take_record_batch(batch, index),
+                             reps=Q6_REPS, warmup=2)}
+    log(f"nested batch, {NESTED_ROWS} rows (list_view<int64>, struct<i, s>, "
+        f"fixed_size_list<float32, 4>, bool; 10 % nulls): filter keeps "
+        f"{len(rows)} rows, launches {run}; take of {NESTED_TAKE_IDS} ids "
+        f"launches {take_run}; both exact against numpy gathers; {timing} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return run
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1281,6 +1635,8 @@ def main() -> int:
     labels = " ".join(label for label, _ in reports)
     for want in ("tile_compact_kernel<u8, offs, full>",
                  "tile_compact_kernel<u8, look-back, full>",
+                 "tile_compact_kernel<16 B, offs, full>",
+                 "tile_compact_kernel<16 B, look-back, full>",
                  "sublane_gather_kernel", "tile_gather_kernel<roundtrip",
                  "lane_roll_kernel", "dense_agg_kernel<i32 key>"):
         if want not in labels:
@@ -1539,11 +1895,24 @@ def main() -> int:
         pe, k1, dk, _build, dev, floor * 1e9)
     log(f"phase 12 (config 4): {time.perf_counter() - t0:.1f} s")
 
+    # phase 13
+    t0 = time.perf_counter()
+    q6_launches, k1_16_row = q6_phase(pe, ops, k1, k2, _build, dev,
+                                      floor * 1e9)
+    log(f"phase 13 (TPC-H Q6, SF{Q6_SF}): {time.perf_counter() - t0:.1f} s")
+
+    # phase 14
+    t0 = time.perf_counter()
+    nested_launches = nested_phase(ops, k1, k2, _build, dev)
+    log(f"phase 14 (nested classes): {time.perf_counter() - t0:.1f} s")
+
     kernels_rows["K1"]["group_by_calls"] = group_by_rows
     kernels_rows["K1"]["join_calls"] = join_k1_rows
     kernels_rows["K1"]["config4_calls"] = agg_k1_rows
     kernels_rows["dense_agg"] = dense_row
+    kernels_rows["K1_16"] = k1_16_row
     source = {"K1": "arrowtpu_torch/csrc/compact.cu",
+              "K1_16": "arrowtpu_torch/csrc/compact.cu",
               "K2": "arrowtpu_torch/csrc/compact.cu",
               "K3": "arrowtpu_torch/csrc/compact2.cu",
               "stream": "arrowtpu_torch/csrc/probes.cu",
@@ -1553,6 +1922,8 @@ def main() -> int:
               "stages_k1": "arrowtpu_torch/csrc/compact.cu",
               "dense_agg": "arrowtpu_torch/csrc/dense_agg.cu"}
     replaces = {"K1": "arrowtpu/pallas/compact3.py:126",
+                "K1_16": "arrowtpu/pallas/compact3.py:126 (a (n, 4) u32 "
+                         "value as four planes, arrowtpu/ops/filter.py:141)",
                 "K2": "arrowtpu/pallas/compact.py:158",
                 "K3": "arrowtpu/pallas/compact2.py:93",
                 "stream": "scripts/prof_floor.py:35, :82; "
@@ -1572,6 +1943,8 @@ def main() -> int:
                              "XLA-fused; no pallas_call)"}
     names = {"K1": "compact3 (tile_compact_kernel, u32/u64, tile offsets "
                    "or look-back)",
+             "K1_16": "compact3 16-byte words (tile_compact_kernel<uint4>, "
+                      "tile offsets or look-back)",
              "K2": "compact (tile_compact_kernel, u8/u32, tile offsets "
                    "or look-back)",
              "K3": "compact2 (tile_compact_kernel, u32, look-back)",
@@ -1614,7 +1987,8 @@ def main() -> int:
     flagship = main_runs[CARDINALITIES[0]][1]
     launches = {"K1": flagship["K1"], "K2": flagship["K2"],
                 "K3": k3_launches["K3"], **probe_launches,
-                "dense_agg": agg_launches["low_card"]["dense_agg"]}
+                "dense_agg": agg_launches["low_card"]["dense_agg"],
+                "K1_16": q6_launches["K1_16"]}
     by_path = {"flagship step": flagship, "join step": join_launches,
                "skewed join step": skew_launches,
                "skewed join step, its filters": skew_filters,
@@ -1622,9 +1996,11 @@ def main() -> int:
                "run_probes": probe_launches,
                "config 3 lexsort": lexsort_launches,
                **{f"config 4 {label}": c
-                  for label, c in agg_launches.items()}}
+                  for label, c in agg_launches.items()},
+               "TPC-H Q6": q6_launches,
+               "nested batch filter": nested_launches}
     kernels = []
-    for key in ("K1", "K2", "K3", *shown, "dense_agg"):
+    for key in ("K1", "K2", "K3", *shown, "dense_agg", "K1_16"):
         row = kernels_rows[key]
         kernels.append({
             "name": names[key], "route": "cuda", "source": source[key],
@@ -1634,7 +2010,8 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "warm_ms": row["warm_ms"], "shape": row["shape"],
             "launches_by_path": {p: c.get(key, 0)
-                                 for p, c in by_path.items()},
+                                 for p, c in by_path.items()
+                                 if isinstance(c.get(key, 0), int)},
             **({"count_kernel_launches_by_path": {
                 p: c["tile_counts"] for p, c in by_path.items()
                 if "tile_counts" in c}} if key == "K1" else {}),

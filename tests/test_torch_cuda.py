@@ -16,9 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+from arrowtpu_torch.config import TakeOptions
 from arrowtpu_torch.entry import (agg_oracle, agg_plan, agg_step, check_agg,
-                                  check_join_output, check_lexsort,
-                                  example_agg_arrays,
+                                  check_join_output, check_lexsort, check_q6,
+                                  example_agg_arrays, example_lineitem_arrays,
+                                  lineitem_batch, q6_oracle, q6_step,
                                   dryrun_multichip, example_batch,
                                   example_join_shards,
                                   example_lexsort_arrays, join_oracle,
@@ -39,6 +41,8 @@ from arrowtpu_torch.kernels import probes
 from arrowtpu_torch.ops import groupby as gb
 from arrowtpu_torch.ops.groupby import group_by
 from arrowtpu_torch.ops.concat import concat, concat_batches
+from arrowtpu_torch.ops.filter import filter_record_batch
+from arrowtpu_torch.ops.take import take_record_batch
 from arrowtpu_torch.ops.join import hash_join
 from arrowtpu_torch.parallel import distributed as pdist
 from arrowtpu_torch.parallel import mesh
@@ -863,3 +867,158 @@ def test_agg_step_on_card_against_oracle(cuda, cardinality, engine):
     assert (dk.launches == 1, k1.launches == 0) == (
         (True, True) if engine == "dense" else (False, False))
     assert check_agg(out, agg_oracle(arrays)) > 0
+
+
+# ---------------------------------------------------------------------------
+# K1's 16-byte word; the column classes through filter and take; TPC-H Q6
+
+
+@pytest.mark.parametrize("n", [1, 4095, 65536, 1_000_003])
+@pytest.mark.parametrize("density", DENSITIES + [0.055, 0.3])
+@pytest.mark.parametrize("P", [1, 2, 4, 17])
+def test_k1_16_byte_words_match_plain(cuda, P, density, n):
+    """(P, n, 4) int32 planes, a 16-byte word a row, in both frames and
+    with the output cut: on both sides of the dense threshold (half a
+    tile's rows kept) and across the four chunks of a dense tile."""
+    g = torch.Generator(device=cuda).manual_seed(n + P)
+    planes = torch.randint(-2**31, 2**31 - 1, (P, n, 4), dtype=torch.int32,
+                           device=cuda, generator=g)
+    keep = _keep(n, density, cuda, n + 3)
+    want = k1.compact_planes_plain(planes, keep)
+    offs = k1.tile_offsets(keep)
+    for o in (None, offs):
+        k1.launches = 0
+        assert torch.equal(k1.compact_planes(planes, keep, o), want)
+        assert k1.launches == -(-P // 16)
+        rows = min(n, int(keep.sum()) + 5)
+        got = k1.compact_planes(list(planes), keep, o, rows)
+        assert all(torch.equal(a, b[:rows]) for a, b in zip(got, want))
+
+
+def test_k1_16_byte_words_must_be_aligned(cuda):
+    words = torch.zeros(65, 4, dtype=torch.int32, device=cuda)
+    keep = torch.ones(64, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        k1.compact_planes([words.view(-1)[1:257].view(64, 4)], keep)
+    with pytest.raises(ValueError):  # 12-byte rows: no such word
+        k1.compact_planes([torch.zeros(64, 3, dtype=torch.int32,
+                                       device=cuda)], keep)
+
+
+def _same_column(g, w):
+    """A column on the card equals the CPU's: class, length, capacity and
+    every tensor (recursively; an arena only as bytes)."""
+    assert type(g) is type(w) and g.length == w.length
+    assert g.capacity == w.capacity and g.dtype == w.dtype
+    for name in ("values", "views", "arena", "validity", "starts", "sizes",
+                 "keys", "child", "children"):
+        x, y = getattr(g, name, None), getattr(w, name, None)
+        if isinstance(x, torch.Tensor):
+            assert x.device.type == "cuda" and torch.equal(x.cpu(), y), name
+        elif isinstance(x, tuple):
+            for a, b in zip(x, y):
+                _same_column(a, b)
+        elif x is not None and not isinstance(x, (int, st.DataType)):
+            _same_column(x, y)
+        else:
+            assert (x is None) == (y is None), name
+
+
+def _classes_batch(device, n=70_000):
+    rng = np.random.default_rng(13)
+    words = ["", "abc", "twelve bytes", "a string past the inline bytes"]
+    strs = [None if rng.random() < 0.1 else words[rng.integers(4)]
+            for _ in range(n)]
+    dec = [None if rng.random() < 0.1 else int(x)
+           for x in rng.integers(-10**15, 10**15, n)]
+    return pbt.record_batch({
+        "s": pcol.string_view(strs, device=device),
+        "d128": pcol.from_pylist(dec, st.Decimal128(18, 2), device=device),
+        "d64": pcol.from_pylist(dec, st.Decimal64(18, 2), device=device),
+        "d256": pcol.from_pylist(dec, st.Decimal256(40, 2), device=device),
+        "day": pcol.primitive(rng.integers(0, 20000, n), st.Date32(),
+                              device=device),
+        "iv": pcol.primitive(rng.integers(0, 2**32, (n, 4)).astype(np.uint32),
+                             st.Interval(), device=device),
+        "fsb": pcol.primitive(rng.integers(0, 2**32, (n, 3)).astype(np.uint32),
+                              st.FixedSizeBinary(11), device=device)})
+
+
+def test_classes_filter_and_take_on_card_match_cpu(cuda):
+    """String views, decimals (32-, 64- and 16-byte rows: Decimal256 as two
+    16-byte words under the repeated mask), dates, intervals and a 12-byte
+    fixed-size binary (three 4-byte planes): one plan on the card, K1 at
+    4, 8 and 16 bytes, equal to the CPU."""
+    batches = {d: _classes_batch(d) for d in (cuda, "cpu")}
+    masks = {}
+    for d, b in batches.items():
+        rng = np.random.default_rng(14)
+        keep = rng.random(b.length) < 0.3
+        masks[d] = pcol.boolean(keep, validity=rng.random(b.length) > 0.1,
+                                device=d)
+    k1.launches = k2.launches = 0
+    got = filter_record_batch(batches[cuda], masks[cuda])
+    torch.cuda.synchronize()
+    assert k1.launches >= 3 and k2.launches == 1
+    want = filter_record_batch(batches["cpu"], masks["cpu"])
+    for a, b in zip(got.columns, want.columns):
+        _same_column(a, b)
+    rng = np.random.default_rng(15)
+    idx = rng.integers(-5, 70_005, 50_000)
+    ok = rng.random(50_000) > 0.01
+    outs = [take_record_batch(b, pcol.primitive(idx, validity=ok, device=d),
+                              TakeOptions(True))
+            for d, b in batches.items()]
+    assert outs[0][1] is outs[1][1] is True
+    for a, b in zip(outs[0][0].columns, outs[1][0].columns):
+        _same_column(a, b)
+
+
+def test_nested_filter_and_take_on_card_match_cpu(cuda):
+    """List view, struct (with a string child) and fixed-size list with
+    nulls: K1 and K2 launch, the card equals the CPU."""
+    rng = np.random.default_rng(16)
+    n = 30_000
+    lists = [None if rng.random() < 0.1 else
+             [int(x) for x in rng.integers(0, 9, rng.integers(0, 5))]
+             for _ in range(n)]
+    structs = [None if rng.random() < 0.1 else
+               {"i": int(rng.integers(9)), "s": "s" * int(rng.integers(20))}
+               for _ in range(n)]
+    fsl = [None if rng.random() < 0.1 else [float(rng.random())] * 4
+           for _ in range(n)]
+    keep = rng.random(n) < 0.5
+    kvalid = rng.random(n) > 0.1
+    idx = rng.integers(-2, n + 2, 20_000)
+    outs = []
+    for d in (cuda, "cpu"):
+        b = pbt.record_batch({
+            "lv": pcol.from_pylist(lists, st.List(st.int64), device=d),
+            "st": pcol.from_pylist(structs, st.Struct((
+                st.Field("i", st.int32), st.Field("s", st.utf8))), device=d),
+            "fl": pcol.from_pylist(fsl, st.FixedSizeList(st.float32, 4),
+                                   device=d)})
+        k1.launches = k2.launches = 0
+        f = filter_record_batch(b, pcol.boolean(keep, validity=kvalid,
+                                                device=d))
+        launched = (k1.launches, k2.launches)
+        outs.append((f, take_record_batch(b, pcol.primitive(idx, device=d)),
+                     launched))
+    assert outs[0][2][0] >= 1 and outs[0][2][1] >= 1
+    for part in (0, 1):
+        for a, b in zip(outs[0][part].columns, outs[1][part].columns):
+            _same_column(a, b)
+            assert a.to_pylist() == b.to_pylist()
+
+
+def test_q6_step_on_card_against_oracle(cuda):
+    """TPC-H Q6 over about 200,000 lineitem rows on the card: exact against
+    q6_oracle (every column's kept rows and the revenue), with K1 launched
+    at 16-, 8- and 4-byte words inside the filter."""
+    arrays = example_lineitem_arrays(sf=0.033, seed=6)
+    assert 190_000 < len(arrays["l_orderkey"]) < 210_000
+    batch = lineitem_batch(arrays, device=cuda)
+    with _build.launch_words() as words:
+        out = q6_step(batch)
+    assert sorted(words) == [("K1", 4), ("K1", 8), ("K1", 16)]
+    assert check_q6(out, arrays, q6_oracle(arrays)) > 3000

@@ -50,9 +50,11 @@ def port_column(values, valid, dtype_name):
     return pt.column_from_numpy(values, valid, len(values), dt, device="cpu")
 
 
-def jax_to_numpy(c):
-    """-> (values[:length], valid bools[:length], length)."""
-    n = int(c.length)
+def jax_to_numpy(c, rows=None):
+    """-> (values[:length], valid bools[:length], length); `rows`, when
+    given, takes that many rows in place of the length.  Decimals,
+    intervals and fixed-size binary: (n, W) uint32 words."""
+    n = int(c.length) if rows is None else rows
     if isinstance(c, jcol.NullColumn):
         return np.zeros(n, np.int8), np.zeros(n, bool), n
     if isinstance(c, jcol.BooleanColumn):
@@ -68,28 +70,105 @@ def jax_to_numpy(c):
 
 
 def assert_zero_padding(c):
-    """Port column: value and validity bits past the length are 0."""
+    """Port column: value and validity bits past the length are 0 (a
+    nested column's own arrays and its children's, recursively)."""
+    from arrowtpu_torch.core import column as pcol
+
     n = c.length
     if isinstance(c, pt.NullColumn):
         return
+    if isinstance(c, pcol.DictionaryColumn):
+        return assert_zero_padding(c.keys)
     if isinstance(c, pt.BooleanColumn):
         assert not pbm.unpack(c.values)[n:].any(), "value bits past length"
+    elif isinstance(c, pcol.StringViewColumn):
+        assert not c.views[n:].any(), "views past length are not zero"
+    elif isinstance(c, pcol.ListViewColumn):
+        assert not c.starts[n:].any() and not c.sizes[n:].any()
+    elif isinstance(c, pcol.StructColumn):
+        for ch in c.children:
+            assert ch.length == n
+            assert_zero_padding(ch)
+    elif isinstance(c, pcol.FixedSizeListColumn):
+        assert c.child.length == n * c.dtype.size
+        assert_zero_padding(c.child)
     else:
         assert not c.values[n:].any(), "values past length are not zero"
     if c.validity is not None:
         assert not pbm.unpack(c.validity)[n:].any(), "validity past length"
 
 
-def assert_column_equal(jc, pc, where=""):
+def _valid_rows(c, n, pkg):
+    bits = c.validity
+    if bits is None:
+        return np.ones(n, bool)
+    return (jbm if pkg == "jax" else pbm).to_numpy_bools(bits, n)
+
+
+def assert_column_equal(jc, pc, where="", rows=None, layout=True):
     """Exact: length, dtype, validity as bools, values at every row below
-    the length (values under nulls included), zero padding."""
-    jv, jok, jn = jax_to_numpy(jc)
-    pv, pok, pn = pt.column_to_numpy(pc)
+    the length (values under nulls included), zero padding.  Nested
+    classes compare recursively: string views by their words (a long
+    string's arena offset aside) and their strings, dictionaries by keys
+    and values, list views by (start, size) and child, structs by child,
+    fixed-size lists by the child's first length * size rows.  `rows`
+    compares that many rows in place of the lengths; `layout=False` skips
+    what depends on child or arena capacities (a concat's list-view starts
+    and child), comparing the rows' Python values instead."""
+    from arrowtpu.core import column as jc_
+    from arrowtpu_torch.core import column as pcol
+
+    jn = int(jc.length) if rows is None else rows
+    pn = pc.length if rows is None else rows
     assert jn == pn, f"{where}: length {pn} != {jn}"
     assert str(jc.dtype) == str(pc.dtype), f"{where}: dtype"
-    np.testing.assert_array_equal(pok, jok, err_msg=f"{where}: validity")
-    np.testing.assert_array_equal(pv, jv, err_msg=f"{where}: values")
-    assert_zero_padding(pc)
+    assert type(jc).__name__ == type(pc).__name__, f"{where}: class"
+    if rows is None:
+        assert_zero_padding(pc)
+    if isinstance(pc, pcol.DictionaryColumn):
+        assert_column_equal(jc.keys, pc.keys, f"{where}.keys", rows)
+        assert_column_equal(jc.values, pc.values, f"{where}.values")
+        return
+    if not isinstance(pc, (pcol.StringViewColumn, pcol.ListViewColumn,
+                           pcol.StructColumn, pcol.FixedSizeListColumn)):
+        jv, jok, _ = jax_to_numpy(jc, rows)
+        pv, pok, _ = pt.column_to_numpy(pc)
+        if rows is not None:
+            pv, pok = pv[:rows], pok[:rows]
+        np.testing.assert_array_equal(pok, jok, err_msg=f"{where}: validity")
+        np.testing.assert_array_equal(pv, jv, err_msg=f"{where}: values")
+        return
+    n = jn
+    np.testing.assert_array_equal(_valid_rows(pc, n, "port"),
+                                  _valid_rows(jc, n, "jax"),
+                                  err_msg=f"{where}: validity")
+    if isinstance(pc, pcol.StringViewColumn):
+        jv = np.asarray(jc.views)[:n].view(np.int32)
+        pv = pc.views[:n].numpy()
+        np.testing.assert_array_equal(pv[:, :3], jv[:, :3],
+                                      err_msg=f"{where}: views")
+        inline = pv[:, 0] <= 12
+        np.testing.assert_array_equal(pv[inline, 3], jv[inline, 3],
+                                      err_msg=f"{where}: inline views")
+        assert pc.to_pylist()[:n] == jc.to_pylist()[:n], f"{where}: strings"
+        assert pc.len_bound == jc.len_bound, f"{where}: len_bound"
+    elif isinstance(pc, pcol.ListViewColumn):
+        np.testing.assert_array_equal(pc.sizes[:n].numpy(),
+                                      np.asarray(jc.sizes)[:n],
+                                      err_msg=f"{where}: sizes")
+        if layout:
+            np.testing.assert_array_equal(pc.starts[:n].numpy(),
+                                          np.asarray(jc.starts)[:n],
+                                          err_msg=f"{where}: starts")
+            assert_column_equal(jc.child, pc.child, f"{where}.child")
+        else:
+            assert pc.to_pylist()[:n] == jc.to_pylist()[:n], f"{where}: rows"
+    elif isinstance(pc, pcol.StructColumn):
+        for f, jch, pch in zip(pc.dtype.fields, jc.children, pc.children):
+            assert_column_equal(jch, pch, f"{where}.{f.name}", rows)
+    else:
+        size = pc.dtype.size
+        assert_column_equal(jc.child, pc.child, f"{where}.child", n * size)
 
 
 def assert_batch_equal(jb, pb):
