@@ -77,7 +77,7 @@ def split_int64(values: np.ndarray, n_limbs: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _u(x: torch.Tensor) -> torch.Tensor:
+def unsigned(x: torch.Tensor) -> torch.Tensor:
     """int32 bits -> their unsigned value in int64."""
     return x.to(torch.int64) & _M
 
@@ -112,7 +112,7 @@ def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(..., N) + (..., N), wrapping two's complement."""
     outs, carry = [], None
     for j in range(a.shape[-1]):
-        s = _u(a[..., j]) + _u(b[..., j])
+        s = unsigned(a[..., j]) + unsigned(b[..., j])
         if carry is not None:
             s = s + carry
         outs.append(s & _M)
@@ -168,10 +168,10 @@ def mul_lo(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The low N limbs of the product (wrapping), schoolbook on 32 x 32 ->
     64-bit partials."""
     nl = a.shape[-1]
-    ua = [_u(a[..., j]) for j in range(nl)]
+    ua = [unsigned(a[..., j]) for j in range(nl)]
     acc = [torch.zeros_like(ua[0]) for _ in range(nl)]
     for i in range(nl):
-        bi = _u(b[..., i])
+        bi = unsigned(b[..., i])
         carry = None
         for j in range(nl - i):
             lo, hi = _mul32(ua[j], bi)
@@ -187,7 +187,7 @@ def mul_small(a: torch.Tensor, m: int) -> torch.Tensor:
     """Multiply by a u32 constant (wrapping)."""
     outs, carry = [], None
     for j in range(a.shape[-1]):
-        lo, hi = _mul32(_u(a[..., j]), m)
+        lo, hi = _mul32(unsigned(a[..., j]), m)
         s = lo if carry is None else lo + carry
         outs.append(s & _M)
         carry = hi + (s >> 32)
@@ -202,7 +202,7 @@ def divmod_small_unsigned(a: torch.Tensor, d: int):
     rem = torch.zeros(a.shape[:-1], dtype=torch.int64, device=a.device)
     qs = [None] * nl
     for j in range(nl - 1, -1, -1):
-        cur = (rem << 32) | _u(a[..., j])
+        cur = (rem << 32) | unsigned(a[..., j])
         q = torch.div(cur, d, rounding_mode="floor")
         rem = cur - q * d
         qs[j] = q
@@ -275,9 +275,18 @@ def to_float(a: torch.Tensor) -> torch.Tensor:
     mag = torch.where(negm[..., None], neg(a), a)
     acc = torch.zeros(a.shape[:-1], dtype=torch.float64, device=a.device)
     for j in range(a.shape[-1]):
-        term = _u(mag[..., j]).to(torch.float64) * float(2 ** (32 * j))
+        term = unsigned(mag[..., j]).to(torch.float64) * float(2 ** (32 * j))
         acc = acc + term
     return torch.where(negm, -acc, acc)
+
+
+def over_pow10(x: torch.Tensor, k: int) -> torch.Tensor:
+    """float64 x / 10**k, correctly rounded on the card too: PyTorch's
+    CUDA division by a host scalar multiplies by the scalar's reciprocal
+    (two roundings), so the divisor is a one-element tensor on x's
+    device."""
+    return x / torch.full((1,), float(10 ** k), dtype=torch.float64,
+                          device=x.device)
 
 
 def sort_planes(a: torch.Tensor) -> list:
@@ -285,3 +294,16 @@ def sort_planes(a: torch.Tensor) -> list:
     the signed value: the top limb's sign bit flipped."""
     nl = a.shape[-1]
     return [a[..., nl - 1] ^ _SIGN] + [a[..., j] for j in range(nl - 2, -1, -1)]
+
+
+def order_planes(a: torch.Tensor) -> list:
+    """`sort_planes` as their unsigned values in int64: comparing rows by
+    them lexicographically compares the signed values."""
+    return [unsigned(p) for p in sort_planes(a)]
+
+
+def from_order_planes(planes) -> torch.Tensor:
+    """The (..., N) int32 limbs of `order_planes`' values."""
+    limbs = stack_u32(planes[::-1])
+    limbs[..., -1] ^= _SIGN
+    return limbs

@@ -38,6 +38,13 @@ arithmetic.  `example_lineitem_arrays` draws `lineitem` by Clause 4.2.3,
 `check_q6` hold the step to numpy, every kept column and the revenue
 exactly.
 
+`q1_step` is TPC-H Q1 (Clause 2.4.1, the pricing summary report): the
+predicate on l_shipdate, `filter_record_batch` of the six columns Q1 reads,
+disc_price and charge by decimal limb arithmetic, the group-by of the two
+one-letter string flags (four decimal sums, three means, a count) and the
+sort by the flags.  `q1_oracle` / `check_q1` hold it to numpy on the
+integer cents: the sums exactly, the means bit for bit.
+
 `lexsort_step` is BASELINE config 3 (`bench.py` config3_lexsort): the
 lexsort of (int32, float64, dictionary-utf8) columns.
 `example_lexsort_columns` draws them as the bench does, and
@@ -672,3 +679,153 @@ def check_q6(out, arrays: dict, want: dict) -> int:
         raise AssertionError(f"revenue {got_rev} != oracle {want['revenue']}"
                              " (units of 1e-4)")
     return count
+
+
+Q1_DELTA_DAYS = 90  # the validation value of Clause 2.4.1.4
+Q1_KEYS = ["l_returnflag", "l_linestatus"]
+Q1_READS = ("l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
+            "l_discount", "l_tax")
+# the query's output columns after the keys: (its name, the group_by
+# aggregate that computes it)
+Q1_AGGS = [("sum_qty", ("l_quantity", "sum")),
+           ("sum_base_price", ("l_extendedprice", "sum")),
+           ("sum_disc_price", ("disc_price", "sum")),
+           ("sum_charge", ("charge", "sum")),
+           ("avg_qty", ("l_quantity", "mean")),
+           ("avg_price", ("l_extendedprice", "mean")),
+           ("avg_disc", ("l_discount", "mean")),
+           ("count_order", ("l_quantity", "count"))]
+# each sum's scale; each mean's sum (every averaged column has scale 2)
+Q1_SUMS = {"sum_qty": 2, "sum_base_price": 2, "sum_disc_price": 4,
+           "sum_charge": 6}
+Q1_MEANS = {"avg_qty": "sum_qty", "avg_price": "sum_base_price",
+            "avg_disc": "sum_disc"}
+
+
+def q1_date(delta_days: int = Q1_DELTA_DAYS) -> int:
+    """date '1998-12-01' - interval delta_days day, as a Date32."""
+    return _days("1998-12-01") - delta_days
+
+
+def q1_predicate(batch: bt.RecordBatch, delta_days: int = Q1_DELTA_DAYS
+                 ) -> col.BooleanColumn:
+    return ops.lt_eq(batch["l_shipdate"], q1_date(delta_days))
+
+
+def q1_prices(kept: bt.RecordBatch):
+    """-> (disc_price = l_extendedprice * (1 - l_discount), charge =
+    disc_price * (1 + l_tax)), by decimal limb arithmetic: Decimal128
+    (16, 2) for 1 - l_discount, then (32, 4) and (38, 6)."""
+    from .ops import decimal as dec
+
+    disc_price = dec.mul(kept["l_extendedprice"],
+                         dec.neg(dec.sub(kept["l_discount"], 1)))
+    return disc_price, dec.mul(disc_price, dec.add(kept["l_tax"], 1))
+
+
+def q1_group(kept: bt.RecordBatch, disc_price, charge) -> bt.RecordBatch:
+    """The group-by of Q1 by the two flags, its outputs named as the
+    query names them."""
+    grouped = gb.group_by(
+        bt.record_batch({**{n: kept[n] for n in Q1_READS},
+                         "disc_price": disc_price, "charge": charge}),
+        Q1_KEYS, [agg for _, agg in Q1_AGGS])
+    names = Q1_KEYS + [name for name, _ in Q1_AGGS]
+    return bt.RecordBatch(st.Schema(tuple(
+        st.Field(n, c.dtype) for n, c in zip(names, grouped.columns))),
+        grouped.columns)
+
+
+def q1_step(batch: bt.RecordBatch, delta_days: int = Q1_DELTA_DAYS
+            ) -> bt.RecordBatch:
+    """TPC-H Q1 (Clause 2.4.1, the pricing summary report): the predicate
+    l_shipdate <= 1998-12-01 - delta_days, `filter_record_batch` of the
+    six columns the query reads, the two prices, the group-by of the flags
+    (four sums, three means, a count) and `sort_batch` by the flags."""
+    kept = ops.filter_record_batch(
+        bt.record_batch({n: batch[n] for n in Q1_READS}),
+        q1_predicate(batch, delta_days))
+    return ops.sort_batch(q1_group(kept, *q1_prices(kept)), Q1_KEYS)
+
+
+def q1_oracle(arrays: dict, delta_days: int = Q1_DELTA_DAYS) -> dict:
+    """Q1 on the host in numpy on the integer cents: {"keys": the groups'
+    flag pairs as bytes in sorted order, each sum as a Python int of its
+    unscaled value, each mean as float(sum) / count / 10**scale, the
+    counts, "mask": the rows the predicate keeps}.  Each group's sums are
+    int64, held below 2**62 by a bound on their terms."""
+    mask = arrays["l_shipdate"] <= q1_date(delta_days)
+    flags = [np.frombuffer(LINEITEM_FLAGS[n], np.uint8)[arrays[n][mask]]
+             for n in Q1_KEYS]
+    key = flags[0].astype(np.int64) * 256 + flags[1]
+    groups, inv = np.unique(key, return_inverse=True)
+    qty, ext, disc, tax = (arrays[n][mask] for n in LINEITEM_DECIMALS)
+    disc_price = ext * (100 - disc)
+    terms = {"sum_qty": qty, "sum_base_price": ext,
+             "sum_disc_price": disc_price,
+             "sum_charge": disc_price * (100 + tax), "sum_disc": disc}
+    want = {"keys": [(bytes([g >> 8]), bytes([g & 0xFF]))
+                     for g in groups.tolist()],
+            "count_order": [], "mask": mask,
+            **{name: [] for name in terms}}
+    for g in range(len(groups)):
+        rows = inv == g
+        count = int(rows.sum())
+        want["count_order"].append(count)
+        for name, x in terms.items():
+            part = x[rows]
+            if int(np.abs(part).max()) * count >= 2**62:
+                raise OverflowError(f"{name}: an int64 sum may overflow")
+            want[name].append(int(part.sum()))
+    for mean, total in Q1_MEANS.items():
+        want[mean] = [float(s) / c / 10**2
+                      for s, c in zip(want[total], want["count_order"])]
+    del want["sum_disc"]
+    return want
+
+
+def check_q1(out: bt.RecordBatch, arrays: dict, want: dict) -> int:
+    """Hold q1_step's output to the oracle, exactly: the groups in flag
+    order, the flags resolved to bytes, each sum's limbs as an integer and
+    its type (Decimal128(38, s)), the means bit for bit, the counts; no
+    null row and zero padding.  -> the rows counted."""
+    from .core import limbs as lb
+
+    n = len(want["keys"])
+    names = Q1_KEYS + [name for name, _ in Q1_AGGS]
+    if out.schema.names != names:
+        raise AssertionError(f"columns {out.schema.names}, expected {names}")
+    if out.length != n:
+        raise AssertionError(f"{out.length} groups, oracle {n}")
+    for i, name in enumerate(Q1_KEYS):
+        c = out[name]
+        got, _ = resolve_views(c.views[:n].cpu().numpy(),
+                               c.arena.cpu().numpy(), 1)
+        expect = np.array([[k[i][0]] for k in want["keys"]], np.uint8)
+        if not np.array_equal(got, expect):
+            raise AssertionError(f"{name}: {got.ravel().tobytes()} != "
+                                 f"{expect.ravel().tobytes()}")
+    for name, c in zip(names, out.columns):
+        host = (c.views if isinstance(c, col.StringViewColumn)
+                else c.values).cpu().numpy()
+        if c.validity is not None and not bm.to_numpy_bools(
+                c.validity, c.capacity)[:n].all():
+            raise AssertionError(f"{name}: a group is null")
+        if host[n:].any() or (c.validity is not None and bm.to_numpy_bools(
+                c.validity, c.capacity)[n:].any()):
+            raise AssertionError(f"{name}: padding past the length not zero")
+        if name in Q1_SUMS:
+            dtype = st.Decimal128(38, Q1_SUMS[name])
+            if c.dtype != dtype:
+                raise AssertionError(f"{name}: {c.dtype}, expected {dtype}")
+            if lb.join_ints(host[:n]) != want[name]:
+                raise AssertionError(f"{name}: {lb.join_ints(host[:n])} != "
+                                     f"{want[name]}")
+        elif name in Q1_MEANS:
+            if c.dtype != st.float64 or not np.array_equal(
+                    host[:n].view(np.uint64),
+                    np.array(want[name], np.float64).view(np.uint64)):
+                raise AssertionError(f"{name}: {host[:n]} != {want[name]}")
+        elif name == "count_order" and host[:n].tolist() != want[name]:
+            raise AssertionError(f"counts {host[:n]} != {want[name]}")
+    return sum(want["count_order"])

@@ -1,20 +1,26 @@
-"""Decimal kernels: comparison, product and sum on N-limb columns.
+"""Decimal kernels: arithmetic, comparison, rescale, casts, aggregation.
 
-Counterpart of the part of `arrowtpu/ops/decimal.py` that TPC-H Q6 needs:
-`cmp` (all six ops, against a decimal column or a Python Decimal / int),
-`mul` and `sum_`.  A decimal column's values are (capacity, N) int32 limbs
-(core/limbs.py), so every result is the JAX package's bit for bit:
+Counterpart of `arrowtpu/ops/decimal.py`.  A decimal column's values are
+(capacity, N) int32 limbs (core/limbs.py), so every result is the JAX
+package's bit for bit:
 
   * operands are aligned to a common scale and to enough limbs that the
     10^k scale-up cannot wrap (`_align`), then compared as signed limbs;
+  * `add` / `sub` compute exactly in the aligned width; the result has
+    the wider input's limb count, scale max(s1, s2) and precision
+    max(p1 - s1, p2 - s2) + s + 1, capped; a row that overflows it is
+    null (`_addsub_result`, the reference's rule);
   * `mul`'s result has scale s1 + s2 and precision p1 + p2 + 1, capped at
     the limb count's maximum (the reference's rule), and wraps at N limbs;
+  * `rescale` (decimal -> decimal), `to_int` (truncating) and the other
+    casts null a row out of the target's range when `safe`;
   * `sum_` sums each limb of the valid rows in int64 and carries once at
     the end: the same wrapping N-limb sum as the JAX package's pairwise
-    tree, in one pass.
+    tree, in one pass; `min_max` reduces the sign-flipped limbs.
 
-The rest (`add`, `sub`, `rescale`, casts, `min_max`) waits for the
-decimal slice.
+A scalar operand (a Python Decimal or int) is one row of limbs that the
+limb ops broadcast.  Rows past the length stay zero, and their validity
+bits clear.
 """
 
 from __future__ import annotations
@@ -87,6 +93,170 @@ def _union_validity(a, b):
                     b.validity if isinstance(b, col.Column) else None)
 
 
+def _with_ok(validity, ok: torch.Tensor, length: int) -> torch.Tensor:
+    """`validity` AND the (capacity,) bool `ok`, the rows past the length
+    cleared (the JAX package's union with pack(ok))."""
+    ok = ok.clone()
+    ok[length:] = False
+    return bm.union(validity, bm.pack(ok))
+
+
+def _out(base, values: torch.Tensor, validity, dtype) -> col.PrimitiveColumn:
+    """A result column of `base`'s length, its rows past the length
+    zeroed (a scalar operand broadcast over them leaves them non-zero)."""
+    values[base.length:] = 0
+    return col.PrimitiveColumn(values, validity, base.length, dtype)
+
+
+def _in_precision(v: torch.Tensor, nl_out: int, nl_w: int, precision: int,
+                  like) -> torch.Tensor:
+    """(capacity,) bool: the nl_w-limb value fits nl_out limbs and its
+    magnitude is below 10**precision."""
+    ok = (lb.fits_in(v, nl_out) if nl_out < nl_w else
+          torch.ones(v.shape[:-1], dtype=torch.bool, device=v.device))
+    bound = _scalar_limbs(10 ** precision, nl_w, like)
+    mag = torch.where(lb.is_negative(v)[..., None], lb.neg(v), v)
+    return ok & lb.lt_unsigned(mag, bound)
+
+
+def _addsub_result(a, b, raw: torch.Tensor, nl_w: int, s: int):
+    nl_a, p_a, s_a = _dec_info(a)
+    if isinstance(b, col.PrimitiveColumn):
+        nl_b, p_b, s_b = _dec_info(b)
+    else:
+        nl_b, p_b, s_b = nl_a, p_a, s_a
+    nl = max(nl_a, nl_b)
+    prec = min(st.MAX_DECIMAL_PRECISION[nl], max(p_a - s_a, p_b - s_b) + s + 1)
+    ok = _in_precision(raw, nl, nl_w, prec, a)
+    return _out(a, lb.narrow(raw, nl).contiguous(),
+                _with_ok(_union_validity(a, b), ok, a.length),
+                st.decimal_for_limbs(nl, prec, s))
+
+
+def add(a, b) -> col.PrimitiveColumn:
+    """a + b for a decimal column `a` and a decimal column or scalar."""
+    va, vb, nl_w, s = _align(a, b)
+    return _addsub_result(a, b, lb.add(va, vb), nl_w, s)
+
+
+def sub(a, b) -> col.PrimitiveColumn:
+    """a - b for a decimal column `a` and a decimal column or scalar."""
+    va, vb, nl_w, s = _align(a, b)
+    return _addsub_result(a, b, lb.sub(va, vb), nl_w, s)
+
+
+def neg(a) -> col.PrimitiveColumn:
+    return col.PrimitiveColumn(lb.neg(a.values), a.validity, a.length,
+                               a.dtype)
+
+
+def abs_(a) -> col.PrimitiveColumn:
+    v = torch.where(lb.is_negative(a.values)[..., None], lb.neg(a.values),
+                    a.values)
+    return col.PrimitiveColumn(v, a.validity, a.length, a.dtype)
+
+
+def rescale(a, dtype: st.DataType, safe: bool = True) -> col.PrimitiveColumn:
+    """decimal -> decimal cast to `dtype`'s width, precision and scale
+    (a lower scale truncates toward zero); a row out of the target
+    precision is null when `safe`, else keeps its wrapped value."""
+    nl_in, _, s_in = _dec_info(a)
+    nl_out = st.decimal_limbs(dtype)
+    s_out = dtype.scale
+    nl_w = _pow10_limbs(max(nl_in, nl_out), max(s_out - s_in, 0))
+    v = lb.widen(a.values, nl_w)
+    if s_out > s_in:
+        v = lb.mul_pow10(v, s_out - s_in)
+    elif s_out < s_in:
+        v, _ = lb.divmod_pow10(v, s_in - s_out)
+    out = (lb.narrow(v, nl_out) if nl_out <= nl_w
+           else lb.widen(v, nl_out)).contiguous()
+    validity = a.validity
+    if safe:
+        validity = _with_ok(validity, _in_precision(v, nl_out, nl_w,
+                                                    dtype.precision, a),
+                            a.length)
+    return col.PrimitiveColumn(out, validity, a.length, dtype)
+
+
+def from_int(c: col.PrimitiveColumn, dtype: st.DataType
+             ) -> col.PrimitiveColumn:
+    """Integer column -> decimal at `dtype`'s scale (wrapping, as the JAX
+    package's: a 32-bit value is its int32 bits sign-extended, an int64
+    its two limbs)."""
+    nl = st.decimal_limbs(dtype)
+    x = c.values.to(torch.int64)
+    if c.values.element_size() == 8:
+        v = lb.widen(x.view(torch.int32).reshape(-1, 2), nl)
+    else:
+        v = lb.widen(lb.stack_u32([x & 0xFFFFFFFF]), nl)
+    return col.PrimitiveColumn(lb.mul_pow10(v, dtype.scale).contiguous(),
+                               c.validity, c.length, dtype)
+
+
+def to_int(c: col.PrimitiveColumn, dtype: st.DataType = st.int64,
+           safe: bool = True) -> col.PrimitiveColumn:
+    """decimal -> int64, truncating toward zero; a value outside int64 is
+    null when `safe`, else wraps."""
+    nl, _, s = _dec_info(c)
+    v, _ = lb.divmod_pow10(c.values, s)
+    ok = (lb.fits_in(v, 2) if nl > 2 else
+          torch.ones(v.shape[:-1], dtype=torch.bool, device=v.device))
+    pair = (lb.widen(v, 2) if nl < 2 else lb.narrow(v, 2)).contiguous()
+    validity = _with_ok(c.validity, ok, c.length) if safe else c.validity
+    return col.PrimitiveColumn(pair.view(torch.int64).reshape(-1), validity,
+                               c.length, dtype)
+
+
+def to_float(c: col.PrimitiveColumn) -> col.PrimitiveColumn:
+    """decimal -> float64: the limbs' value (`limbs.to_float`) over
+    10**scale."""
+    _, _, s = _dec_info(c)
+    return col.PrimitiveColumn(lb.over_pow10(lb.to_float(c.values), s),
+                               c.validity, c.length, st.float64)
+
+
+def from_float(c: col.PrimitiveColumn, dtype: st.DataType
+               ) -> col.PrimitiveColumn:
+    """float -> decimal, rounding half away from zero (the JAX package's
+    rule), the magnitude split into 32-bit limbs by repeated fmod and
+    floor division (exact below 2^96)."""
+    nl = st.decimal_limbs(dtype)
+    scaled = c.values.to(torch.float64) * float(10 ** dtype.scale)
+    r = torch.where(scaled >= 0, torch.floor(scaled + 0.5),
+                    torch.ceil(scaled - 0.5))
+    mag = r.abs()
+    limbs = []
+    for _ in range(nl):
+        limbs.append(torch.fmod(mag, float(1 << 32)).to(torch.int64))
+        mag = torch.floor(mag / float(1 << 32))
+    v = lb.stack_u32(limbs)
+    v = torch.where((r < 0)[:, None], lb.neg(v), v)
+    return col.PrimitiveColumn(v, c.validity, c.length, dtype)
+
+
+def to_string(c: col.PrimitiveColumn) -> col.StringViewColumn:
+    """decimal -> utf8, formatted on the host."""
+    return col.string_view([None if v is None else str(v)
+                            for v in c.to_pylist()], device=c.device)
+
+
+def from_string(c: col.StringViewColumn, dtype: st.DataType
+                ) -> col.PrimitiveColumn:
+    """utf8 -> decimal, parsed on the host (round half up); an
+    unparsable string is null."""
+    out, valid = [], []
+    for t in c.to_pylist():
+        try:
+            out.append(None if t is None else col._unscaled(
+                _pydec.Decimal(t), dtype.scale))
+        except _pydec.InvalidOperation:
+            out.append(None)
+        valid.append(out[-1] is not None)
+    return col.primitive(lb.split_ints(out, st.decimal_limbs(dtype)), dtype,
+                         validity=np.asarray(valid, bool), device=c.device)
+
+
 def _cmp_bools(a, b, op):
     va, vb, _, _ = _align(a, b)
     if op == "eq":
@@ -141,6 +311,25 @@ def sum_(c: col.PrimitiveColumn):
         out.append(t & 0xFFFFFFFF)
         carry = t >> 32
     return lb.stack_u32(out), ok.sum()
+
+
+def min_max(c: col.PrimitiveColumn, is_min: bool):
+    """Whole-column min (or max) of the valid rows -> ((N,) int32 limbs,
+    0-d bool: some row is valid).  With no valid row the limbs are the
+    identity the JAX package's reduction leaves (the largest value for
+    min, the smallest for max)."""
+    nl, _, _ = _dec_info(c)
+    ok = c.valid_bool()
+    planes = lb.order_planes(c.values)
+    ident = 0xFFFFFFFF if is_min else 0
+    cand = ok
+    best = []
+    for p in planes:  # the lexicographic extreme, plane by plane
+        v = torch.where(cand, p, ident)
+        b = v.min() if is_min else v.max()
+        best.append(b)
+        cand = cand & (p == b)
+    return lb.from_order_planes(best), ok.any()
 
 
 def to_decimal(limbs: torch.Tensor, scale: int) -> _pydec.Decimal:

@@ -31,9 +31,10 @@ Sort pipeline:
 
   * Key columns encode to order-preserving planes (rowformat/encode.py:
     integers, booleans, floats by their total order, dictionaries by
-    value rank) and rows sort by them, live rows first, ties by row index
-    (rowformat/pack.py).  So -0.0 and +0.0, and NaNs of other payloads,
-    form groups of their own, as in the reference.
+    value rank, decimals by their limbs, fixed-size binary and string
+    views by their bytes) and rows sort by them, live rows first, ties by
+    row index (rowformat/pack.py).  So -0.0 and +0.0, and NaNs of other
+    payloads, form groups of their own, as in the reference.
   * Value-ordered tie-break: when min/max aggregates exist, the first
     such column's planes (nulls LAST) ride as extra sort keys, so within a
     group values ascend: min is the group's first row, max its last valid
@@ -41,13 +42,19 @@ Sort pipeline:
   * Group boundaries come from adjacent key-plane inequality; `is_last`
     marks each group's last row.
   * COUNT and integer SUM are differences of int64 prefix sums (exact mod
-    2**64) taken at `is_last`.  A float SUM is the reference's prefix
-    difference: an f64 cumsum read at each group's last row minus its
-    value at the previous group's last row.
+    2**64) taken at `is_last`; value columns without nulls share one
+    count.  A float SUM is the reference's prefix difference: an f64
+    cumsum read at each group's last row minus its value at the previous
+    group's last row.  A decimal SUM is one int64 prefix sum per 32-bit
+    limb (exact below 2**31 rows), differenced the same way, its carries
+    then folded into N limbs mod 2**(32 N) (`_decimal_agg`; the
+    reference's 8-bit chunk cumsums are the TPU's).
   * Per-group values are extracted by compacting sorted planes with the
-    boundary / is_last masks through K1 (kernels/compact3.py): one launch
+    boundary / is_last masks through K1 (kernels/compact3.py): one call
     for everything read at group starts, one for everything read at group
-    ends.  Floats move as their bits.
+    ends, one launch per word size (`_Extract`).  Floats move as their
+    bits; a string key's views and a Decimal128's limbs as one 16-byte
+    word a row.
 
 Null keys form their own group (first: nulls sort first); null values are
 skipped by every aggregate.  The output's length is the number of groups
@@ -56,9 +63,13 @@ granule (the JAX package keeps the input capacity), and rows past the
 length are zero.
 Output dtypes follow the JAX package: count -> int64 without validity;
 sum / min / max -> the column's dtype (narrow integer sums wrap; boolean
-values aggregate as int32); mean -> float64; sum / min / max / mean are
-null for a group with no valid value.  Decimal and string columns are not
-ported yet and raise.
+values aggregate as int32; a decimal sum keeps its limb count and scale at
+the width's largest precision); mean -> float64 (a decimal's:
+to_float(sum) / max(count, 1) / 10**scale); sum / min / max / mean are
+null for a group with no valid value.  A string key's output shares its
+input's arena.  String values raise under every aggregate, as in the
+reference; temporal and interval columns are not ported as keys or
+values yet.
 """
 
 from __future__ import annotations
@@ -74,10 +85,12 @@ from ..config import SortOptions, round_up
 from ..core import batch as bt
 from ..core import bitmap as bm
 from ..core import column as col
+from ..core import limbs as lb
 from ..kernels import compact3 as k1
 from ..kernels import dense_agg as dk
 from ..rowformat import encode as rf
 from ..rowformat import pack as rp
+from .take import gather_rows
 
 AGGS = ("sum", "count", "min", "max", "mean")
 
@@ -86,19 +99,55 @@ _WIDEN = (torch.uint16, torch.uint32)
 
 
 class _Extract:
-    """int64 planes to compact by one mask, gathered for a single launch."""
+    """Planes to compact by one mask, gathered for as few K1 launches as
+    their word sizes allow (one launch per word size): int64 planes
+    (floats as their bits) and (n, W) int32 rows.  A row of one word is a
+    4-byte word, of two an int64, of four one 16-byte word (a string view,
+    a Decimal128), of eight two 16-byte words (a Decimal256)."""
 
     def __init__(self):
         self.planes: List[torch.Tensor] = []
+        self.out: List[torch.Tensor] = []
 
-    def add(self, plane: torch.Tensor) -> int:
-        self.planes.append(_bits(plane))
-        return len(self.planes) - 1
+    def add(self, plane: torch.Tensor):
+        """-> a handle that reads the plane's compacted rows after run."""
+        if plane.dim() == 1:
+            return self._put([_bits(plane)]), None
+        W = plane.shape[1]
+        if W == 2:
+            parts = [plane.contiguous().view(torch.int64).reshape(-1)]
+        elif W == 8:
+            parts = [plane[:, :4].contiguous(), plane[:, 4:].contiguous()]
+        else:
+            parts = [plane.contiguous()]
+        return self._put(parts), W
 
-    def run(self, mask: torch.Tensor, rows: int) -> List[torch.Tensor]:
-        if not self.planes:
-            return []
-        return k1.compact_planes(self.planes, mask, out_rows=rows)
+    def _put(self, parts) -> range:
+        first = len(self.planes)
+        self.planes += parts
+        return range(first, len(self.planes))
+
+    def run(self, mask: torch.Tensor, rows: int) -> "_Extract":
+        self.out = [None] * len(self.planes)
+        by_word = {}
+        for i, p in enumerate(self.planes):
+            by_word.setdefault((p.dtype, tuple(p.shape[1:])), []).append(i)
+        for ix in by_word.values():
+            got = k1.compact_planes([self.planes[i] for i in ix], mask,
+                                    out_rows=rows)
+            for i, g in zip(ix, got):
+                self.out[i] = g
+        self.planes = []
+        return self
+
+    def __getitem__(self, handle) -> torch.Tensor:
+        ix, W = handle
+        parts = [self.out[i] for i in ix]
+        if W is None:
+            return parts[0]
+        if W == 2:
+            return parts[0].view(torch.int32).reshape(-1, 2)
+        return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
 
 def _bits(v: torch.Tensor) -> torch.Tensor:
@@ -137,26 +186,42 @@ def _is_int(c) -> bool:
     return isinstance(c, col.PrimitiveColumn) and isinstance(c.dtype, st.Int)
 
 
+def _is_decimal(c) -> bool:
+    return (isinstance(c, col.PrimitiveColumn)
+            and st.decimal_limbs(c.dtype) is not None)
+
+
+def _is_key(c) -> bool:
+    """The JAX package's key columns (`_column_operands`), less its
+    temporal and interval keys."""
+    return (isinstance(c, (col.BooleanColumn, col.DictionaryColumn,
+                           col.StringViewColumn))
+            or _is_decimal(c) or (isinstance(c, col.PrimitiveColumn) and
+                                  isinstance(c.dtype, (st.Int, st.Float,
+                                                       st.FixedSizeBinary))))
+
+
+def _is_value(c) -> bool:
+    return (isinstance(c, col.BooleanColumn) or _is_decimal(c)
+            or (isinstance(c, col.PrimitiveColumn)
+                and isinstance(c.dtype, (st.Int, st.Float))))
+
+
 def _check(batch, keys, aggs):
     if not keys:
         raise st.ComputeError("group by: no key columns")
     for k in keys:
         c = batch[k]
-        if not (isinstance(c, (col.BooleanColumn, col.DictionaryColumn))
-                or (isinstance(c, col.PrimitiveColumn)
-                    and isinstance(c.dtype, (st.Int, st.Float)))):
+        if not _is_key(c):
             raise st.ComputeError(
-                f"group by: key {k!r} of type {c.dtype} is not supported yet")
+                f"group by: key {k!r} of type {c.dtype} is not supported")
     for name, agg in aggs:
         if agg not in AGGS:
             raise st.ComputeError(f"unknown aggregate {agg!r}")
         c = batch[name]
-        if not (isinstance(c, col.BooleanColumn) or (
-                isinstance(c, col.PrimitiveColumn)
-                and isinstance(c.dtype, (st.Int, st.Float)))):
+        if not _is_value(c):
             raise st.ComputeError(
-                f"aggregate on {name!r} of type {c.dtype} is not supported "
-                "yet")
+                f"aggregate on {name!r} of type {c.dtype} is not supported")
 
 
 def _normalize(keys, aggs):
@@ -371,11 +436,14 @@ def _out_dtype(c) -> torch.dtype:
 
 def _key_rows(c) -> torch.Tensor:
     """What a key column's output is rebuilt from: its values (a
-    dictionary's keys into its values), widened as in _value_rows."""
+    dictionary's keys into its values, a string's views), widened as in
+    _value_rows."""
     if isinstance(c, col.BooleanColumn):
         return c.values_bool()
     if isinstance(c, col.DictionaryColumn):
         return c.keys.values
+    if isinstance(c, col.StringViewColumn):
+        return c.views
     return _value_rows(c)
 
 
@@ -386,6 +454,11 @@ def _rebuild_key(c, at, validity, groups):
         keys = col.PrimitiveColumn(at.to(c.keys.values.dtype), validity,
                                    groups, c.keys.dtype)
         return col.DictionaryColumn(keys, c.values, c.value_ranks, c.dtype)
+    if isinstance(c, col.StringViewColumn):  # the arena is shared
+        return col.StringViewColumn(at, c.arena, validity, groups, c.dtype,
+                                    c.len_bound)
+    if at.dim() == 2:
+        return col.PrimitiveColumn(at, validity, groups, c.dtype)
     return col.PrimitiveColumn(_from_bits(at, c.values.dtype), validity,
                                groups, c.dtype)
 
@@ -397,15 +470,16 @@ def _sort_group_by(batch, keys, aggs) -> bt.RecordBatch:
 
     key_planes, split_planes = [], []
     for c in key_cols:
-        sentinel, value = rf.encode_column(c)
-        key_planes += [sentinel, value]
+        planes = rf.encode_column(c)
+        key_planes += planes
         # the sentinel of a key without nulls is 1 on every live row
-        split_planes += [value] if c.validity is None else [sentinel, value]
+        split_planes += planes[1:] if c.validity is None else planes
     minmax = [nm for nm, a in aggs if a in ("min", "max")]
     vo_name = minmax[0] if minmax else None
     vo_planes = (rf.encode_column(batch[vo_name], SortOptions(nulls_first=False))
                  if vo_name else [])
     perm = rp.sort_permutation(key_planes + vo_planes, cap, length)
+    del key_planes, vo_planes
 
     iota = torch.arange(cap, device=device)
     live = iota < length
@@ -413,6 +487,7 @@ def _sort_group_by(batch, keys, aggs) -> bt.RecordBatch:
     for p in split_planes:  # key planes only: value planes must not split
         sp = p[perm]
         boundary |= sp != _shift_down(sp, 0)
+    del split_planes
     boundary[0] = True
     boundary &= live
     num_groups = int(boundary.sum())
@@ -424,28 +499,40 @@ def _sort_group_by(batch, keys, aggs) -> bt.RecordBatch:
     starts, lasts = _Extract(), _Extract()
     key_ix = []
     for c in key_cols:
-        vals = _key_rows(c)[perm]
+        vals = gather_rows(_key_rows(c), perm)
         valid = c.valid_bool()[perm] if c.validity is not None else None
         key_ix.append((starts.add(vals),
                        None if valid is None else starts.add(valid)))
 
+    # per value column: its sorted validity and values; a column without
+    # nulls is valid on exactly the live rows, which sort first, so all
+    # such columns share one count
     sorted_ok, sorted_vals, cnt_ix, sum_ix = {}, {}, {}, {}
     top_ix = None  # each group's last sorted row, for float sums
     float_cs = {}
     for name, agg in aggs:
         c = batch[name]
         if name not in sorted_ok:
-            sorted_ok[name] = c.valid_bool()[perm]
-            sorted_vals[name] = _value_rows(c)[perm]
-            cnt_ix[name] = lasts.add(sorted_ok[name].cumsum(0))
+            sorted_ok[name] = (live if c.validity is None
+                               else c.valid_bool()[perm])
+            sorted_vals[name] = gather_rows(_value_rows(c), perm)
+            cnt_key = name if c.validity is not None else None
+            if cnt_key not in cnt_ix:
+                cnt_ix[cnt_key] = lasts.add(sorted_ok[name].cumsum(0))
         ok, v = sorted_ok[name], sorted_vals[name]
-        if agg in ("sum", "mean") and v.dtype.is_floating_point:
-            if name not in float_cs:
-                float_cs[name] = torch.where(ok, v.to(torch.float64),
-                                             0.0).cumsum(0)
+        if agg not in ("sum", "mean") or name in sum_ix:
+            continue
+        if v.dim() == 2:  # decimal limbs: int64 prefix sums of each limb
+            sum_ix[name] = [lasts.add(torch.where(
+                ok, lb.unsigned(v[:, j]), 0).cumsum(0))
+                for j in range(v.shape[1])]
+        elif v.dtype.is_floating_point:
+            float_cs[name] = torch.where(ok, v.to(torch.float64),
+                                         0.0).cumsum(0)
             if top_ix is None:
                 top_ix = lasts.add(iota)
-        elif agg in ("sum", "mean") and name not in sum_ix:
+            sum_ix[name] = None
+        else:
             vz = torch.where(ok, v.to(torch.int64), 0)
             sum_ix[name] = lasts.add(vz.cumsum(0))
 
@@ -458,73 +545,129 @@ def _sort_group_by(batch, keys, aggs) -> bt.RecordBatch:
         # last), or, for an all-null group, its first row
         ok = sorted_ok[vo_name]
         vo_max_mask = (ok & (next_b | ~_shift_up(ok, False))) | (boundary & ~ok)
-        (vo_max,) = k1.compact_planes(
-            [_bits(sorted_vals[vo_name])], vo_max_mask, out_rows=out_cap)
+        vo_max = _Extract()
+        vo_max_h = vo_max.add(sorted_vals[vo_name])
+        vo_max.run(vo_max_mask, out_cap)
 
-    at_starts = starts.run(boundary, out_cap)
-    at_lasts = lasts.run(is_last, out_cap)
+    starts.run(boundary, out_cap)
+    lasts.run(is_last, out_cap)
 
-    def group_sums(ix):
-        tops = at_lasts[ix]
+    def group_sums(h):
+        tops = lasts[h]
         return torch.where(glive, tops - _shift_down(tops, 0), 0)
 
     def float_sums(name):
         # the reference's prefix difference, cs[last_g] - cs[last_{g-1}]
         # (rows past the groups read row 0 and are zeroed after)
-        cs, top = float_cs[name], at_lasts[top_ix]
+        cs, top = float_cs[name], lasts[top_ix]
         prev = torch.where(iota[:out_cap] == 0, 0.0,
                            cs[_shift_down(top, 0)])
         return torch.where(glive, cs[top] - prev, 0.0)
 
     fields, cols = [], []
     for k, c, (vi, oi) in zip(keys, key_cols, key_ix):
-        validity = None if oi is None else bm.pack(at_starts[oi] != 0)
+        validity = None if oi is None else bm.pack(starts[oi] != 0)
         fields.append(st.Field(k, c.dtype))
-        cols.append(_rebuild_key(c, at_starts[vi], validity, num_groups))
+        cols.append(_rebuild_key(c, starts[vi], validity, num_groups))
 
-    counts = {name: group_sums(ix) for name, ix in cnt_ix.items()}
+    counts = {key: group_sums(h) for key, h in cnt_ix.items()}
     for name, agg in aggs:
         c = batch[name]
-        vdt, odt = sorted_vals[name].dtype, _out_dtype(c)
-        out_dt = st.int32 if isinstance(c, col.BooleanColumn) else c.dtype
-        cnt = counts[name]
-        has = cnt > 0
-        has_v = bm.pack(has)
+        cnt = counts[name if c.validity is not None else None]
+        vo_rows = None  # the value-ordered column's min / max rows
+        if name == vo_name and agg in ("min", "max"):
+            vo_rows = starts[vo_min] if agg == "min" else vo_max[vo_max_h]
         if agg == "count":
             out = col.PrimitiveColumn(cnt, None, num_groups, st.int64)
-        elif agg in ("sum", "mean"):
-            s = (float_sums(name) if vdt.is_floating_point
-                 else group_sums(sum_ix[name]))
-            if agg == "sum":
-                out = col.PrimitiveColumn(s.to(odt), has_v, num_groups,
-                                          out_dt)
-            else:
-                mean = s.to(torch.float64) / cnt.clamp(min=1).to(
-                    torch.float64)
-                out = col.PrimitiveColumn(mean, has_v, num_groups,
-                                          st.float64)
+        elif _is_decimal(c):
+            out = _decimal_agg(c, agg, cnt, group_sums, sum_ix.get(name),
+                               sorted_ok[name], sorted_vals[name], boundary,
+                               out_cap, num_groups, vo_rows)
         else:
-            if name == vo_name:
-                best = _from_bits(at_starts[vo_min] if agg == "min"
-                                  else vo_max, vdt)
-            else:
-                best = _from_order_key(_segment_extreme(
-                    boundary, sorted_ok[name], _order_key(sorted_vals[name]),
-                    agg, out_cap), vdt)
-            best = torch.where(has, best, 0).to(odt)
-            out = col.PrimitiveColumn(best, has_v, num_groups, out_dt)
+            out = _native_agg(c, agg, cnt, sorted_ok[name],
+                              sorted_vals[name], boundary, out_cap,
+                              num_groups, vo_rows,
+                              lambda: (float_sums(name)
+                                       if name in float_cs
+                                       else group_sums(sum_ix[name])))
         fields.append(st.Field(f"{agg}_{name}", out.dtype))
         cols.append(out)
     return bt.RecordBatch(st.Schema(tuple(fields)), tuple(cols))
 
 
-def _segment_extreme(boundary, ok, keyed, agg, rows) -> torch.Tensor:
-    """Per-group min/max of int64 order keys of a column that is not the
-    value-ordered one (groups are contiguous in sorted order): a segmented
-    reduction over group ids."""
+def _native_agg(c, agg, cnt, ok, vals, boundary, out_cap, num_groups,
+                vo_rows, sums) -> col.PrimitiveColumn:
+    """sum / mean / min / max of an integer, float or boolean column: the
+    sum from `sums()` (the prefix differences), min and max the value-
+    ordered column's rows (`vo_rows`) or a segmented extreme."""
+    vdt, odt = vals.dtype, _out_dtype(c)
+    out_dt = st.int32 if isinstance(c, col.BooleanColumn) else c.dtype
+    has = cnt > 0
+    has_v = bm.pack(has)
+    if agg in ("sum", "mean"):
+        s = sums()
+        if agg == "sum":
+            return col.PrimitiveColumn(s.to(odt), has_v, num_groups, out_dt)
+        mean = s.to(torch.float64) / cnt.clamp(min=1).to(torch.float64)
+        return col.PrimitiveColumn(mean, has_v, num_groups, st.float64)
+    if vo_rows is not None:
+        best = _from_bits(vo_rows, vdt)
+    else:
+        best = _from_order_key(_segment_extreme(
+            boundary, ok, [_order_key(vals)], agg, out_cap)[0], vdt)
+    best = torch.where(has, best, 0).to(odt)
+    return col.PrimitiveColumn(best, has_v, num_groups, out_dt)
+
+
+def _decimal_agg(c, agg, cnt, group_sums, sum_hs, ok, limbs, boundary,
+                 out_cap, num_groups, vo_best) -> col.PrimitiveColumn:
+    """A decimal column's aggregate (the reference's
+    `_segment_agg_decimal`): the sum keeps the limb count and the scale at
+    the width's largest precision, carried out of the limbs' int64 group
+    sums mod 2**(32 N); the mean is float64, to_float(sum) / max(count, 1)
+    / 10**scale in that order; min and max are limb rows, of the value-
+    ordered column (`vo_best`, already extracted) or, for another column,
+    the lexicographic extreme of its order planes in each group."""
+    nl = st.decimal_limbs(c.dtype)
+    has = cnt > 0
+    has_v = bm.pack(has)
+    if agg in ("sum", "mean"):
+        out, carry = [], 0
+        for h in sum_hs:
+            t = group_sums(h) + carry
+            out.append(t & 0xFFFFFFFF)
+            carry = t >> 32
+        s = lb.stack_u32(out)
+        if agg == "mean":
+            mean = lb.to_float(s) / cnt.clamp(min=1).to(torch.float64)
+            return col.PrimitiveColumn(lb.over_pow10(mean, c.dtype.scale),
+                                       has_v, num_groups, st.float64)
+        return col.PrimitiveColumn(
+            s, has_v, num_groups, st.decimal_for_limbs(
+                nl, st.MAX_DECIMAL_PRECISION[nl], c.dtype.scale))
+    if vo_best is None:
+        vo_best = lb.from_order_planes(_segment_extreme(
+            boundary, ok, lb.order_planes(limbs), agg, out_cap))
+    best = torch.where(has[:, None], vo_best, 0)
+    return col.PrimitiveColumn(best, has_v, num_groups, c.dtype)
+
+
+def _segment_extreme(boundary, ok, planes, agg, rows) -> List[torch.Tensor]:
+    """Per-group lexicographic min/max of int64 planes (most significant
+    first) over the valid rows of a column that is not the value-ordered
+    one (groups are contiguous in sorted order): a segmented reduction of
+    each plane in turn over the rows still tied on the planes before it.
+    A group with no valid row gets the int64 extreme (the callers zero
+    it)."""
     big = torch.iinfo(torch.int64)
     ident = big.max if agg == "min" else big.min
     gid = boundary.cumsum(0) - 1
-    out = torch.full((rows,), ident, dtype=torch.int64, device=keyed.device)
-    return out.scatter_reduce(0, gid[ok], keyed[ok],
-                              "amin" if agg == "min" else "amax")
+    cand = ok
+    best = []
+    for p in planes:
+        out = torch.full((rows,), ident, dtype=torch.int64, device=p.device)
+        out = out.scatter_reduce(0, gid[cand], p[cand],
+                                 "amin" if agg == "min" else "amax")
+        best.append(out)
+        cand = cand & (p == out[gid.clamp(max=rows - 1)])
+    return best

@@ -66,7 +66,7 @@ def _key_planes_and_valid(columns: Sequence[col.Column]):
     for c in columns:
         if c.validity is not None:
             valid = valid & bm.unpack(c.validity)
-        planes.append(rf.encode_column(c)[1])  # the sentinel never differs
+        planes.extend(rf.encode_column(c)[1:])  # the sentinel never differs
     h = hsh.hash_planes(rf.hash_planes_of(columns))
     return planes, h, valid
 

@@ -37,12 +37,22 @@ def _index_column(perm: torch.Tensor, length: int, capacity: int,
     return col.PrimitiveColumn(idx, None, out_len, st.int32)
 
 
+def _sorted_perm(columns, options, capacity: int, length: int
+                 ) -> torch.Tensor:
+    """The sort permutation of the key columns: one packed sort, or the
+    grouped sort when a long string key splits the planes into groups
+    (rowformat/encode.py encode_columns_grouped)."""
+    groups = rf.encode_columns_grouped(list(columns), options)
+    if len(groups) == 1:
+        return rp.sort_permutation(groups[0], capacity, length)
+    return rp.sort_by_plane_groups(groups, capacity, length)
+
+
 def sort_to_indices(c: col.Column, options: SortOptions = SortOptions(),
                     limit: Optional[int] = None) -> col.PrimitiveColumn:
     """The int32 index column whose first `length` (or `limit`) entries
     sort `c` per `options`."""
-    perm = rp.sort_permutation(rf.encode_column(c, options), c.capacity,
-                               c.length)
+    perm = _sorted_perm([c], [options], c.capacity, c.length)
     return _index_column(perm, c.length, c.capacity, limit)
 
 
@@ -61,9 +71,8 @@ def lexsort_to_indices(columns: Sequence[col.Column],
     if len(caps) != 1:
         raise st.ComputeError(f"lexsort: capacity mismatch {caps}")
     first = columns[0]
-    planes = rf.encode_columns(list(columns),
-                               None if options is None else list(options))
-    perm = rp.sort_permutation(planes, first.capacity, first.length)
+    perm = _sorted_perm(columns, None if options is None else list(options),
+                        first.capacity, first.length)
     return _index_column(perm, first.length, first.capacity, limit)
 
 

@@ -67,6 +67,25 @@ def _out_of_bounds(valid_idx: torch.Tensor, in_bounds: torch.Tensor) -> bool:
     return bool((valid_idx & ~in_bounds).any())
 
 
+_ROW_ELEMENT = {8: torch.int64, 16: torch.complex128}
+
+
+def gather_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """t[idx] along dim 0.  A contiguous 2-D tensor whose row is 8 or 16
+    bytes (a Decimal64 or Decimal128, a string view) is gathered as one
+    int64 or complex128 element a row: PyTorch indexes (n, 4) int32 rows
+    far slower than 16-byte elements (TPC-H Q1's five 59M-row limb
+    gathers on an H100: `chip_smoke.py` phase 15 times both).  The copy
+    moves the bits unchanged."""
+    if t.dim() != 2 or not t.is_contiguous():
+        return t[idx]
+    element = _ROW_ELEMENT.get(t.shape[1] * t.element_size())
+    if element is None:
+        return t[idx]
+    return t.view(element).reshape(-1)[idx].view(t.dtype).reshape(
+        -1, t.shape[1])
+
+
 def _zero_tail(t: torch.Tensor, n: int) -> torch.Tensor:
     if n < t.shape[0]:
         t[n:] = 0
@@ -92,11 +111,12 @@ def _take_values(c: col.Column, idx: torch.Tensor, ok: torch.Tensor,
         return col.BooleanColumn(bm.pack(c.values_bool()[idx] & live),
                                  validity, n)
     if isinstance(c, col.StringViewColumn):
-        return col.StringViewColumn(_zero_tail(c.views[idx], n), c.arena,
+        return col.StringViewColumn(_zero_tail(gather_rows(c.views, idx), n),
+                                    c.arena,
                                     validity, n, c.dtype, c.len_bound)
     if isinstance(c, col.PrimitiveColumn):
-        return col.PrimitiveColumn(_zero_tail(c.values[idx], n), validity, n,
-                                   c.dtype)
+        return col.PrimitiveColumn(_zero_tail(gather_rows(c.values, idx), n),
+                                   validity, n, c.dtype)
     if isinstance(c, col.ListViewColumn):
         return col.ListViewColumn(_zero_tail(c.starts[idx], n),
                                   _zero_tail(c.sizes[idx], n), c.child,

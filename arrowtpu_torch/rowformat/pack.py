@@ -1,8 +1,8 @@
 """Stable sort of rows by order-preserving planes, with the planes packed
 into as few int64 sort keys as their ranges allow.
 
-Counterpart of `arrowtpu/rowformat/pack.py` (`sort_by_planes`), giving the
-SAME order: live rows first, then the planes lexicographically ascending,
+Counterpart of `arrowtpu/rowformat/pack.py` (`sort_by_planes`,
+`sort_by_plane_groups`), giving the SAME order: live rows first, then the planes lexicographically ascending,
 ties by row index.  `torch.sort(stable=True)` stands in for `lax.sort`.
 
 Packing: each plane's range over the live rows (one read-back for all
@@ -18,7 +18,14 @@ ranges are read back as Python ints, so a range of 2**64 - 1 does not
 overflow.  The flagship group-by (key + value planes, about 17 bits) sorts
 once; config 3's lexsort (int32 range 200, float64, dictionary of 1000)
 packs to three words: flag + int32 (9 bits), the raw float key, the rank
-(10 bits).
+(10 bits); two one-letter string keys (TPC-H Q1's flags: one word plane
+of 28-29 bits each, the other planes constant) pack to one word.
+
+`sort_by_plane_groups` sorts by plane groups in turn (a long string key's
+prefix, then 16 bytes at a time): the first group sorts the rows, then
+each refinement sorts them by [the run rank of everything compared so
+far, the next group's planes], stably, so ties resolve group by group and
+no sort carries more than a group's planes.
 """
 
 from __future__ import annotations
@@ -91,3 +98,33 @@ def sort_by_planes(planes: Sequence[torch.Tensor], capacity: int, length: int,
     `sort_permutation`."""
     perm = sort_permutation(planes, capacity, length)
     return [p[perm] for p in planes], [e[perm] for e in extras]
+
+
+def _run_rank(planes: Sequence[torch.Tensor]) -> torch.Tensor:
+    """int64 run id of each row of sorted planes: rows share a rank iff
+    they are equal on every plane and adjacent."""
+    boundary = torch.zeros(planes[0].shape[0], dtype=torch.bool,
+                           device=planes[0].device)
+    boundary[0] = True
+    for p in planes:
+        boundary[1:] |= p[1:] != p[:-1]
+    return boundary.to(torch.int64).cumsum(0) - 1
+
+
+def sort_by_plane_groups(groups: Sequence[Sequence[torch.Tensor]],
+                         capacity: int, length: int) -> torch.Tensor:
+    """(capacity,) int64 permutation ordering the rows by the groups'
+    planes lexicographically (group 0 most significant), live rows (those
+    below `length`) first, ties by row index: the order of
+    `sort_permutation` over all the planes at once."""
+    groups = [list(g) for g in groups if len(g)]
+    perm = sort_permutation(groups[0], capacity, length)
+    if len(groups) == 1:
+        return perm
+    rank = _run_rank([p[perm] for p in groups[0]])
+    for g in groups[1:]:
+        planes = [p[perm] for p in g]
+        sub = sort_permutation([rank] + planes, capacity, length)
+        perm = perm[sub]
+        rank = _run_rank([rank[sub]] + [p[sub] for p in planes])
+    return perm

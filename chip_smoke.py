@@ -147,15 +147,35 @@ Phases (each raises on failure; the exit code is then non-zero):
      launches counted (K1 and K2 must both launch) and by word size,
      every K1 and K2 call held to its plain version, and
      `take_record_batch` of 4,000,000 ids (1 % null, 1 % past the end),
-     both held to numpy gathers of the inputs' own arrays, and timed.
+     both held to numpy gathers of the inputs' own arrays, and timed;
+  15. (run right after phase 13, on its arrays and batch, which are then
+     freed) TPC-H Q1 (`entry.q1_step`: l_shipdate <= 1998-09-02, the
+     filter of the six columns Q1 reads, disc_price and charge by decimal
+     limb arithmetic, the group-by of the two one-letter string flags
+     with four decimal sums, three means and a count, the sort by the
+     flags) over the whole SF10 `lineitem`: the launch counts set to 0
+     just before the step and read just after, K1 at 16-byte words in the
+     filter and at 16 and 8 bytes in the group-by's extraction (counted
+     by `_build.launch_words` and by calling module), every K1 call held
+     to its plain version; exact against `entry.q1_oracle` (4 groups, the
+     sums as integers, the means bit for bit, the counts); the step's time
+     (CUDA events, median of 10 with min and max), its stages (predicate,
+     plan, filter, prices, group-by with its encode, sort, limb prefix
+     sums and extraction, final sort), busy share and peak memory; K1 at
+     the filter call and at the group-by's calls beside their bounds,
+     plain versions and library calls; then `sort_to_indices` of SF1's
+     `l_comment` (about 6M strings of 10-43 bytes), which must run the
+     grouped sort and equal numpy's stable argsort of the bytes, timed.
 
 The line before the last lists the kernels as JSON (`launches` from the
 flagship step for K1 and K2, from K3's entry point for K3, from
 run_probes for the probe kernels, from config 4 at 100 keys for
 dense_agg and from the Q6 step for K1's 16-byte words; every path's counts under `launches_by_path`, the skewed
-step's filters as a path of their own; the flagship, join and skewed join
-steps, int64-keyed, must launch no dense_agg);
-the last line is {"ok": true, "device": {...}}.
+step's filters as a path of their own, TPC-H Q1 too; the flagship, join
+and skewed join steps, int64-keyed, must launch no dense_agg; K1's 16-byte
+row carries its Q1 calls), after the Q1 step's and the l_comment sort's
+JSON lines and the card's line; the last line is {"ok": true, "device":
+{...}}.
 Without a CUDA device the script exits with an error and prints no
 result.
 """
@@ -1373,7 +1393,8 @@ def q6_stages(pe, ops, batch):
 
 def q6_phase(pe, ops, k1, k2, build, dev, floor_bytes_per_s):
     """Phase 13: TPC-H Q6 over lineitem at SF10.  -> (the launches of the
-    step, the 16-byte K1 row)."""
+    step, the 16-byte K1 row, the lineitem arrays and batch, which phase
+    15 reuses)."""
     from arrowtpu_torch.core import bitmap as bm
     from arrowtpu_torch.core import column as col
     from arrowtpu_torch.ops import filter as flt
@@ -1494,8 +1515,194 @@ def q6_phase(pe, ops, k1, k2, build, dev, floor_bytes_per_s):
     log(f"Q6 batch take_record_batch: {TAKE_IDS} ids (1 % null, 1 % past "
         f"the end), exact against a numpy gather of every column; "
         f"{take_ms:.3f} ms")
-    del batch, taken, out
-    return run, row
+    del taken, out
+    return run, row, arrays, batch
+
+
+Q1_REPS = 10
+COMMENT_SF = 1  # the string sort check: SF1's l_comment, about 6M rows
+COMMENT_REPS = 5
+
+
+def q1_stages(pe, ops, batch):
+    """The Q1 step's stages, each timed alone (CUDA events, median): the
+    predicate, the plan, the filter past its plan, the two prices, the
+    group-by and, inside it, the key encode, the key sort, the gathers of
+    the value rows (`gather_rows`, and beside it PyTorch's indexing of the
+    same rows) and the limb prefix sums (K1's extraction is timed by its
+    calls), then the final sort."""
+    from arrowtpu_torch.core import batch as bt
+    from arrowtpu_torch.ops import filter as flt
+    from arrowtpu_torch.ops.take import gather_rows
+    from arrowtpu_torch.rowformat import encode as rf
+    from arrowtpu_torch.rowformat import pack as rp
+
+    sub = bt.record_batch({n: batch[n] for n in pe.Q1_READS})
+    mask = pe.q1_predicate(batch)
+    plan = flt.build_plan(mask)
+    kept = flt.filter_record_batch(sub, mask)
+    prices = pe.q1_prices(kept)
+    grouped = pe.q1_group(kept, *prices)
+    keys = [kept[k] for k in pe.Q1_KEYS]
+    cap, n = kept.capacity, kept.length
+
+    def encode():
+        return [p for c in keys for p in rf.encode_column(c)]
+
+    planes = encode()
+    live = torch.arange(cap, device=planes[0].device) < n
+    words = len(rp.packed_words(planes, live))
+    if words != 1:
+        raise AssertionError(f"Q1's flag keys pack to {words} sort words")
+    perm = rp.sort_permutation(planes, cap, n)
+    values = [kept["l_quantity"], kept["l_extendedprice"], prices[0],
+              prices[1], kept["l_discount"]]
+
+    def gathers():
+        return [gather_rows(v.values, perm) for v in values]
+
+    rows = gathers()
+
+    def sums():
+        return [torch.where(live, r[:, j].to(torch.int64) & 0xFFFFFFFF,
+                            0).cumsum(0)
+                for r in rows for j in range(r.shape[1])]
+
+    reps = dict(reps=Q1_REPS, warmup=2)
+    return {"predicate_ms": median_ms(lambda: pe.q1_predicate(batch), **reps),
+            "plan_ms": median_ms(lambda: flt.build_plan(mask), **reps),
+            "filter_ms": median_ms(
+                lambda: flt._apply(sub.columns, plan), **reps),
+            "prices_ms": median_ms(lambda: pe.q1_prices(kept), **reps),
+            "group_by_ms": median_ms(lambda: pe.q1_group(kept, *prices),
+                                     **reps),
+            "group_by_encode_ms": median_ms(encode, **reps),
+            "group_by_sort_words": words,
+            "group_by_sort_ms": median_ms(
+                lambda: rp.sort_permutation(planes, cap, n), **reps),
+            "group_by_value_gathers_ms": median_ms(gathers, **reps),
+            # the same rows by PyTorch's own indexing of (n, 4) int32 rows
+            "group_by_value_gathers_by_indexing_ms": median_ms(
+                lambda: [v.values[perm] for v in values], **reps),
+            "group_by_sums_ms": median_ms(sums, **reps),
+            "final_sort_ms": median_ms(
+                lambda: ops.sort_batch(grouped, pe.Q1_KEYS), **reps)}
+
+
+def comment_sort(pe, dev):
+    """sort_to_indices of SF1's l_comment (10-43 bytes: L = 48, so the
+    grouped sort runs, a 16-byte prefix and refinement groups) against
+    numpy's stable argsort of the same bytes as an S43 array; timed.
+    -> its line."""
+    from arrowtpu_torch.ops import sortmod as srt
+    from arrowtpu_torch.rowformat import pack as rp
+
+    t0 = time.perf_counter()
+    pool, starts, lengths = pe.example_lineitem_arrays(COMMENT_SF,
+                                                       6)["l_comment"]
+    n = len(starts)
+    c = pe.string_view_from_numpy(pool, starts, lengths, device=dev)
+    idx = starts[:, None] + np.arange(43)
+    raw = np.where(np.arange(43) < lengths[:, None],
+                   pool[np.minimum(idx, len(pool) - 1)], 0).astype(np.uint8)
+    want = np.argsort(raw.view("S43").ravel(), kind="stable")
+    del idx, raw
+    t_host = time.perf_counter() - t0
+    with recorded(rp, "sort_by_plane_groups") as grouped:
+        got = srt.sort_to_indices(c)
+        torch.cuda.synchronize()
+    if len(grouped) != 1 or len(grouped[0][0][0]) < 2:
+        raise AssertionError(f"l_comment: the grouped sort ran "
+                             f"{len(grouped)} times")
+    groups = [len(g) for g in grouped[0][0][0]]
+    if got.length != n or not np.array_equal(
+            got.values[:n].cpu().numpy(), want):
+        raise AssertionError("l_comment: sort_to_indices differs from "
+                             "numpy's stable argsort")
+    times = run_times_ms(lambda: srt.sort_to_indices(c), reps=COMMENT_REPS,
+                         warmup=1)
+    line = {"rows": n, "len_bound": c.len_bound, "plane_groups": groups,
+            "sort_ms": statistics.median(times), "min_ms": times[0],
+            "max_ms": times[-1], "reps": len(times),
+            "host_argsort_s": t_host}
+    log(f"l_comment sort at SF{COMMENT_SF}: equal to numpy's stable argsort "
+        f"of S43 bytes; {line}")
+    return line
+
+
+def q1_phase(pe, ops, k1, k2, build, dev, arrays, batch):
+    """Phase 15: TPC-H Q1 over phase 13's SF10 lineitem, then the string
+    sort check.  -> (the launches of the step, K1's rows at its calls)."""
+
+    t0 = time.perf_counter()
+    want = pe.q1_oracle(arrays)
+    t_oracle = time.perf_counter() - t0
+    n = batch.length
+    args = {}
+    with held_to_plain({"K1": k1}, args) as calls, \
+            build.launch_words() as words:
+        k1.launches = k2.launches = 0
+        build.count_launches = 0
+        out = pe.q1_step(batch)
+        torch.cuda.synchronize()
+        run = {"K1": k1.launches, "K2": k2.launches,
+               "tile_counts": build.count_launches,
+               **{f"{k}_{w}": words.count((k, w))
+                  for k, w in sorted(set(words))}}
+    rows = pe.check_q1(out, arrays, want)
+    by_caller = collections.Counter(
+        (c.caller.rsplit(".", 1)[-1], build.word_bytes(c.planes[0]))
+        for c in args["K1"])
+    if not (by_caller[("filter", 16)] >= 1 and by_caller[("groupby", 16)] >= 1
+            and by_caller[("groupby", 8)] >= 1):
+        raise AssertionError(f"Q1: K1 calls by module and word size "
+                             f"{dict(by_caller)}; expected 16-byte words in "
+                             "the filter and 16- and 8-byte words in the "
+                             "group-by")
+    extraction = group_by_calls(args, run["tile_counts"], "Q1")
+    log(f"Q1: exact against q1_oracle ({t_oracle:.1f} s on the host), "
+        f"{out.length} groups {want['keys']}, {rows} of {n} rows kept "
+        f"({rows / n:.3%}), counts {want['count_order']}; launches {run}; "
+        f"K1 calls by module and word bytes {dict(by_caller)}; every K1 call "
+        f"held to plain (P, n, kept, out_rows): {calls['K1']}")
+    log(f"Q1 output: {out.to_pydict()}")
+
+    # K1 at the step's filter call (16-byte words, the plan's offsets) and
+    # at its group-by calls, replayed on their operands; then the operands
+    # go, before the step is timed
+    (call,) = [c for c in args["K1"]
+               if c.caller == "arrowtpu_torch.ops.filter"]
+    planes, keep, offs, out_rows = (list(call.planes), call.keep, call.offs,
+                                    call.out_rows)
+    stacked = torch.stack(planes)
+    row = time_kernel("K1 16-byte words, Q1 filter",
+                      lambda: k1.compact_planes(planes, keep, offs, out_rows),
+                      lambda: k1.compact_planes_plain(planes, keep, out_rows),
+                      lambda: stacked[:, keep], planes, keep, out_rows)
+    del stacked, planes, keep, offs, call
+    row.update(launches=1, max_abs_err=0.0, call="Q1 filter")
+    k1_rows = [row] + [dict(r, call="Q1 group-by extraction") for r in
+                       time_k1_group_calls(k1, "Q1 group-by", extraction)]
+    del args, out, calls, extraction
+    torch.cuda.empty_cache()
+
+    stages = q1_stages(pe, ops, batch)
+    times = run_times_ms(lambda: pe.q1_step(batch), reps=Q1_REPS, warmup=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    pe.q1_step(batch)
+    peak = torch.cuda.max_memory_allocated()
+    step = {"step_ms": statistics.median(times), "min_ms": times[0],
+            "max_ms": times[-1], "reps": len(times), **stages,
+            "rows": n, "kept": rows, "rows_per_s":
+            n / statistics.median(times) * 1e3,
+            "peak_gib": peak / 2**30, "held_before_gib": held / 2**30,
+            "step_adds_gib": (peak - held) / 2**30}
+    log(f"Q1 timing: {step}")
+    log(f"Q1 profile: {profile(lambda: pe.q1_step(batch), reps=3)}")
+    comment = comment_sort(pe, dev)
+    return run, k1_rows, step, comment
 
 
 def nested_batch(n, dev, rng):
@@ -1897,9 +2104,18 @@ def main() -> int:
 
     # phase 13
     t0 = time.perf_counter()
-    q6_launches, k1_16_row = q6_phase(pe, ops, k1, k2, _build, dev,
-                                      floor * 1e9)
+    q6_launches, k1_16_row, arrays, batch = q6_phase(
+        pe, ops, k1, k2, _build, dev, floor * 1e9)
     log(f"phase 13 (TPC-H Q6, SF{Q6_SF}): {time.perf_counter() - t0:.1f} s")
+
+    # phase 15, on phase 13's lineitem; its memory is freed before phase 14
+    t0 = time.perf_counter()
+    q1_launches, q1_k1_rows, q1_timing, comment = q1_phase(
+        pe, ops, k1, k2, _build, dev, arrays, batch)
+    del arrays, batch
+    torch.cuda.empty_cache()
+    log(f"phase 15 (TPC-H Q1, SF{Q6_SF}; l_comment sort): "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # phase 14
     t0 = time.perf_counter()
@@ -1911,6 +2127,7 @@ def main() -> int:
     kernels_rows["K1"]["config4_calls"] = agg_k1_rows
     kernels_rows["dense_agg"] = dense_row
     kernels_rows["K1_16"] = k1_16_row
+    kernels_rows["K1_16"]["q1_calls"] = q1_k1_rows
     source = {"K1": "arrowtpu_torch/csrc/compact.cu",
               "K1_16": "arrowtpu_torch/csrc/compact.cu",
               "K2": "arrowtpu_torch/csrc/compact.cu",
@@ -1997,7 +2214,7 @@ def main() -> int:
                "config 3 lexsort": lexsort_launches,
                **{f"config 4 {label}": c
                   for label, c in agg_launches.items()},
-               "TPC-H Q6": q6_launches,
+               "TPC-H Q6": q6_launches, "TPC-H Q1": q1_launches,
                "nested batch filter": nested_launches}
     kernels = []
     for key in ("K1", "K2", "K3", *shown, "dense_agg", "K1_16"):
@@ -2016,8 +2233,11 @@ def main() -> int:
                 p: c["tile_counts"] for p, c in by_path.items()
                 if "tile_counts" in c}} if key == "K1" else {}),
             **{k: row[k] for k in ("group_by_calls", "join_calls",
-                                   "config4_calls", "redesigned_lines",
+                                   "config4_calls", "q1_calls",
+                                   "redesigned_lines",
                                    "library", "floor_ms") if k in row}})
+    log(f"TPC-H Q1 step: {json.dumps(q1_timing)}")
+    log(f"l_comment sort: {json.dumps(comment)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -21,6 +21,7 @@ from arrowtpu_torch.entry import (agg_oracle, agg_plan, agg_step, check_agg,
                                   check_join_output, check_lexsort, check_q6,
                                   example_agg_arrays, example_lineitem_arrays,
                                   lineitem_batch, q6_oracle, q6_step,
+                                  check_q1, q1_oracle, q1_step,
                                   dryrun_multichip, example_batch,
                                   example_join_shards,
                                   example_lexsort_arrays, join_oracle,
@@ -1022,3 +1023,74 @@ def test_q6_step_on_card_against_oracle(cuda):
         out = q6_step(batch)
     assert sorted(words) == [("K1", 4), ("K1", 8), ("K1", 16)]
     assert check_q6(out, arrays, q6_oracle(arrays)) > 3000
+
+
+def test_q1_step_on_card_against_oracle(cuda):
+    """TPC-H Q1 over about 200,000 lineitem rows on the card: exact against
+    q1_oracle (4 groups, the sums as integers, the means bit for bit, the
+    counts), with K1 launched at 16-byte words in the filter and at 16 and
+    8 bytes in the group-by's extraction."""
+    arrays = example_lineitem_arrays(sf=0.033, seed=6)
+    batch = lineitem_batch(arrays, device=cuda)
+    with _build.launch_words() as words:
+        out = q1_step(batch)
+    assert sorted(set(words)) == [("K1", 8), ("K1", 16)]
+    assert words.count(("K1", 16)) == 2  # the filter, the group keys
+    assert check_q1(out, arrays, q1_oracle(arrays)) > 190_000
+
+
+def test_string_lexsort_on_card_matches_cpu(cuda):
+    """lexsort of a string key with inline, arena, empty and trailing-zero
+    strings and nulls (48 bytes: the grouped sort), a decimal and an int
+    key, on the card and on the CPU."""
+    from arrowtpu_torch.ops import sortmod as srt
+    from arrowtpu_torch.config import SortOptions
+
+    rng = np.random.default_rng(11)
+    words = ["", "a", "a\0", "ab", "twelve bytes", "thirteen byte"]
+    data = [None if rng.random() < 0.1 else
+            words[int(rng.integers(0, len(words)))] if rng.random() < 0.7
+            else "x" * 16 + "".join(rng.choice(list("ab\0"),
+                                               int(rng.integers(4, 30))))
+            for _ in range(70_000)]
+    ints = rng.integers(0, 3, len(data))
+    cents = rng.integers(-500, 500, len(data))
+    opts = [SortOptions(True, False), SortOptions(), SortOptions(False, False)]
+    outs = []
+    for d in ("cpu", cuda):
+        cols = [pcol.string_view(data, device=d),
+                pcol.primitive(ints, st.int32, device=d),
+                pcol.primitive([int(c) for c in cents], st.Decimal128(20, 2),
+                               device=d)]
+        outs.append(srt.lexsort_to_indices(cols, opts).values.cpu())
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_decimal_means_and_gathers_on_card_match_cpu(cuda):
+    """A decimal mean divides by 10**scale as a tensor (a division by a
+    host scalar multiplies by its reciprocal on the card); 16- and 8-byte
+    rows gather as one element; both bit for bit as on the CPU."""
+    from arrowtpu_torch.ops import decimal as dec
+    from arrowtpu_torch.ops.take import gather_rows
+
+    rng = np.random.default_rng(12)
+    keys = rng.integers(0, 7, 50_000)
+    vals = [int(v) for v in rng.integers(-10**12, 10**12, len(keys))]
+    outs = []
+    for d in ("cpu", cuda):
+        b = pbt.record_batch({
+            "k": pcol.primitive(keys, st.int64, device=d),
+            "v": pcol.primitive(vals, st.Decimal128(30, 3), device=d)})
+        g = group_by(b, ["k"], [("v", "mean"), ("v", "sum")])
+        outs.append((g["mean_v"].values.cpu(), g["sum_v"].values.cpu(),
+                     dec.to_float(b["v"]).values.cpu()))
+    for a, b in zip(*outs):
+        assert torch.equal(a.view(torch.int64) if a.is_floating_point()
+                           else a, b.view(torch.int64)
+                           if b.is_floating_point() else b)
+    rows = torch.randint(-2**31, 2**31 - 1, (10_000, 4), dtype=torch.int32,
+                         device=cuda)
+    idx = torch.randint(0, 10_000, (30_000,), device=cuda)
+    for w in (4, 2, 3):
+        r = rows[:, :w].contiguous()
+        assert torch.equal(gather_rows(r, idx), r[idx])

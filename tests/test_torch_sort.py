@@ -283,5 +283,7 @@ def test_errors():
     with pytest.raises(pst.ComputeError):
         psort.lexsort_to_indices([c, pt.primitive(np.arange(100),
                                                   device="cpu")])
-    with pytest.raises(pst.ComputeError):  # string-view sort keys wait
-        psort.sort_to_indices(pcol.string_view(["b", "a"], device="cpu"))
+    with pytest.raises(pst.ComputeError):  # struct sort keys wait
+        psort.sort_to_indices(pcol.from_pylist(
+            [{"a": 1}, {"a": 2}], pst.Struct((pst.Field("a", pst.int64),)),
+            device="cpu"))
