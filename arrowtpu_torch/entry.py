@@ -45,6 +45,17 @@ one-letter string flags (four decimal sums, three means, a count) and the
 sort by the flags.  `q1_oracle` / `check_q1` hold it to numpy on the
 integer cents: the sums exactly, the means bit for bit.
 
+`text_join_batches` carries config 5's join step on a text key: k as
+TPC-H's c_name, "Customer#%09d" (18 bytes, in the arena; `text_keys`), on
+both sides and rv as a Decimal128(15, 2), so `join_step` runs the string
+hash, the exchange of string views and decimals, string-key probing and a
+decimal partial sum through the exchange; `check_text_join_output` reads
+the keys and sums back to integers and holds them to `join_oracle`.
+`lineitem_exchange` hash-partitions `lineitem` on l_orderkey (the shuffle
+ahead of a lineitem-orders join; at one rank `check_same_rows` holds it
+to its input, row for row), and `q1_distributed_step` runs Q1's sums and
+count as a distributed group-by (`check_q1` with `Q1_DISTRIBUTED_AGGS`).
+
 `lexsort_step` is BASELINE config 3 (`bench.py` config3_lexsort): the
 lexsort of (int32, float64, dictionary-utf8) columns.
 `example_lexsort_columns` draws them as the bench does, and
@@ -62,7 +73,7 @@ import torch
 
 from . import ops
 from . import schema as st
-from .config import resolve_device
+from .config import resolve_device, round_up
 from .core import batch as bt
 from .core import bitmap as bm
 from .core import column as col
@@ -72,6 +83,7 @@ from .interop.numpy_bridge import (batch_from_numpy, column_from_numpy,
 from .ops import groupby as gb
 from .parallel.distributed import distributed_group_by, distributed_hash_join
 from .parallel.mesh import Group, run
+from .parallel.shuffle import exchange
 
 Arrays = Dict[str, Tuple[np.ndarray, Optional[np.ndarray]]]
 
@@ -784,15 +796,17 @@ def q1_oracle(arrays: dict, delta_days: int = Q1_DELTA_DAYS) -> dict:
     return want
 
 
-def check_q1(out: bt.RecordBatch, arrays: dict, want: dict) -> int:
-    """Hold q1_step's output to the oracle, exactly: the groups in flag
-    order, the flags resolved to bytes, each sum's limbs as an integer and
-    its type (Decimal128(38, s)), the means bit for bit, the counts; no
-    null row and zero padding.  -> the rows counted."""
+def check_q1(out: bt.RecordBatch, arrays: dict, want: dict,
+             aggs=Q1_AGGS) -> int:
+    """Hold q1_step's output (or `q1_distributed_step`'s, `aggs` then its
+    aggregates) to the oracle, exactly: the groups in flag order, the
+    flags resolved to bytes, each sum's limbs as an integer and its type
+    (Decimal128(38, s)), the means bit for bit, the counts; no null row
+    and zero padding.  -> the rows counted."""
     from .core import limbs as lb
 
     n = len(want["keys"])
-    names = Q1_KEYS + [name for name, _ in Q1_AGGS]
+    names = Q1_KEYS + [name for name, _ in aggs]
     if out.schema.names != names:
         raise AssertionError(f"columns {out.schema.names}, expected {names}")
     if out.length != n:
@@ -829,3 +843,185 @@ def check_q1(out: bt.RecordBatch, arrays: dict, want: dict) -> int:
         elif name == "count_order" and host[:n].tolist() != want[name]:
             raise AssertionError(f"counts {host[:n]} != {want[name]}")
     return sum(want["count_order"])
+
+
+# Q1 as a distributed query: its sums and count merged across the exchange
+# (the means stay with q1_step)
+Q1_DISTRIBUTED_AGGS = [(name, agg) for name, agg in Q1_AGGS
+                       if agg[1] != "mean"]
+
+
+def q1_distributed_step(batch: bt.RecordBatch, group: Group,
+                        delta_days: int = Q1_DELTA_DAYS) -> bt.RecordBatch:
+    """TPC-H Q1 on one rank's part of `lineitem`: the predicate, the filter
+    and the prices as `q1_step` computes them, then `distributed_group_by`
+    of the flags (the four sums and count_order, partial on every rank,
+    merged after the exchange of the partial groups) and the sort by the
+    flags."""
+    kept = ops.filter_record_batch(
+        bt.record_batch({n: batch[n] for n in Q1_READS}),
+        q1_predicate(batch, delta_days))
+    disc_price, charge = q1_prices(kept)
+    grouped = distributed_group_by(
+        bt.record_batch({**{n: kept[n] for n in Q1_READS},
+                         "disc_price": disc_price, "charge": charge}),
+        Q1_KEYS, [agg for _, agg in Q1_DISTRIBUTED_AGGS], group=group)
+    names = Q1_KEYS + [name for name, _ in Q1_DISTRIBUTED_AGGS]
+    return ops.sort_batch(bt.RecordBatch(st.Schema(tuple(
+        st.Field(n, c.dtype) for n, c in zip(names, grouped.columns))),
+        grouped.columns), Q1_KEYS)
+
+
+def lineitem_exchange(batch: bt.RecordBatch, group: Group) -> bt.RecordBatch:
+    """`lineitem` hash-partitioned on l_orderkey over the group: the
+    shuffle ahead of a lineitem-orders join, every column class of the
+    batch through the exchange."""
+    return exchange(batch, ["l_orderkey"], group)
+
+
+def check_same_rows(got: bt.RecordBatch, want: bt.RecordBatch) -> int:
+    """Raise AssertionError unless `got` holds `want`'s rows in order,
+    bit for bit, on the device: the length, every row's validity, values
+    (a multi-word value's words), a dictionary's keys and its dictionary
+    (the same values object), a string view's bytes, length and
+    len_bound; and zero padding past the length.  -> the row count."""
+    from .ops.strings import byte_matrix, max_byte_length
+
+    n = want.length
+    if got.schema.names != want.schema.names or got.length != n:
+        raise AssertionError(f"{got.schema.names} x {got.length} rows, "
+                             f"expected {want.schema.names} x {n}")
+    for name in want.schema.names:
+        g, w = got[name], want[name]
+        if g.dtype != w.dtype or g.length != n:
+            raise AssertionError(f"{name}: {g.dtype} x {g.length}")
+        if not torch.equal(g.valid_bool()[:n], w.valid_bool()[:n]) or (
+                g.valid_bool()[n:].any()):
+            raise AssertionError(f"{name}: validity differs")
+        if isinstance(w, col.DictionaryColumn):
+            if g.values is not w.values:
+                raise AssertionError(f"{name}: the dictionary was not kept")
+            g, w = g.keys, w.keys
+        if isinstance(w, col.StringViewColumn):
+            L = max_byte_length(w)
+            (gm, gl), (wm, wl) = byte_matrix(g, L), byte_matrix(w, L)
+            same = (torch.equal(gm[:n], wm[:n]) and torch.equal(gl[:n], wl[:n])
+                    and g.len_bound == w.len_bound)
+            tail = g.views[n:]
+        elif isinstance(w, col.BooleanColumn):
+            same = torch.equal(g.values_bool()[:n], w.values_bool()[:n])
+            tail = g.values_bool()[n:]
+        else:
+            same = torch.equal(g.values[:n], w.values[:n])
+            tail = g.values[n:]
+        if not same:
+            raise AssertionError(f"{name}: rows differ")
+        if tail.any():
+            raise AssertionError(f"{name}: padding past the length not zero")
+    return n
+
+
+# ---------------------------------------------------------------------------
+# config 5's join step on a text key: TPC-H's c_name
+# ---------------------------------------------------------------------------
+
+TEXT_KEY_PREFIX = b"Customer#"
+TEXT_KEY_DIGITS = 9
+TEXT_KEY_BYTES = len(TEXT_KEY_PREFIX) + TEXT_KEY_DIGITS  # 18: out of line
+
+
+def text_keys(keys: np.ndarray, valid: np.ndarray = None,
+              device=None) -> col.StringViewColumn:
+    """TPC-H's c_name of each key, "Customer#%09d" % k (Clause 4.2.3; 18
+    bytes, so every string lives in the arena), as a utf8 view column
+    built on `device`: the arena holds row i's bytes at 18 * i; a null
+    key (`valid` False) is a null row with a zero view."""
+    device = resolve_device(device)
+    k = torch.from_numpy(np.ascontiguousarray(keys, dtype=np.int64)).to(
+        device)
+    n = k.shape[0]
+    cap = round_up(max(n, 1))
+    p10 = 10 ** torch.arange(TEXT_KEY_DIGITS - 1, -1, -1, device=device)
+    digits = (k[:, None] // p10 % 10 + ord("0")).to(torch.uint8)
+    prefix = torch.tensor(list(TEXT_KEY_PREFIX), dtype=torch.uint8,
+                          device=device)
+    rows = torch.cat([prefix.expand(n, -1), digits], dim=1)
+    arena = torch.zeros(round_up(max(n * TEXT_KEY_BYTES, 1)),
+                        dtype=torch.uint8, device=device)
+    arena[:n * TEXT_KEY_BYTES] = rows.reshape(-1)
+    ok = (torch.ones(n, dtype=torch.bool, device=device) if valid is None
+          else torch.from_numpy(np.asarray(valid, bool)).to(device))
+    views = torch.zeros((cap, 4), dtype=torch.int32, device=device)
+    views[:n, 0] = torch.where(ok, TEXT_KEY_BYTES, 0)
+    views[:n, 1] = torch.where(ok, rows[:, :4].contiguous().view(
+        torch.int32)[:, 0], 0)
+    views[:n, 3] = torch.where(ok, torch.arange(
+        n, dtype=torch.int32, device=device) * TEXT_KEY_BYTES, 0)
+    validity = (None if valid is None or np.asarray(valid).all()
+                else bm.from_numpy_bools(np.asarray(valid, bool), cap, device))
+    return col.StringViewColumn(views, arena, validity, n, st.utf8,
+                                TEXT_KEY_BYTES)
+
+
+def text_join_batches(shards: Tuple[Arrays, Arrays], device=None
+                      ) -> Tuple[bt.RecordBatch, bt.RecordBatch]:
+    """`example_join_shards`' probe and build shards with k carried as
+    its text (`text_keys`) on both sides and rv as a Decimal128(15, 2)
+    (rv / 100): -> (probe {k, v}, build {k, rv})."""
+    device = resolve_device(device)
+    left, right = shards
+    (k, k_ok), (v, v_ok) = left["k"], left["v"]
+    (bk, bk_ok), (rv, rv_ok) = right["k"], right["rv"]
+    return (bt.record_batch({"k": text_keys(k, k_ok, device),
+                             "v": column_from_numpy(v, v_ok, len(v),
+                                                    device=device)}),
+            bt.record_batch({"k": text_keys(bk, bk_ok, device),
+                             "rv": decimal_from_int64(rv, DECIMAL_15_2,
+                                                      rv_ok, device)}))
+
+
+def _text_output_as_ints(out: bt.RecordBatch) -> bt.RecordBatch:
+    """A text join step's output with k read back to its integer (the
+    strings checked to be "Customer#" and nine digits) and sum_rv's
+    Decimal128 limbs to the int64 it holds (checked to sign-extend)."""
+    from .ops.strings import byte_matrix
+
+    n = out.length
+    kc, sc = out["k"], out["sum_rv"]
+    mat, lens = byte_matrix(kc, 32)
+    live = kc.valid_bool()[:n]
+    body = mat[:n, :TEXT_KEY_BYTES]
+    prefix = torch.tensor(list(TEXT_KEY_PREFIX), dtype=torch.uint8,
+                          device=mat.device)
+    digits = body[:, len(TEXT_KEY_PREFIX):].to(torch.int64) - ord("0")
+    good = ((lens[:n] == TEXT_KEY_BYTES)
+            & (body[:, :len(TEXT_KEY_PREFIX)] == prefix).all(dim=1)
+            & ((digits >= 0) & (digits <= 9)).all(dim=1))
+    if not bool((good | ~live).all()):
+        raise AssertionError("a group key is not Customer# and nine digits")
+    p10 = 10 ** torch.arange(TEXT_KEY_DIGITS - 1, -1, -1,
+                             device=mat.device)
+    keys = torch.zeros(kc.capacity, dtype=torch.int64, device=mat.device)
+    keys[:n] = torch.where(live, (digits * p10).sum(dim=1), 0)
+    limbs = sc.values
+    low = limbs[:, :2].contiguous().view(torch.int64)[:, 0]
+    sign = torch.where(low < 0, -1, 0).to(torch.int32)[:, None]
+    if not bool((limbs[:, 2:] == sign).all()):
+        raise AssertionError("a sum does not fit int64")
+    return bt.record_batch({
+        "k": col.PrimitiveColumn(keys, kc.validity, n, st.int64),
+        "sum_rv": col.PrimitiveColumn(low.clone(), sc.validity, n, st.int64),
+        "count_rv": out["count_rv"]})
+
+
+def check_text_join_output(outputs: Sequence[bt.RecordBatch], want) -> int:
+    """`check_join_output` for `join_step` on `text_join_batches`: each
+    rank's text keys read back to their integers and its decimal sums to
+    integers of cents, then held to `join_oracle` exactly.  -> the number
+    of groups."""
+    for out in outputs:
+        if (out.schema.field("k").dtype != st.utf8
+                or out.schema.field("sum_rv").dtype != st.Decimal128(38, 2)):
+            raise AssertionError(f"output types {out.schema}")
+    return check_join_output([_text_output_as_ints(o) for o in outputs],
+                             want)

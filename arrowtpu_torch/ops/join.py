@@ -6,6 +6,12 @@ Counterpart of `arrowtpu/ops/join.py`, with the same results:
     key never matches).  Equality compares the port's key planes
     (rowformat/encode.py); the hash is the JAX package's, over its u32
     planes (rowformat/hashing.py), so the probe sequences are the same.
+    Both sides encode a string key at one width, the wider side's
+    (`key_widths`): the JAX package encodes each side at its own, so that
+    one string hashes apart on two sides of different widths and they
+    never meet.  A dictionary key compares by value rank, so both sides
+    must hold one dictionary (else ComputeError), where the JAX package
+    compares each side's ranks in its own dictionary.
   * build: an open-addressing table of next_pow2(2 * capacity) int32
     slots, each holding ONE representative build row per distinct key,
     filled by vectorized linear probing: every pending row scatter-mins
@@ -48,6 +54,7 @@ from ..rowformat import encode as rf
 from ..rowformat import hashing as hsh
 from ..rowformat import pack as rp
 from .filter import filter_record_batch
+from .strings import max_byte_length
 from .take import take
 
 _EMPTY = 2**31 - 1  # an empty slot while building (loses every scatter-min)
@@ -57,21 +64,56 @@ def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-def _key_planes_and_valid(columns: Sequence[col.Column]):
+def check_dictionaries(*sides: Sequence[col.Column]) -> None:
+    """A dictionary key compares by its value ranks, which name one string
+    on two sides only where they hold one dictionary (the same values
+    object, or equal values): raise ComputeError otherwise, or where a
+    dictionary key meets another class.  `sides`: parallel lists of key
+    columns."""
+    for cols in zip(*sides):
+        if not any(isinstance(c, col.DictionaryColumn) for c in cols):
+            continue
+        base = cols[0]
+        for c in cols[1:]:
+            if not (isinstance(base, col.DictionaryColumn)
+                    and isinstance(c, col.DictionaryColumn)
+                    and (c.values is base.values
+                         or c.values.to_pylist() == base.values.to_pylist())):
+                raise st.ComputeError(
+                    "join: dictionary keys of different dictionaries "
+                    "(encode both sides with one dictionary)")
+
+
+def key_widths(*sides: Sequence[col.Column]) -> List[Optional[int]]:
+    """Per key column of `sides` (parallel lists of key columns): the
+    byte-matrix width a string key is encoded at on every side, the widest
+    side's `max_byte_length` (its plane count is part of its hash), else
+    None.  Checks dictionary keys (`check_dictionaries`)."""
+    check_dictionaries(*sides)
+    out: List[Optional[int]] = []
+    for cols in zip(*sides):
+        views = [c for c in cols if isinstance(c, col.StringViewColumn)]
+        out.append(max(max_byte_length(c) for c in views) if views else None)
+    return out
+
+
+def _key_planes_and_valid(columns: Sequence[col.Column],
+                          widths: Sequence[Optional[int]]):
     """-> (value planes for equality, u32 hash, bool: every key part valid
-    and the row live)."""
+    and the row live); `widths` as `key_widths` gives them."""
     valid = bm.row_mask_bool(columns[0].capacity, columns[0].length,
                              columns[0].device)
-    planes = []
     for c in columns:
-        if c.validity is not None:
-            valid = valid & bm.unpack(c.validity)
-        planes.extend(rf.encode_column(c)[1:])  # the sentinel never differs
-    h = hsh.hash_planes(rf.hash_planes_of(columns))
-    return planes, h, valid
+        if c.validity is not None or isinstance(c, col.NullColumn):
+            valid = valid & c.valid_bool()
+    planes, hashed = rf.key_planes(columns, widths)
+    return planes, hsh.hash_planes(hashed), valid
 
 
 def _planes_eq(planes_a, rows_a, planes_b, rows_b) -> torch.Tensor:
+    if len(planes_a) != len(planes_b):
+        raise st.ComputeError(f"join: keys of {len(planes_a)} and "
+                              f"{len(planes_b)} planes do not compare")
     eq = None
     for pa, pb in zip(planes_a, planes_b):
         e = pa[rows_a] == pb[rows_b]
@@ -107,6 +149,7 @@ class HashTable:
     grp_start: torch.Tensor       # (build_cap,) int32 group start in order
     grp_size: torch.Tensor        # (build_cap,) int32 group size
     rounds: int                   # linear-probing rounds of the build
+    widths: Tuple[Optional[int], ...]  # string keys' widths (key_widths)
 
 
 def _group_index(planes: List[torch.Tensor], valid: torch.Tensor):
@@ -136,10 +179,15 @@ def _group_index(planes: List[torch.Tensor], valid: torch.Tensor):
     return order, grp_start, grp_size
 
 
-def build_table(key_cols: Sequence[col.Column]) -> HashTable:
+def build_table(key_cols: Sequence[col.Column],
+                widths: Optional[Sequence[Optional[int]]] = None
+                ) -> HashTable:
+    """The table of the build side's keys; a probe encodes its string keys
+    at `widths` (by default the build keys' own, `key_widths`)."""
     cap = key_cols[0].capacity
     size = _next_pow2(max(2 * cap, 16))  # load factor at most 1/2
-    planes, h, valid = _key_planes_and_valid(key_cols)
+    widths = tuple(key_widths(key_cols) if widths is None else widths)
+    planes, h, valid = _key_planes_and_valid(key_cols, widths)
     device = valid.device
     slots = torch.full((size,), _EMPTY, dtype=torch.int32, device=device)
     # scratch of the round's candidates; EMPTY except where written in it
@@ -166,7 +214,7 @@ def build_table(key_cols: Sequence[col.Column]) -> HashTable:
     slots = torch.where(slots == _EMPTY, -1, slots)
     order, grp_start, grp_size = _group_index(planes, valid)
     return HashTable(slots, tuple(planes), dup, order, grp_start, grp_size,
-                     rounds)
+                     rounds, widths)
 
 
 def probe_table(table: HashTable, key_cols: Sequence[col.Column]
@@ -174,7 +222,7 @@ def probe_table(table: HashTable, key_cols: Sequence[col.Column]
     """-> ((probe_cap,) int32 representative build row or -1, rounds)."""
     cap = key_cols[0].capacity
     size = table.slots.shape[0]
-    planes, h, valid = _key_planes_and_valid(key_cols)
+    planes, h, valid = _key_planes_and_valid(key_cols, table.widths)
     result = torch.full((cap,), -1, dtype=torch.int32, device=valid.device)
     act = valid.nonzero().squeeze(1)
     off = torch.zeros_like(act)
@@ -263,8 +311,9 @@ def hash_join(left: bt.RecordBatch, right: bt.RecordBatch,
     if how not in ("inner", "left", "semi", "anti"):
         raise st.ComputeError(f"join: unknown how={how!r}")
     right_on = list(right_on or on)
-    table = build_table([right[k] for k in right_on])
-    match, _ = probe_table(table, [left[k] for k in on])
+    lcols, rcols = [left[k] for k in on], [right[k] for k in right_on]
+    table = build_table(rcols, key_widths(lcols, rcols))
+    match, _ = probe_table(table, lcols)
     if how in ("semi", "anti"):
         keep = match >= 0 if how == "semi" else match < 0
         mask = col.boolean(keep, length=left.length)

@@ -5,8 +5,10 @@ encodes to order-preserving int64 planes (rowformat/encode.py) and the rows
 are stably sorted by them (rowformat/pack.py), live rows first, so the
 first `length` entries of an index column are the sorted permutation of
 the live rows, ties in row order.  Index columns are int32, and rows past
-their length are 0 (the port's padding contract).  String-view sort keys
-and the grouped string sort are not ported yet; they raise ComputeError.
+their length are 0 (the port's padding contract).  String-view keys sort
+by their byte matrix; a long one through the grouped sort (a prefix of
+plane groups, then refinements under a run rank, `_sorted_perm`).  Struct
+and list-view keys are not ported yet; they raise ComputeError.
 """
 
 from __future__ import annotations

@@ -1,8 +1,10 @@
 """String kernels: the byte matrix and the lengths.
 
-Counterpart of the part of `arrowtpu/ops/strings.py` that string sort and
-group keys need: `max_byte_length`, `byte_matrix`, `from_byte_matrix` and
-`octet_length` / `bit_length` / `length`, with its results.
+Counterpart of the part of `arrowtpu/ops/strings.py` that string sort,
+group and join keys and the exchange need: `max_byte_length`,
+`byte_matrix`, `from_byte_matrix` and `octet_length` / `bit_length` /
+`length`, with its results (`matrix_width` and `byte_bound` let callers
+agree on one width across columns and ranks).
 
 The byte matrix is a (capacity, L) uint8 expansion of a view column, L the
 longest string rounded up to a 16-byte granule, each row the string's
@@ -28,16 +30,29 @@ _GRANULE = 16
 _GATHER_BLOCK = 16  # byte columns gathered from the arena at a time
 
 
+def matrix_width(bound: int) -> int:
+    """The byte-matrix width for strings of at most `bound` bytes: `bound`
+    rounded up to the granule, at least one granule."""
+    return max(_GRANULE, -(-bound // _GRANULE) * _GRANULE)
+
+
+def byte_bound(c: col.StringViewColumn) -> torch.Tensor:
+    """0-d int64 on the device: `len_bound` when the column has one, else
+    the valid rows' longest byte length (no read-back)."""
+    if c.len_bound is not None or not c.capacity:
+        return torch.tensor(c.len_bound or 0, dtype=torch.int64,
+                            device=c.device)
+    return torch.where(c.valid_bool(), c.views[:, 0], 0).max().to(
+        torch.int64)
+
+
 def max_byte_length(c: col.StringViewColumn) -> int:
     """The longest string's byte length rounded up to the granule (at
     least one granule): `len_bound` when the column has one, else one
     read-back of the valid rows' lengths."""
     if c.len_bound is not None:
-        m = c.len_bound
-    else:
-        m = int(torch.where(c.valid_bool(), c.views[:, 0], 0).max()) \
-            if c.capacity else 0
-    return max(_GRANULE, -(-m // _GRANULE) * _GRANULE)
+        return matrix_width(c.len_bound)
+    return matrix_width(int(byte_bound(c)))
 
 
 def byte_matrix(c: col.StringViewColumn, L: int):

@@ -26,10 +26,22 @@ batch's rows (no copy).  Chunks cut at the port's capacity: where it
 differs from the JAX package's, so do the chunks, and a rank's output
 holds the same rows in another order.
 
+Keys and columns of every class the exchange carries (parallel/shuffle.py:
+integers, floats, booleans, temporal types, decimals, intervals,
+fixed-size binary, dictionaries, string views) take every path: a string
+key is encoded at one width on both sides and every rank (`_key_widths`:
+one all_reduce(MAX) a join), so a string hashes to one rank and one skew
+bucket whatever side or rank holds it; the replicated hot build rows
+carry string views with their arenas (offsets rebased by rank) and
+multi-word values; a chunk of a string view shares its arena.  A
+dictionary key needs one dictionary on both sides (`ops/join.check_dictionaries`).
+
 Output column names are the JAX package's (`sum_rv`, `count_rv`, ...).
 As in `ops/join.py`, a local join without `out_capacity` holds every
 match, so `overflow` is set only when `out_capacity` cuts an output or
-when the hot build rows exceed `hot_capacity`.
+when the hot build rows exceed `hot_capacity`.  A `mean` of a decimal
+column raises ComputeError (the JAX package's mean raises on every
+input).
 """
 
 from __future__ import annotations
@@ -49,6 +61,7 @@ from ..ops import groupby as gb
 from ..ops import join as jn
 from ..ops.concat import concat_batches
 from ..ops.filter import filter_record_batch
+from ..ops.strings import byte_bound, matrix_width
 from ..ops.take import take_record_batch
 from ..rowformat import encode as rf
 from ..rowformat import hashing as hsh
@@ -89,66 +102,104 @@ def _filter_bool(batch: bt.RecordBatch, keep: torch.Tensor
 
 def _replicate(batch: bt.RecordBatch, group: Group) -> bt.RecordBatch:
     """Every rank's rows on every rank, in rank order: each rank's planes
-    padded to the ranks' largest capacity (one all_reduce and its
-    read-back) and gathered, one all_gather a plane.  Dead and padding
-    rows become null rows (harmless on a build side: a null key never
-    matches); the length is the whole gathered capacity."""
-    cap = torch.tensor([batch.capacity], device=batch.device)
-    dist.all_reduce(cap, op=dist.ReduceOp.MAX)
-    cap = int(cap)  # read-back
-    total = cap * group.world_size
+    padded to the ranks' largest capacity and gathered, one all_gather a
+    plane (a multi-word value as (n, W) rows).  A string view gathers its
+    views and its arena, padded to the ranks' largest arena, and an arena
+    string's offset moves by its rank times that arena; its `len_bound` is
+    the ranks' largest.  The capacities, arenas and string bounds are one
+    all_reduce(MAX) and one read-back.  Dead and padding rows become null
+    rows (harmless on a build side: a null key never matches); the length
+    is the whole gathered capacity."""
+    views = [c for c in batch.columns if isinstance(c, col.StringViewColumn)]
+    sizes = torch.stack(
+        [torch.tensor(batch.capacity, device=batch.device)]
+        + [torch.tensor(c.arena.shape[0], device=batch.device)
+           for c in views] + [byte_bound(c) for c in views]).to(torch.int64)
+    dist.all_reduce(sizes, op=dist.ReduceOp.MAX)
+    cap, *rest = sizes.tolist()  # read-back
+    strings = iter(zip(rest[:len(views)], rest[len(views):]))
+    n = group.world_size
+    total = cap * n
 
-    def gather(plane: torch.Tensor) -> torch.Tensor:
+    def gather(plane: torch.Tensor, rows: int) -> torch.Tensor:
         if plane.dtype == torch.bool:
-            return gather(plane.to(torch.uint8)) != 0
-        padded = torch.zeros(cap, dtype=plane.dtype, device=plane.device)
+            return gather(plane.to(torch.uint8), rows) != 0
+        padded = torch.zeros((rows,) + plane.shape[1:], dtype=plane.dtype,
+                             device=plane.device)
         padded[:plane.shape[0]] = plane
-        out = torch.empty(total, dtype=plane.dtype, device=plane.device)
+        out = torch.empty((rows * n,) + plane.shape[1:], dtype=plane.dtype,
+                          device=plane.device)
         dist.all_gather_into_tensor(out, padded)
         return out
 
     cols = []
     for c in batch.columns:
-        ok = bm.pack(gather(c.valid_bool()))
+        ok = bm.pack(gather(c.valid_bool(), cap))
         if isinstance(c, col.PrimitiveColumn):
-            cols.append(col.PrimitiveColumn(gather(c.values), ok, total,
+            cols.append(col.PrimitiveColumn(gather(c.values, cap), ok, total,
                                             c.dtype))
         elif isinstance(c, col.BooleanColumn):
-            cols.append(col.BooleanColumn(bm.pack(gather(c.values_bool())),
-                                          ok, total))
+            cols.append(col.BooleanColumn(
+                bm.pack(gather(c.values_bool(), cap)), ok, total))
+        elif isinstance(c, col.StringViewColumn):
+            arena_cap, bound = next(strings)
+            v = gather(c.views, cap)
+            rank = torch.arange(total, device=v.device) // cap
+            shift = torch.where(v[:, 0] > 12, rank * arena_cap, 0)
+            v[:, 3] = ((v[:, 3].to(torch.int64) & 0xFFFFFFFF) + shift).to(
+                torch.int32)
+            cols.append(col.StringViewColumn(
+                v, gather(c.arena, arena_cap), ok, total, c.dtype, bound))
         else:
             raise st.ComputeError(
-                f"replicate: unsupported column {type(c).__name__} (string "
-                "views wait for their exchange)")
+                f"replicate: unsupported column {type(c).__name__}")
     return bt.RecordBatch(batch.schema, tuple(cols))
 
 
+def _key_widths(left: bt.RecordBatch, right: bt.RecordBatch,
+                on: Sequence[str]) -> List[Optional[int]]:
+    """Per key: the byte-matrix width a string key is encoded at on both
+    sides and every rank, from the longest string of either side on any
+    rank (one all_reduce(MAX) and one read-back when a key is a string);
+    else None.  Checks dictionary keys (`ops/join.check_dictionaries`)."""
+    lcols, rcols = [left[k] for k in on], [right[k] for k in on]
+    jn.check_dictionaries(lcols, rcols)
+    bounds = shuffle.shared_bounds(lcols + rcols)
+    n = len(on)
+    return [None if bounds[i] is None else
+            matrix_width(max(bounds[i], bounds[n + i])) for i in range(n)]
+
+
 def _hot_buckets_of(batch: bt.RecordBatch, on: Sequence[str],
-                    num_buckets: int) -> torch.Tensor:
+                    num_buckets: int, widths=None) -> torch.Tensor:
     """(capacity,) int64 skew bucket of each row's key."""
-    planes = rf.hash_planes_of([batch[k] for k in on])
+    planes = rf.hash_planes_of([batch[k] for k in on], widths)
     return hsh.hash_planes(planes, seed=_HOT_SEED) % num_buckets
 
 
 def _hot_rows(batch: bt.RecordBatch, on: Sequence[str],
-              hot: torch.Tensor) -> torch.Tensor:
+              hot: torch.Tensor, widths=None) -> torch.Tensor:
     """(capacity,) bool: the live rows whose key's bucket is hot."""
     live = bm.row_mask_bool(batch.capacity, batch.length, batch.device)
-    return hot[_hot_buckets_of(batch, on, hot.shape[0])] & live
+    return hot[_hot_buckets_of(batch, on, hot.shape[0], widths)] & live
 
 
 def detect_hot_buckets(batch: bt.RecordBatch, on: Sequence[str], *,
                        group: Group, threshold_frac: float,
-                       num_buckets: int = HOT_BUCKETS):
+                       num_buckets: int = HOT_BUCKETS, widths=None):
     """Global hashed key histogram -> ((num_buckets,) bool hot-bucket
     mask, this rank's (capacity,) bool hot-row flag).  A bucket is hot
     when its global row count exceeds threshold_frac of the global row
     count, compared in float32 as the JAX package does (a false positive
     only replicates a few more build rows).  Null keys are live rows and
     all fall in one bucket.  One all_reduce of the histogram and the live
-    count together."""
+    count together.  A string key hashes at `widths` (parallel to `on`),
+    by default at the ranks' longest string (one more all_reduce)."""
+    if widths is None:
+        widths = [None if b is None else matrix_width(b)
+                  for b in shuffle.shared_bounds([batch[k] for k in on])]
     live = bm.row_mask_bool(batch.capacity, batch.length, batch.device)
-    hb = _hot_buckets_of(batch, on, num_buckets)
+    hb = _hot_buckets_of(batch, on, num_buckets, widths)
     counts = torch.bincount(torch.where(live, hb, num_buckets),
                             minlength=num_buckets + 1)
     counts[num_buckets] = live.sum()  # the dead rows' bin -> the live count
@@ -187,6 +238,9 @@ def _slice(c: col.Column, lo: int, n: int, length: int) -> col.Column:
         return col.BooleanColumn(c.values[bits], validity, length)
     if isinstance(c, col.DictionaryColumn):  # the keys; values are shared
         return dataclasses.replace(c, keys=_slice(c.keys, lo, n, length))
+    if isinstance(c, col.StringViewColumn):  # the views; the arena is shared
+        return dataclasses.replace(c, views=c.views[lo:lo + n],
+                                   validity=validity, length=length)
     raise st.ComputeError(f"chunk: unsupported column {type(c).__name__}")
 
 
@@ -207,19 +261,20 @@ def _probe_join(table: jn.HashTable, left: bt.RecordBatch,
                            out_capacity=out_capacity)
 
 
-def _skew_join(left, right, on, *, group, how, out_capacity, threshold,
-               hot_capacity, probe_chunks):
+def _skew_join(left, right, on, widths, *, group, how, out_capacity,
+               threshold, hot_capacity, probe_chunks):
     """The skew path of distributed_hash_join: hot buckets from the probe
     side's histogram split both sides; the cold rows join through the
     exchange, the hot build rows (at most hot_capacity) are replicated
     and joined with the hot probe rows where they are; -> the cold output,
     then the hot output."""
     hot, l_hot_mask = detect_hot_buckets(left, on, group=group,
-                                         threshold_frac=threshold)
-    r_hot_mask = _hot_rows(right, on, hot)
-    cold_out, cold_info = distributed_hash_join(
+                                         threshold_frac=threshold,
+                                         widths=widths)
+    r_hot_mask = _hot_rows(right, on, hot, widths)
+    cold_out, cold_info = _exchange_join(
         _filter_bool(left, ~l_hot_mask), _filter_bool(right, ~r_hot_mask),
-        on, group=group, how=how, out_capacity=out_capacity,
+        on, widths, group=group, how=how, out_capacity=out_capacity,
         probe_chunks=probe_chunks)
     hcap = hot_capacity or default_hot_capacity(right)
     r_hot = _filter_bool(right, r_hot_mask)
@@ -233,6 +288,23 @@ def _skew_join(left, right, on, *, group, how, out_capacity, threshold,
             jn.JoinInfo(info.duplicates, info.overflow or hot_overflow))
 
 
+def _exchange_join(left, right, on, widths, *, group, how, out_capacity,
+                   probe_chunks):
+    """Both sides through the exchange, their string keys at `widths`,
+    then the local join (of the probe side in `probe_chunks` chunks)."""
+    r_ex = shuffle.exchange(right, on, group, widths)
+    if probe_chunks <= 1:
+        l_ex = shuffle.exchange(left, on, group, widths)
+        return jn.hash_join(l_ex, r_ex, on, how=how,
+                            out_capacity=out_capacity)
+    table = jn.build_table([r_ex[k] for k in on], widths)
+    outs = [_probe_join(table, shuffle.exchange(chunk, on, group, widths),
+                        r_ex, on, how=how, out_capacity=out_capacity)
+            for chunk in _row_chunks(left, probe_chunks)]
+    return concat_batches([o for o, _ in outs]), _or_info(
+        [i for _, i in outs])
+
+
 def distributed_hash_join(left: bt.RecordBatch, right: bt.RecordBatch,
                           on: Sequence[str], *, group: Group,
                           how: str = "inner",
@@ -242,7 +314,8 @@ def distributed_hash_join(left: bt.RecordBatch, right: bt.RecordBatch,
                           probe_chunks: int = 1):
     """Both sides hash-partitioned on the join key over the group, then
     joined locally: equal keys meet on one rank because both exchanges
-    use the same hash.  -> (batch, JoinInfo).
+    use the same hash (and a string key the same width, `_key_widths`).
+    -> (batch, JoinInfo).
 
     skew_threshold (e.g. 0.01): keys of buckets above this share of the
     global probe rows skip the exchange; their build rows (at most
@@ -250,23 +323,16 @@ def distributed_hash_join(left: bt.RecordBatch, right: bt.RecordBatch,
     replicated and their probe rows join locally.  probe_chunks > 1
     exchanges and joins the probe side in that many chunks against one
     build table."""
+    widths = _key_widths(left, right, on)
     if skew_threshold is not None:
-        return _skew_join(left, right, on, group=group, how=how,
+        return _skew_join(left, right, on, widths, group=group, how=how,
                           out_capacity=out_capacity,
                           threshold=skew_threshold,
                           hot_capacity=hot_capacity,
                           probe_chunks=probe_chunks)
-    r_ex = shuffle.exchange(right, on, group)
-    if probe_chunks <= 1:
-        l_ex = shuffle.exchange(left, on, group)
-        return jn.hash_join(l_ex, r_ex, on, how=how,
-                            out_capacity=out_capacity)
-    table = jn.build_table([r_ex[k] for k in on])
-    outs = [_probe_join(table, shuffle.exchange(chunk, on, group), r_ex, on,
-                        how=how, out_capacity=out_capacity)
-            for chunk in _row_chunks(left, probe_chunks)]
-    return concat_batches([o for o, _ in outs]), _or_info(
-        [i for _, i in outs])
+    return _exchange_join(left, right, on, widths, group=group, how=how,
+                          out_capacity=out_capacity,
+                          probe_chunks=probe_chunks)
 
 
 _MERGE = {"sum": "sum", "count": "sum", "min": "min", "max": "max"}
@@ -279,6 +345,9 @@ def distributed_group_by(batch: bt.RecordBatch, keys: Sequence[str],
     finalized after the merge."""
     local_aggs, finalizers = [], []
     for name, agg in aggs:
+        if agg == "mean" and st.decimal_limbs(batch[name].dtype) is not None:
+            raise st.ComputeError(
+                f"distributed mean of decimal column {name!r}: not supported")
         if agg == "mean":
             local_aggs += [(name, "sum"), (name, "count")]
             finalizers.append((f"mean_{name}", "mean", name))

@@ -17,18 +17,29 @@ planes, so all nulls tie and keep their row order.
     first (memcmp order);
   * string views: the byte matrix (ops/strings.py) as big-endian 4-byte
     words, then a length plane that orders strings equal up to trailing
-    zero bytes.
+    zero bytes.  `key_planes` / `hash_planes_of` take a width (bytes, a
+    multiple of 16) for each string key, where several columns must give
+    one string the same planes (a join's two sides, a partition's ranks);
+    words past a string's bytes are 0.
 
 The u32 planes hold the JAX package's plane values, in [0, 2**32).
 `encode_columns_grouped` splits a long string key into a prefix of
 `STRING_CHUNK_WORDS` word planes and refinement groups of as many, for the
 rank-chained sort (rowformat/pack.py `sort_by_plane_groups`).  Struct and
 list-view sort keys are not ported yet; they raise ComputeError.
+
+`hash_planes_of` gives the JAX package's u32 key planes (ascending, nulls
+first) of every class `encode_column` takes, for rowformat/hashing.py: a
+plane that is signed here (integers, temporal types, the float key) is
+rebased or split as the JAX package holds it; a null column is one zero
+plane.  Intervals raise: the JAX package's plane of an interval is
+(capacity, W), which its hash does not take as a key plane.  `key_planes`
+gives a join both sets from one encoding.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -67,21 +78,25 @@ def byteswap_words(words: torch.Tensor) -> torch.Tensor:
             | ((u >> 8) & 0xFF00) | (u >> 24))
 
 
-def _string_planes(c: col.StringViewColumn) -> List[torch.Tensor]:
-    """Big-endian word planes of the byte matrix, then the length plane;
-    a word past `len_bound` is zero on every row."""
+def _string_planes(c: col.StringViewColumn, width: Optional[int] = None
+                   ) -> List[torch.Tensor]:
+    """Big-endian word planes of the byte matrix (`width` bytes wide, by
+    default the column's `max_byte_length`), then the length plane; a word
+    past `len_bound` is zero on every row."""
     from ..ops.strings import byte_matrix, max_byte_length
 
-    L = max_byte_length(c)
+    L = max_byte_length(c) if width is None else width
     mat, lens = byte_matrix(c, L)
     words = mat.view(torch.int32)  # (capacity, L / 4), little-endian
-    used = L // 4 if c.len_bound is None else -(-c.len_bound // 4)
+    used = L // 4 if c.len_bound is None else min(L // 4,
+                                                  -(-c.len_bound // 4))
     return ([byteswap_words(words[:, k]) if k < used else
              torch.zeros(c.capacity, dtype=torch.int64, device=c.device)
              for k in range(L // 4)] + [lens.to(torch.int64)])
 
 
-def _value_planes(c: col.Column) -> List[torch.Tensor]:
+def _value_planes(c: col.Column, width: Optional[int] = None
+                  ) -> List[torch.Tensor]:
     if isinstance(c, col.BooleanColumn):
         return [c.values_bool().to(torch.int64)]
     if isinstance(c, col.DictionaryColumn):
@@ -91,7 +106,7 @@ def _value_planes(c: col.Column) -> List[torch.Tensor]:
         keys = c.keys.values.to(torch.int64).clamp(0, c.values.capacity - 1)
         return [c.value_ranks.to(torch.int64)[keys]]
     if isinstance(c, col.StringViewColumn):
-        return _string_planes(c)
+        return _string_planes(c, width)
     if isinstance(c, col.PrimitiveColumn):
         if st.decimal_limbs(c.dtype) is not None:
             return lb.order_planes(c.values)
@@ -156,31 +171,62 @@ def encode_columns_grouped(columns: Sequence[col.Column],
     return [g for g in groups if g] or [[]]
 
 
-def hash_planes_of(columns: Sequence[col.Column]) -> List[torch.Tensor]:
+def _hash_value_planes(c: col.Column, planes: List[torch.Tensor]
+                       ) -> List[torch.Tensor]:
+    """The JAX package's u32 value planes of `c` from its `_value_planes`
+    (before null masking): a 64-bit integer, temporal value or float key
+    as `hi ^ 0x80000000, lo`; a narrower signed one (the float32 key
+    included) as `value - min`; every other plane (unsigned integers,
+    booleans, dictionary ranks, decimal, fixed-size binary and string
+    words, string lengths) already is one."""
+    if not (isinstance(c, col.PrimitiveColumn) and c.values.dim() == 1):
+        return planes
+    (p,) = planes
+    dt = c.values.dtype
+    if dt in (torch.int64, torch.float64):
+        return [((p >> 32) & _U32) ^ 0x80000000, p & _U32]
+    if dt == torch.float32:
+        return [p + 2**31]
+    if dt.is_signed:
+        return [p - torch.iinfo(dt).min]
+    return [p]
+
+
+def key_planes(columns: Sequence[col.Column],
+               widths: Optional[Sequence[Optional[int]]] = None
+               ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """-> (the value planes of `encode_column` with no sentinels, for
+    equality; `hash_planes_of`), from one encoding of each column.
+    `widths`, parallel to `columns`, sets a string key's byte-matrix width
+    (None: the column's own)."""
+    widths = [None] * len(columns) if widths is None else widths
+    eq: List[torch.Tensor] = []
+    hashed: List[torch.Tensor] = []
+    for c, w in zip(columns, widths):
+        if isinstance(c, col.NullColumn):  # one zero plane, no sentinel
+            zero = torch.zeros(c.capacity, dtype=torch.int64, device=c.device)
+            eq.append(zero)
+            hashed.append(zero)
+            continue
+        if isinstance(c, col.PrimitiveColumn) and isinstance(c.dtype,
+                                                             st.Interval):
+            raise st.ComputeError(
+                f"hash: unsupported key {type(c).__name__} {c.dtype}")
+        raw = _value_planes(c, w)
+        valid = c.valid_bool().to(torch.int64)
+        eq.extend(p * valid for p in raw)
+        hashed.append(valid)
+        hashed.extend(p * valid for p in _hash_value_planes(c, raw))
+    return eq, hashed
+
+
+def hash_planes_of(columns: Sequence[col.Column],
+                   widths: Optional[Sequence[Optional[int]]] = None
+                   ) -> List[torch.Tensor]:
     """The JAX package's u32 key planes of `columns` (ascending, nulls
     first), as int64 tensors holding values in [0, 2**32): what
     rowformat/hashing.py hashes, so that a key hashes as it does there.
-
-    Per column: the sentinel plane (1 valid, 0 null), then for int64
-    `hi ^ 0x80000000, lo`, for a narrower signed int `value - min`, for
-    uint8 and bool the value; null rows zero their value planes."""
-    planes: List[torch.Tensor] = []
-    for c in columns:
-        if isinstance(c, col.BooleanColumn):
-            values = [c.values_bool().to(torch.int64)]
-        elif (isinstance(c, col.PrimitiveColumn)
-              and isinstance(c.dtype, st.Int)):
-            v = c.values.to(torch.int64)
-            if c.dtype.bits == 64:
-                values = [((v >> 32) & _U32) ^ 0x80000000, v & _U32]
-            elif c.dtype.signed:
-                values = [v - torch.iinfo(c.values.dtype).min]
-            else:
-                values = [v]
-        else:
-            raise st.ComputeError(
-                f"hash: unsupported key {type(c).__name__} {c.dtype}")
-        valid = c.valid_bool().to(torch.int64)
-        planes.append(valid)
-        planes.extend(p * valid for p in values)
-    return planes
+    Per column: the sentinel plane (1 valid, 0 null), then its value
+    planes (`_hash_value_planes`), zero on null rows; a null column is one
+    zero plane.  `widths` as in `key_planes`."""
+    return key_planes(columns, widths)[1]

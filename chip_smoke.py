@@ -159,19 +159,47 @@ Phases (each raises on failure; the exit code is then non-zero):
      by `_build.launch_words` and by calling module), every K1 call held
      to its plain version; exact against `entry.q1_oracle` (4 groups, the
      sums as integers, the means bit for bit, the counts); the step's time
-     (CUDA events, median of 10 with min and max), its stages (predicate,
+     (CUDA events, median of 5 with min and max), its stages (predicate,
      plan, filter, prices, group-by with its encode, sort, limb prefix
      sums and extraction, final sort), busy share and peak memory; K1 at
      the filter call and at the group-by's calls beside their bounds,
      plain versions and library calls; then `sort_to_indices` of SF1's
      `l_comment` (about 6M strings of 10-43 bytes), which must run the
-     grouped sort and equal numpy's stable argsort of the bytes, timed.
+     grouped sort and equal numpy's stable argsort of the bytes, timed;
+  16. (run after phase 6b) config 5's join step at phase 6's share with k
+     carried as TPC-H's c_name, "Customer#%09d" (18 bytes, in the arena),
+     on both sides and rv as a Decimal128(15, 2)
+     (`entry.text_join_batches`): the string hash, the exchange of string
+     views and decimals, string-key probing and a decimal partial sum
+     through the exchange of the two-phase group-by by the text key.  The
+     launch counts set to 0 just before the step and read just after (K1
+     must run, by module and word size; no dense_agg), every K1 and K2
+     call held to its plain version, the group-by's K1 calls read as in
+     phase 6; exact against `entry.join_oracle` on the integer keys
+     (`entry.check_text_join_output`); the step's time (CUDA events,
+     median of 3), its stages (the key hash of both sides, exchange,
+     build, probe, expand + take, group-by), peak memory and busy share;
+  17. (run after phase 15, on its lineitem and oracle) the lineitem
+     through `entry.lineitem_exchange` (hash partition on l_orderkey,
+     world size 1 over NCCL: every column class of the batch moves),
+     which must give the batch back row for row, bit for bit
+     (`entry.check_same_rows`), then TPC-H Q1 as a distributed group-by
+     on the exchanged batch (`entry.q1_distributed_step`), its sums and
+     count_order exact against `q1_oracle`, the launch counts set to 0
+     before and read after (K1 at 16 bytes in the filter and at 16 and 8
+     bytes in the group-by), every K1 and K2 call held to plain; the
+     exchange's time (median of 3), its stages (the plan, then each
+     column class through it), peak and busy share, and the distributed
+     Q1's.  Phases 6, 6b and 15 time their steps over 5 runs (10 before
+     phases 16-17 were added), so that the run stays within its earlier
+     time.
 
 The line before the last lists the kernels as JSON (`launches` from the
 flagship step for K1 and K2, from K3's entry point for K3, from
 run_probes for the probe kernels, from config 4 at 100 keys for
 dense_agg and from the Q6 step for K1's 16-byte words; every path's counts under `launches_by_path`, the skewed
-step's filters as a path of their own, TPC-H Q1 too; the flagship, join
+step's filters as a path of their own, TPC-H Q1, the text join step, the
+lineitem exchange and the distributed Q1 too; the flagship, join
 and skewed join steps, int64-keyed, must launch no dense_agg; K1's 16-byte
 row carries its Q1 calls), after the Q1 step's and the l_comment sort's
 JSON lines and the card's line; the last line is {"ok": true, "device":
@@ -201,12 +229,15 @@ REPS = 30
 PROBE_ROWS = 62_500_000
 BUILD_ROWS = 6_250_000
 PROBE_KEY_RANGE = 7_812_500
-JOIN_REPS = 10
+JOIN_REPS = 5  # 10 before phases 16-17 were added
 JOIN_AGGS = [("rv", "sum"), ("rv", "count")]
 # the skewed join step: the same share and nulls, probe keys Zipf(1.0)
 # over the key range, the skew path at 1 % and four probe chunks
 SKEW_ZIPF = 1.0
 SKEW = {"skew_threshold": 0.01, "probe_chunks": 4}
+# the text-keyed join step (phase 16) and the lineitem exchange (phase 17)
+TEXT_REPS = 3
+EXCHANGE_REPS = 3
 LEXSORT_ROWS = 100_000_000  # BASELINE config 3, nothing cut
 LEXSORT_CHECK_ROWS = 1_000_000  # held to np.lexsort itself
 LEXSORT_REPS = 5
@@ -703,36 +734,46 @@ def check_k3(k1, k3, dev) -> None:
             "densities, two masks in a row each)")
 
 
-def stage_ms(fn):
-    return median_ms(fn, reps=JOIN_REPS, warmup=1)
+def stage_ms(fn, reps=JOIN_REPS):
+    return median_ms(fn, reps=reps, warmup=1)
 
 
-def join_stages(left, right, group):
+def join_stages(left, right, group, reps=JOIN_REPS):
     """The unskewed join step's stages on one rank (CUDA-event medians):
-    exchange of both sides, build, probe, expand + take, the two-phase
-    group-by.  -> (stages, row and round counts)."""
+    the key hash of both sides (the exchange's partition of each row, the
+    string keys at the step's width), the exchange of both sides, build,
+    probe, expand + take, the two-phase group-by.  -> (stages, row and
+    round counts)."""
     from arrowtpu_torch.ops import join as jn
     from arrowtpu_torch.parallel import distributed as pd
     from arrowtpu_torch.parallel import shuffle
 
-    r_ex = shuffle.exchange(right, ["k"], group)
-    l_ex = shuffle.exchange(left, ["k"], group)
-    table = jn.build_table([r_ex["k"]])
+    widths = pd._key_widths(left, right, ["k"])
+    r_ex = shuffle.exchange(right, ["k"], group, widths)
+    l_ex = shuffle.exchange(left, ["k"], group, widths)
+    table = jn.build_table([r_ex["k"]], widths)
     match, probe_rounds = jn.probe_table(table, [l_ex["k"]])
     joined, _ = jn.join_matches(l_ex, r_ex, ["k"], table, match)
 
+    def hash_both():
+        for b in (right, left):
+            shuffle.partition_ids(b, ["k"], group.world_size, widths)
+
     def exchange_both():
-        shuffle.exchange(right, ["k"], group)
-        shuffle.exchange(left, ["k"], group)
+        shuffle.exchange(right, ["k"], group, widths)
+        shuffle.exchange(left, ["k"], group, widths)
 
     stages = {
-        "exchange_ms": stage_ms(exchange_both),
-        "build_ms": stage_ms(lambda: jn.build_table([r_ex["k"]])),
-        "probe_ms": stage_ms(lambda: jn.probe_table(table, [l_ex["k"]])),
+        "hash_ms": stage_ms(hash_both, reps),
+        "exchange_ms": stage_ms(exchange_both, reps),
+        "build_ms": stage_ms(lambda: jn.build_table([r_ex["k"]], widths),
+                             reps),
+        "probe_ms": stage_ms(lambda: jn.probe_table(table, [l_ex["k"]]),
+                             reps),
         "expand_take_ms": stage_ms(lambda: jn.join_matches(
-            l_ex, r_ex, ["k"], table, match)),
+            l_ex, r_ex, ["k"], table, match), reps),
         "group_by_ms": stage_ms(lambda: pd.distributed_group_by(
-            joined, ["k"], JOIN_AGGS, group=group)),
+            joined, ["k"], JOIN_AGGS, group=group), reps),
     }
     counts = {"probe_rows": l_ex.length, "build_rows": r_ex.length,
               "join_rows": joined.length, "build_rounds": table.rounds,
@@ -959,6 +1000,204 @@ def skew_phase(pe, k1, k2, k3, build, dev):
         log("skewed join profile: " + str(profile(
             lambda: pe.join_step(left, right, group, **SKEW), reps=3)))
     return launches, filters
+
+
+def by_caller(args, build):
+    """{(kernel, calling module, word bytes): calls} of held_to_plain's
+    record of a run."""
+    return dict(collections.Counter(
+        (name, c.caller.rsplit(".", 1)[-1], build.word_bytes(c.planes[0]))
+        for name, calls in args.items() for c in calls))
+
+
+def check_q1_k1_calls(callers, label):
+    """Q1's K1 calls (`by_caller`) must include 16-byte words in the
+    filter and 16- and 8-byte words in the group-by."""
+    if not all(callers.get(("K1", m, w)) for m, w in
+               (("filter", 16), ("groupby", 16), ("groupby", 8))):
+        raise AssertionError(f"{label}: K1 calls by module and word size "
+                             f"{callers}; expected 16-byte words in the "
+                             "filter and 16- and 8-byte words in the "
+                             "group-by")
+
+
+def text_join_phase(pe, k1, k2, k3, build, dev):
+    """Phase 16: the join step at phase 6's share with k carried as TPC-H's
+    c_name text on both sides and rv as a Decimal128(15, 2).  -> (the
+    launch counts of its run, its timing line)."""
+    from arrowtpu_torch.kernels import dense_agg as dk
+    from arrowtpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    shards = pe.example_join_shards(
+        0, 1, PROBE_ROWS, BUILD_ROWS, key_range=PROBE_KEY_RANGE,
+        key_nulls=0.05, rv_nulls=0.1, permute_build=True)
+    want = pe.join_oracle([shards])
+    left, right = pe.text_join_batches(shards, dev)
+    del shards
+    torch.cuda.synchronize()
+    log(f"text join: data and oracle in {time.perf_counter() - t0:.1f} s; "
+        f"{PROBE_ROWS} probe x {BUILD_ROWS} build rows, k as "
+        f"'Customer#%09d' ({pe.TEXT_KEY_BYTES} bytes, in the arena) on "
+        "both sides, rv as Decimal128(15, 2); world size 1, cut: 16 chips "
+        "-> 1 card")
+    with mesh.process_group(0, 1, dev) as group:
+        args = {}
+        with held_to_plain({"K1": k1, "K2": k2}, args) as calls, \
+                build.launch_words() as words:
+            k1.launches = k2.launches = k3.launches = dk.launches = 0
+            build.count_launches = 0
+            out = pe.join_step(left, right, group)
+            torch.cuda.synchronize()
+            launches = {"K1": k1.launches, "K2": k2.launches,
+                        "K3": k3.launches, "dense_agg": dk.launches,
+                        "tile_counts": build.count_launches,
+                        **{f"{k}_{w}": words.count((k, w))
+                           for k, w in sorted(set(words))}}
+        if launches["K1"] <= 0 or not calls["K1"]:
+            raise AssertionError("K1 was not launched by the text join step")
+        if launches["dense_agg"]:
+            raise AssertionError("the text key took the dense engine")
+        groups = pe.check_text_join_output([out], want)
+        extraction = group_by_calls(args, launches["tile_counts"],
+                                    "text join")
+        log(f"text join: {groups} groups exact against the numpy oracle; "
+            f"launches {launches}; K1 / K2 calls by module and word bytes "
+            f"{by_caller(args, build)}; every call held to plain (P, n, "
+            f"kept, out_rows): {calls}; the group-by's {len(extraction)} "
+            f"K1 calls each {[c.launched for c in extraction]}")
+        del args, extraction, out
+        times = run_times_ms(lambda: pe.join_step(left, right, group),
+                             reps=TEXT_REPS, warmup=1)
+        stages, counts = join_stages(left, right, group, reps=TEXT_REPS)
+        counts["groups"] = groups
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        pe.join_step(left, right, group)
+        peak = torch.cuda.max_memory_allocated()
+        busy = profile(lambda: pe.join_step(left, right, group), reps=2)
+    line = {"step_ms": statistics.median(times), "min_ms": times[0],
+            "max_ms": times[-1], "reps": len(times), **stages, **counts,
+            "peak_gib": peak / 2**30, "held_before_gib": held / 2**30,
+            **busy}
+    log(f"text join timing: {line}")
+    return launches, line
+
+
+def exchange_stages(pe, batch, group):
+    """The lineitem exchange's stages (CUDA-event medians): the plan (the
+    key hash, the destination sort and the split sizes' read-back), then
+    each class of column through the plan: the int64, int32 and Date32
+    columns, the four decimals ((n, 4) rows), the flags and the comments
+    (their byte matrices), the dictionaries (their keys)."""
+    from arrowtpu_torch.parallel import mesh as pm
+    from arrowtpu_torch.parallel import shuffle
+
+    norm = pm.normalize_batch(batch)
+    bounds = dict(zip(norm.schema.names,
+                      shuffle.shared_bounds(norm.columns)))
+    plan = shuffle.build_exchange_plan(norm, ["l_orderkey"], group)
+    groups = {
+        "ints": ["l_orderkey", "l_partkey", "l_suppkey", "l_linenumber"],
+        "dates": list(pe.LINEITEM_DATES),
+        "decimals": ["l_quantity", "l_extendedprice", "l_discount", "l_tax"],
+        "flags": ["l_returnflag", "l_linestatus"],
+        "dictionaries": ["l_shipinstruct", "l_shipmode"],
+        "comments": ["l_comment"]}
+
+    def move(names):
+        return [shuffle.exchange_column(norm[n], plan, bounds[n])
+                for n in names]
+
+    out = {"plan_ms": stage_ms(lambda: shuffle.build_exchange_plan(
+        norm, ["l_orderkey"], group), EXCHANGE_REPS)}
+    for label, names in groups.items():
+        out[f"{label}_ms"] = stage_ms(lambda: move(names), EXCHANGE_REPS)
+    return out
+
+
+def lineitem_exchange_phase(pe, ops, k1, k2, build, dev, arrays, batch,
+                            want):
+    """Phase 17: phase 13's SF10 lineitem through `exchange(batch,
+    ["l_orderkey"])` at world size 1 (it must come back row for row, bit
+    for bit), then TPC-H Q1 as a distributed query on the exchanged batch
+    (`entry.q1_distributed_step`), its sums and count_order held to
+    q1_oracle (`want`, phase 15's).  -> ({path: launches}, its timing
+    line)."""
+    from arrowtpu_torch.kernels import dense_agg as dk
+    from arrowtpu_torch.parallel import mesh
+
+    with mesh.process_group(0, 1, dev) as group:
+        args = {}
+        with held_to_plain({"K1": k1, "K2": k2}, args):
+            k1.launches = k2.launches = dk.launches = 0
+            build.count_launches = 0
+            ex = pe.lineitem_exchange(batch, group)
+            torch.cuda.synchronize()
+            ex_launches = {"K1": k1.launches, "K2": k2.launches,
+                           "dense_agg": dk.launches,
+                           "tile_counts": build.count_launches}
+        rows = pe.check_same_rows(ex, batch)
+        log(f"lineitem exchange: {rows} rows x {len(batch.columns)} "
+            "columns back row for row, bit for bit (values, decimal limbs, "
+            "dates, string bytes, lengths and len_bound, dictionary keys "
+            f"and the same dictionary); launches {ex_launches}")
+        args = {}
+        with held_to_plain({"K1": k1, "K2": k2}, args) as calls, \
+                build.launch_words() as words:
+            k1.launches = k2.launches = dk.launches = 0
+            build.count_launches = 0
+            out = pe.q1_distributed_step(ex, group)
+            torch.cuda.synchronize()
+            q1_launches = {"K1": k1.launches, "K2": k2.launches,
+                           "dense_agg": dk.launches,
+                           "tile_counts": build.count_launches,
+                           **{f"{k}_{w}": words.count((k, w))
+                              for k, w in sorted(set(words))}}
+        counted = pe.check_q1(out, arrays, want, pe.Q1_DISTRIBUTED_AGGS)
+        callers = by_caller(args, build)
+        check_q1_k1_calls(callers, "distributed Q1")
+        extraction = group_by_calls(args, q1_launches["tile_counts"],
+                                    "distributed Q1")
+        log(f"distributed Q1 on the exchanged lineitem: exact against "
+            f"q1_oracle's sums and counts ({counted} rows in "
+            f"{out.length} groups); launches {q1_launches}; K1 / K2 calls "
+            f"by module and word bytes {callers}; every call held to plain "
+            f"(P, n, kept, out_rows): {calls}; the group-by's "
+            f"{len(extraction)} K1 calls each "
+            f"{[c.launched for c in extraction]}")
+        del args, extraction, out
+        ex_times = run_times_ms(lambda: pe.lineitem_exchange(batch, group),
+                                reps=EXCHANGE_REPS, warmup=1)
+        stages = exchange_stages(pe, batch, group)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        pe.lineitem_exchange(batch, group)
+        ex_peak = torch.cuda.max_memory_allocated()
+        ex_busy = profile(lambda: pe.lineitem_exchange(batch, group), reps=2)
+        q1_times = run_times_ms(lambda: pe.q1_distributed_step(ex, group),
+                                reps=EXCHANGE_REPS, warmup=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        q1_held = torch.cuda.memory_allocated()
+        pe.q1_distributed_step(ex, group)
+        q1_peak = torch.cuda.max_memory_allocated()
+        q1_busy = profile(lambda: pe.q1_distributed_step(ex, group), reps=2)
+    line = {"exchange_ms": statistics.median(ex_times),
+            "exchange_min_ms": ex_times[0], "exchange_max_ms": ex_times[-1],
+            "reps": len(ex_times), "rows": rows,
+            "exchange_stages": stages,
+            "exchange_peak_gib": ex_peak / 2**30,
+            "exchange_held_before_gib": held / 2**30,
+            "exchange_busy": ex_busy,
+            "q1_ms": statistics.median(q1_times), "q1_min_ms": q1_times[0],
+            "q1_max_ms": q1_times[-1], "q1_peak_gib": q1_peak / 2**30,
+            "q1_held_before_gib": q1_held / 2**30, "q1_busy": q1_busy}
+    log(f"lineitem exchange and distributed Q1 timing: {line}")
+    return {"lineitem exchange": ex_launches,
+            "distributed TPC-H Q1": q1_launches}, line
 
 
 def check_probes(kp, probes, dev) -> None:
@@ -1519,7 +1758,7 @@ def q6_phase(pe, ops, k1, k2, build, dev, floor_bytes_per_s):
     return run, row, arrays, batch
 
 
-Q1_REPS = 10
+Q1_REPS = 5  # 10 before phases 16-17 were added
 COMMENT_SF = 1  # the string sort check: SF1's l_comment, about 6M rows
 COMMENT_REPS = 5
 
@@ -1650,20 +1889,13 @@ def q1_phase(pe, ops, k1, k2, build, dev, arrays, batch):
                **{f"{k}_{w}": words.count((k, w))
                   for k, w in sorted(set(words))}}
     rows = pe.check_q1(out, arrays, want)
-    by_caller = collections.Counter(
-        (c.caller.rsplit(".", 1)[-1], build.word_bytes(c.planes[0]))
-        for c in args["K1"])
-    if not (by_caller[("filter", 16)] >= 1 and by_caller[("groupby", 16)] >= 1
-            and by_caller[("groupby", 8)] >= 1):
-        raise AssertionError(f"Q1: K1 calls by module and word size "
-                             f"{dict(by_caller)}; expected 16-byte words in "
-                             "the filter and 16- and 8-byte words in the "
-                             "group-by")
+    callers = by_caller(args, build)
+    check_q1_k1_calls(callers, "Q1")
     extraction = group_by_calls(args, run["tile_counts"], "Q1")
     log(f"Q1: exact against q1_oracle ({t_oracle:.1f} s on the host), "
         f"{out.length} groups {want['keys']}, {rows} of {n} rows kept "
         f"({rows / n:.3%}), counts {want['count_order']}; launches {run}; "
-        f"K1 calls by module and word bytes {dict(by_caller)}; every K1 call "
+        f"K1 calls by module and word bytes {callers}; every K1 call "
         f"held to plain (P, n, kept, out_rows): {calls['K1']}")
     log(f"Q1 output: {out.to_pydict()}")
 
@@ -1702,7 +1934,7 @@ def q1_phase(pe, ops, k1, k2, build, dev, arrays, batch):
     log(f"Q1 timing: {step}")
     log(f"Q1 profile: {profile(lambda: pe.q1_step(batch), reps=3)}")
     comment = comment_sort(pe, dev)
-    return run, k1_rows, step, comment
+    return run, k1_rows, step, comment, want
 
 
 def nested_batch(n, dev, rng):
@@ -2001,6 +2233,13 @@ def main() -> int:
     skew_launches, skew_filters = skew_phase(pe, k1, k2, k3, _build, dev)
     log(f"phase 6b (skewed join step): {time.perf_counter() - t0:.1f} s")
 
+    # phase 16
+    t0 = time.perf_counter()
+    text_launches, text_timing = text_join_phase(pe, k1, k2, k3, _build,
+                                                 dev)
+    torch.cuda.empty_cache()
+    log(f"phase 16 (text-keyed join step): {time.perf_counter() - t0:.1f} s")
+
     # phase 7: K3's entry point on the flagship batch's int64 columns as
     # u32 planes (lo, hi of each) under the flagship mask
     batch = main_runs[CARDINALITIES[0]][0]
@@ -2110,12 +2349,19 @@ def main() -> int:
 
     # phase 15, on phase 13's lineitem; its memory is freed before phase 14
     t0 = time.perf_counter()
-    q1_launches, q1_k1_rows, q1_timing, comment = q1_phase(
+    q1_launches, q1_k1_rows, q1_timing, comment, q1_want = q1_phase(
         pe, ops, k1, k2, _build, dev, arrays, batch)
-    del arrays, batch
-    torch.cuda.empty_cache()
     log(f"phase 15 (TPC-H Q1, SF{Q6_SF}; l_comment sort): "
         f"{time.perf_counter() - t0:.1f} s")
+
+    # phase 17, on the same lineitem and phase 15's oracle
+    t0 = time.perf_counter()
+    lineitem_launches, lineitem_timing = lineitem_exchange_phase(
+        pe, ops, k1, k2, _build, dev, arrays, batch, q1_want)
+    log(f"phase 17 (lineitem exchange, distributed Q1): "
+        f"{time.perf_counter() - t0:.1f} s")
+    del arrays, batch, q1_want
+    torch.cuda.empty_cache()
 
     # phase 14
     t0 = time.perf_counter()
@@ -2215,7 +2461,8 @@ def main() -> int:
                **{f"config 4 {label}": c
                   for label, c in agg_launches.items()},
                "TPC-H Q6": q6_launches, "TPC-H Q1": q1_launches,
-               "nested batch filter": nested_launches}
+               "nested batch filter": nested_launches,
+               "text join step": text_launches, **lineitem_launches}
     kernels = []
     for key in ("K1", "K2", "K3", *shown, "dense_agg", "K1_16"):
         row = kernels_rows[key]
@@ -2237,6 +2484,8 @@ def main() -> int:
                                    "redesigned_lines",
                                    "library", "floor_ms") if k in row}})
     log(f"TPC-H Q1 step: {json.dumps(q1_timing)}")
+    log(f"text join step: {json.dumps(text_timing)}")
+    log(f"lineitem exchange, distributed Q1: {json.dumps(lineitem_timing)}")
     log(f"l_comment sort: {json.dumps(comment)}")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -47,6 +47,7 @@ from arrowtpu_torch.ops.take import take_record_batch
 from arrowtpu_torch.ops.join import hash_join
 from arrowtpu_torch.parallel import distributed as pdist
 from arrowtpu_torch.parallel import mesh
+from arrowtpu_torch.parallel import shuffle as pshuffle
 from arrowtpu_torch.probes import fresh_call
 
 pytestmark = pytest.mark.cuda
@@ -906,16 +907,25 @@ def test_k1_16_byte_words_must_be_aligned(cuda):
                                        device=cuda)], keep)
 
 
+def _bits(t):
+    """A float tensor as its bits (NaN payloads and signed zeros compare)."""
+    if t.is_floating_point():
+        return t.view({2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[t.element_size()])
+    return t
+
+
 def _same_column(g, w):
     """A column on the card equals the CPU's: class, length, capacity and
-    every tensor (recursively; an arena only as bytes)."""
+    every tensor (recursively; an arena only as bytes; floats by bits)."""
     assert type(g) is type(w) and g.length == w.length
     assert g.capacity == w.capacity and g.dtype == w.dtype
     for name in ("values", "views", "arena", "validity", "starts", "sizes",
                  "keys", "child", "children"):
         x, y = getattr(g, name, None), getattr(w, name, None)
         if isinstance(x, torch.Tensor):
-            assert x.device.type == "cuda" and torch.equal(x.cpu(), y), name
+            assert x.device.type == "cuda" and torch.equal(
+                _bits(x.cpu()), _bits(y)), name
         elif isinstance(x, tuple):
             for a, b in zip(x, y):
                 _same_column(a, b)
@@ -1094,3 +1104,197 @@ def test_decimal_means_and_gathers_on_card_match_cpu(cuda):
     for w in (4, 2, 3):
         r = rows[:, :w].contiguous()
         assert torch.equal(gather_rows(r, idx), r[idx])
+
+
+# ---------------------------------------------------------------------------
+# the distributed layer over every key and column class
+# ---------------------------------------------------------------------------
+
+KEY_WORDS = ["pear", "apple", "a word longer than twelve bytes", "", "fig",
+             "twelve bytes", "thirteen byte"]
+
+
+def _key_values(kind, n, rng):
+    """n Python values (None for a null) of a key class, drawn from one
+    pool of 40 values of the class, and its type."""
+    draw = rng.integers(0, 40, n)
+    ok = rng.random(n) > 0.1
+    pool_rng = np.random.default_rng(40)
+    if kind in ("float64", "float32"):
+        pool = np.concatenate([[0.0, -0.0, np.nan, np.inf, -np.inf],
+                               pool_rng.normal(size=35)])
+        return [float(pool[i]) if o else None for i, o in zip(draw, ok)], \
+            getattr(st, kind)
+    types = {"date32": st.Date32(), "date64": st.Date64(),
+             "time32": st.Time32("ms"), "time64": st.Time64("ns"),
+             "timestamp": st.Timestamp("us", "UTC"),
+             "duration": st.Duration("ms"),
+             "decimal32": st.Decimal32(9, 2),
+             "decimal64": st.Decimal64(18, 2),
+             "decimal128": st.Decimal128(15, 2),
+             "decimal256": st.Decimal256(76, 2),
+             "fsb9": st.FixedSizeBinary(9), "utf8": st.utf8,
+             "dictionary": st.Dictionary(st.int32, st.utf8)}
+    if kind in ("utf8", "dictionary"):
+        pool = [KEY_WORDS[i % 7] + "-" * (i % 3) * 7 + str(i)
+                for i in range(40)]
+    elif kind == "fsb9":
+        pool = [bytes([i]) * 9 for i in range(40)]
+    else:
+        pool = [int(x) for x in pool_rng.integers(-10**6, 10**6, 40)]
+    return [pool[i] if o else None for i, o in zip(draw, ok)], types[kind]
+
+
+def _key_column(kind, values, dtype, device):
+    if kind == "dictionary":
+        return pcol.dictionary_encode_host(values, dtype, device=device)
+    return pcol.from_pylist(values, dtype, device=device)
+
+
+HASH_CLASSES = ["float64", "float32", "date32", "date64", "time32", "time64",
+                "timestamp", "duration", "decimal32", "decimal64",
+                "decimal128", "decimal256", "fsb9", "dictionary", "utf8"]
+
+
+@pytest.mark.parametrize("kind", HASH_CLASSES)
+def test_key_hash_of_every_class_on_card_matches_cpu(cuda, kind):
+    """hash_planes_of + hash_planes (partition and skew seeds) of a
+    nullable key of every class, alone and beside an int64 key, and of a
+    null column, on the card and on the CPU."""
+    from arrowtpu_torch.rowformat import encode as rf
+    from arrowtpu_torch.rowformat import hashing as hsh
+
+    rng = np.random.default_rng(HASH_CLASSES.index(kind))
+    values, dtype = _key_values(kind, 5000, rng)
+    ints = rng.integers(-2**62, 2**62, 5000)
+    got = []
+    for d in (cuda, "cpu"):
+        cols = [_key_column(kind, values, dtype, d),
+                pcol.primitive(ints, st.int64, device=d)]
+        got.append([hsh.hash_planes(rf.hash_planes_of(c), seed=s).cpu()
+                    for c in (cols[:1], cols, [pcol.null_column(5000, d)])
+                    for s in (0x5157, 0x517E)])
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+
+
+def _typed_join_batches(kind, device, seed=21):
+    """Probe and build batches keyed by a class, an N:M join with null
+    keys, payloads of int64, utf8 and Decimal128."""
+    rng = np.random.default_rng(seed)
+    lv, dtype = _key_values(kind, 20_000, rng)
+    rv, _ = _key_values(kind, 400, rng)
+    left = pbt.record_batch({
+        "k": _key_column(kind, lv, dtype, device),
+        "v": pcol.primitive(rng.integers(-9, 9, 20_000), device=device)})
+    right = pbt.record_batch({
+        "k": _key_column(kind, rv, dtype, device),
+        "t": pcol.from_pylist([KEY_WORDS[i % 7] * (i % 4) for i in
+                               range(400)], st.utf8, device=device),
+        "d": pcol.from_pylist([int(x) for x in rng.integers(-10**9, 10**9,
+                                                            400)],
+                              st.Decimal128(15, 2), device=device)})
+    if kind == "dictionary":  # both sides over one dictionary
+        right = pbt.record_batch({**{n: right[n] for n in ("t", "d")},
+                                  "k": pcol.DictionaryColumn(
+                                      right["k"].keys, left["k"].values,
+                                      left["k"].value_ranks, dtype)})
+    return left, right
+
+
+@pytest.mark.parametrize("kind", ["float64", "decimal128", "date64", "fsb9",
+                                  "dictionary", "utf8"])
+def test_hash_join_on_every_key_class_on_card_matches_cpu(cuda, kind):
+    outs = []
+    for d in (cuda, "cpu"):
+        left, right = _typed_join_batches(kind, d)
+        if kind == "dictionary":  # equal values, built apart: ranks agree
+            assert right["k"].values is left["k"].values
+        outs.append(hash_join(left, right, ["k"])[0])
+    assert outs[1].length > 20_000
+    for a, b in zip(outs[0].columns, outs[1].columns):
+        _same_column(a, b)
+
+
+def test_string_widths_and_dictionaries_on_card(cuda):
+    """Text keys of two widths join as the host oracle does; dictionary
+    keys of two dictionaries raise (the JAX package's two faults)."""
+    left = pbt.record_batch({"k": pcol.from_pylist(
+        ["ab", "cd", "ef"], st.utf8, device=cuda)})
+    right = pbt.record_batch({"k": pcol.from_pylist(
+        ["ab", "cd", "x" * 40], st.utf8, device=cuda), "r": pcol.primitive(
+            [0, 1, 2], device=cuda)})
+    out, _ = hash_join(left, right, ["k"])
+    assert out["k"].to_pylist() == ["ab", "cd"]
+    assert out["r"].to_pylist() == [0, 1]
+
+    def side(words):
+        return pbt.record_batch({"k": pcol.dictionary_encode_host(
+            words, device=cuda)})
+
+    with pytest.raises(st.ComputeError):
+        hash_join(side(["a", "b", "a"]), side(["b", "c"]), ["k"])
+
+
+def _mixed_batch(device, n=40_000):
+    rng = np.random.default_rng(22)
+    k = rng.integers(0, 5000, n)
+    strs = [None if rng.random() < 0.1 else KEY_WORDS[i % 7] * (i % 4)
+            for i in rng.integers(0, 100, n)]
+    floats = np.concatenate([[0.0, -0.0, np.nan], rng.normal(size=97)])
+    return pbt.record_batch({
+        "k": pcol.primitive(k, validity=rng.random(n) > 0.05, device=device),
+        "d": pcol.from_pylist([None if rng.random() < 0.1 else int(x) for x
+                               in rng.integers(-10**12, 10**12, n)],
+                              st.Decimal128(15, 2), device=device),
+        "s": pcol.from_pylist(strs, st.utf8, device=device),
+        "f": pcol.primitive(floats[rng.integers(0, 100, n)], st.float64,
+                            device=device)})
+
+
+def test_exchange_and_group_by_of_every_class_on_card_match_cpu(cuda):
+    """At world size 1 over NCCL: the exchange of int64, Decimal128, utf8
+    (inline and arena) and float64 columns keeps every row in order, and
+    the two-phase group-by on the utf8 key with a decimal sum and count,
+    and a decimal mean raises; all equal to the CPU's."""
+    outs = []
+    for d in (cuda, "cpu"):
+        b = _mixed_batch(d)
+        with mesh.process_group(0, 1, d) as group:
+            ex = pshuffle.exchange(b, ["k"], group)
+            agg = pdist.distributed_group_by(
+                b, ["s"], [("d", "sum"), ("d", "count")], group=group)
+            with pytest.raises(st.ComputeError):
+                pdist.distributed_group_by(b, ["s"], [("d", "mean")],
+                                           group=group)
+        for name in ("k", "d", "s"):
+            assert ex[name].to_pylist() == b[name].to_pylist(), name
+        (fv, fok, _), (bv, bok, _) = (column_to_numpy(c["f"])
+                                      for c in (ex, b))
+        assert np.array_equal(fv.view(np.int64), bv.view(np.int64))
+        assert np.array_equal(fok, bok) and fok.all()
+        outs.append((ex, agg))
+    for part in (0, 1):
+        for a, b in zip(outs[0][part].columns, outs[1][part].columns):
+            _same_column(a, b)
+
+
+@pytest.mark.parametrize("kind", ["utf8", "float64"])
+@pytest.mark.parametrize("kw", [{}, {"probe_chunks": 2},
+                                {"skew_threshold": 0.02, "probe_chunks": 2}])
+def test_distributed_join_on_every_key_class_on_card_matches_cpu(cuda, kind,
+                                                                 kw):
+    """distributed_hash_join at world size 1 over NCCL on a utf8 and a
+    float64 key, unchunked, in two chunks and through the skew path (its
+    hot build rows' utf8 and decimal payloads replicated): the output and
+    flags equal the CPU's."""
+    outs = []
+    for d in (cuda, "cpu"):
+        left, right = _typed_join_batches(kind, d, seed=23)
+        with mesh.process_group(0, 1, d) as group:
+            out, info = pdist.distributed_hash_join(left, right, ["k"],
+                                                    group=group, **kw)
+        outs.append((out, bool(info.duplicates), info.overflow))
+    assert outs[0][1:] == outs[1][1:] and outs[1][0].length > 20_000
+    for a, b in zip(outs[0][0].columns, outs[1][0].columns):
+        _same_column(a, b)

@@ -1,7 +1,9 @@
 """The whole flagship step, predicate -> filter -> group-by: arrowtpu_torch's
 `entry(device="cpu")` against `__graft_entry__.entry()` on the same numpy
 arrays, at 4096 rows with and without nulls.  Tolerance: exact (keys, sums,
-counts, mins, group order, validity as bools, length, zero padding)."""
+counts, mins, group order, validity as bools, length, zero padding).
+Then the port's text-keyed join step and its lineitem exchange with a
+distributed Q1, each at one rank against its numpy oracle."""
 
 import jax
 import numpy as np
@@ -60,3 +62,40 @@ def test_agg_step_is_the_bench_plan(cardinality, engine):
     out = pe.agg_step(plan, pb)
     tp.assert_batch_equal(jgb.plan_group_by(jb, ["k"], pe.AGG_AGGS)(jb), out)
     assert pe.check_agg(out, pe.agg_oracle(arrays)) == out.length > 0
+
+
+def test_text_join_step_against_the_oracle():
+    """config 5's join step with k carried as TPC-H's c_name text on both
+    sides and rv as a Decimal128(15, 2), at one rank, 4096 x 512 rows:
+    the keys and sums read back to integers equal `join_oracle`'s."""
+    from arrowtpu_torch.parallel import mesh
+
+    shards = pe.example_join_shards(0, 1, 4096, 512, key_range=640,
+                                    key_nulls=0.05, rv_nulls=0.1,
+                                    permute_build=True)
+    left, right = pe.text_join_batches(shards, device="cpu")
+    assert left["k"].to_pylist()[:2] == [
+        None if ok is not None and not ok else "Customer#%09d" % k
+        for k, ok in zip(shards[0]["k"][0][:2], shards[0]["k"][1][:2])]
+    with mesh.process_group(0, 1, "cpu") as group:
+        out = pe.join_step(left, right, group)
+    assert pe.check_text_join_output([out], pe.join_oracle([shards])) > 0
+
+
+def test_lineitem_exchange_and_distributed_q1():
+    """lineitem (about 12,000 rows, every column class) through the
+    exchange at one rank comes back row for row, and Q1 as a distributed
+    query on it gives q1_oracle's sums and counts."""
+    from arrowtpu_torch.parallel import mesh
+
+    arrays = pe.example_lineitem_arrays(sf=0.002, seed=6)
+    batch = pe.lineitem_batch(arrays, device="cpu")
+    with mesh.process_group(0, 1, "cpu") as group:
+        ex = pe.lineitem_exchange(batch, group)
+        assert pe.check_same_rows(ex, batch) == batch.length
+        out = pe.q1_distributed_step(ex, group)
+    want = pe.q1_oracle(arrays)
+    assert pe.check_q1(out, arrays, want, pe.Q1_DISTRIBUTED_AGGS) == sum(
+        want["count_order"])
+    assert out.schema.names == pe.Q1_KEYS + [
+        name for name, _ in pe.Q1_DISTRIBUTED_AGGS]

@@ -32,20 +32,28 @@ from arrowtpu_torch.interop.numpy_bridge import column_to_numpy
 from arrowtpu_torch.ops import groupby as pgb
 
 
-def _batches(spec, n, seed):
-    """spec: [(name, dtype, lo, hi, null_density)]"""
+def _batches(spec, n, seed, length=None, jax_bitmaps=False):
+    """spec: [(name, dtype, lo, hi, null_density)] -> (JAX batch, port
+    batch) of n rows, `length` of them live (default all).  With
+    `jax_bitmaps` every JAX column gets a validity bitmap (all valid where
+    the spec has no nulls), so that cases with and without nulls share one
+    compiled JAX program; the port's columns keep none."""
     rng = np.random.default_rng(seed)
     jcols, pcols = {}, {}
     for name, dt, lo, hi, nulls in spec:
         vals = rng.integers(lo, hi, n)
         valid = rng.random(n) > nulls if nulls else None
-        jcols[name] = tp.jax_column(vals, valid, dt)
+        jvalid = np.ones(n, bool) if valid is None and jax_bitmaps else valid
+        jcols[name] = tp.jax_column(vals, jvalid, dt)
         pcols[name] = tp.port_column(vals, valid, dt)
+        if length is not None:
+            jcols[name] = jcols[name].with_length(length)
+            pcols[name] = pcol._set_length(pcols[name], length)
     return jbt.record_batch(jcols), pbt.record_batch(pcols)
 
 
-def _check(spec, keys, aggs, n=2000, seed=0):
-    jb, pb = _batches(spec, n, seed)
+def _check(spec, keys, aggs, n=2000, seed=0, jax_bitmaps=False):
+    jb, pb = _batches(spec, n, seed, jax_bitmaps=jax_bitmaps)
     tp.assert_batch_equal(jgb.group_by(jb, keys, aggs),
                           pgb.group_by(pb, keys, aggs))
 
@@ -74,12 +82,15 @@ def test_int64_high_cardinality_with_second_minmax_column():
 @pytest.mark.parametrize("value_nulls", [0.0, 0.2])
 def test_int32_key_dense_path(value_nulls):
     """The dense-range engine in both packages (key range below the
-    bucket count)."""
+    bucket count).  The JAX values carry bitmaps in both cases (all valid
+    at 0.0), so the two share one compiled JAX program; the port's have
+    none at 0.0."""
     spec = [("k", "int32", 0, 20, 0.0),
             ("v", "int32", -1000, 1000, value_nulls),
             ("w", "int64", -50, 50, value_nulls)]
     _check(spec, ["k"], [("v", "sum"), ("v", "count"), ("v", "min"),
-                         ("w", "max"), ("w", "sum"), ("v", "mean")], seed=2)
+                         ("w", "max"), ("w", "sum"), ("v", "mean")], seed=2,
+           jax_bitmaps=True)
 
 
 def test_two_keys_with_bool():
@@ -90,8 +101,10 @@ def test_two_keys_with_bool():
 
 
 def test_no_live_rows():
+    """2000 rows of capacity, none live (the int64 sort path's schema and
+    capacity, so the JAX program is the one compiled there)."""
     spec = [("k", "int64", 0, 6, 0.0), ("v", "int64", -5, 5, 0.0)]
-    jb, pb = _batches(spec, 0, 4)
+    jb, pb = _batches(spec, 2000, 4, length=0)
     tp.assert_batch_equal(jgb.group_by(jb, ["k"], ALL),
                           pgb.group_by(pb, ["k"], ALL))
 

@@ -14,11 +14,14 @@ the JAX mesh's merged sum and count: the JAX package's own finalizer does
 not run on int64 counts, whose comparison with 0 it packs into a bitmap
 with both u32 limbs of each row.
 
-The JAX reference is `parallel.shard_map_batches` on a JAX CPU mesh (under
-`jax.jit`: one compile a mesh size), computed once per module.  The port
-runs as gloo process groups: one rank in this process, four spawned
-processes.  Tolerance: bit-exact per rank (values below the length,
-validity as bools, length, zero padding).
+The JAX reference is `parallel.shard_map_batches` on a 4-device JAX CPU
+mesh (under `jax.jit`: one compile for the exchange, the step and the
+group-by each), computed once per module.  The port
+runs as gloo process groups: four spawned processes, held per rank, and
+one rank in this process on the union of the four ranks' shards, held to
+the four JAX ranks' outputs together (ordered by their unique keys; the
+exchange's rows as a multiset).  Tolerance: bit-exact (values below the
+length, validity as bools, length, zero padding).
 """
 
 import numpy as np
@@ -67,21 +70,24 @@ def _jax_step(n):
     grouped = parallel.stack_batches([_jax_batch(a)
                                       for a in _group_shards(n)])
 
-    def body(lb, rb, gb):
-        l_ex = parallel.exchange(lb, ["k"], axis_name="d", num_partitions=n)
+    def step(lb, rb):
         joined, _ = parallel.distributed_hash_join(
             lb, rb, ["k"], num_partitions=n, axis_name="d")
-        out = parallel.distributed_group_by(
+        return parallel.distributed_group_by(
             joined, ["k"], [("rv", "sum"), ("rv", "count")],
             num_partitions=n, axis_name="d")
-        agg = parallel.distributed_group_by(gb, ["g"], JAX_AGGS,
-                                            num_partitions=n, axis_name="d")
-        return l_ex, out, agg
 
+    # one jit a part: XLA's compile time grows faster than the program
+    parts = [
+        ((left,), lambda lb: parallel.exchange(lb, ["k"], axis_name="d",
+                                               num_partitions=n)),
+        ((left, right), step),
+        ((grouped,), lambda gb: parallel.distributed_group_by(
+            gb, ["g"], JAX_AGGS, num_partitions=n, axis_name="d"))]
     mesh = parallel.make_mesh(n)
-    outs = jax.jit(lambda a, b, c: parallel.shard_map_batches(
-        body, mesh, a, b, c))(left, right, grouped)
-    return tuple(parallel.unstack_batches(o) for o in outs)
+    return tuple(parallel.unstack_batches(jax.jit(
+        lambda *a, body=body: parallel.shard_map_batches(body, mesh, *a))(
+            *args)) for args, body in parts)
 
 
 def _assert_aggregates_equal(jb, pb):
@@ -101,11 +107,6 @@ def _assert_aggregates_equal(jb, pb):
 
 
 @pytest.fixture(scope="module")
-def jax_one_rank():
-    return _jax_step(1)
-
-
-@pytest.fixture(scope="module")
 def jax_four_ranks():
     return _jax_step(4)
 
@@ -116,15 +117,76 @@ def group():
         yield g
 
 
-def test_one_rank_in_process(group, jax_one_rank):
-    jax_ex, jax_out, jax_agg = jax_one_rank
-    left, right = (batch_from_numpy(a, device="cpu")
-                   for a in pe.example_join_shards(0, 1))
-    tp.assert_batch_equal(jax_ex[0], pshuffle.exchange(left, ["k"], group))
-    tp.assert_batch_equal(jax_out[0], pe.join_step(left, right, group))
-    batch = batch_from_numpy(_group_shards(1)[0], device="cpu")
-    _assert_aggregates_equal(jax_agg[0], pdist.distributed_group_by(
-        batch, ["g"], AGGS, group=group))
+def _union(shards):
+    """{name: (values, valid)} of several ranks' shards, concatenated."""
+    return {name: (np.concatenate([s[name][0] for s in shards]),
+                   None if any(s[name][1] is None for s in shards)
+                   else np.concatenate([s[name][1] for s in shards]))
+            for name in shards[0]}
+
+
+def _columns_by_key(columns, key):
+    """{name: (values, valid)} rows ordered by the key column's validity
+    (null first) then value, as a group-by orders its groups."""
+    v, ok = columns[key]
+    order = np.lexsort((np.where(ok, v, 0), ok))
+    return {n: (a[order], b[order]) for n, (a, b) in columns.items()}
+
+
+def _jax_union(batches):
+    """The JAX mesh's per-rank outputs as one set of numpy columns."""
+    names = [f.name for f in batches[0].schema.fields]
+    parts = [{n: tp.jax_to_numpy(b[n])[:2] for n in names} for b in batches]
+    return {n: tuple(np.concatenate([p[n][i] for p in parts])
+                     for i in range(2)) for n in names}
+
+
+def _port_columns(batch):
+    return {n: column_to_numpy(batch[n])[:2] for n in batch.schema.names}
+
+
+def _assert_columns_equal(got, want):
+    assert list(got) == list(want)
+    for name, (v, ok) in want.items():
+        np.testing.assert_array_equal(got[name][1], ok, err_msg=name)
+        np.testing.assert_array_equal(got[name][0], v, err_msg=name)
+
+
+def test_one_rank_in_process(group, jax_four_ranks):
+    """The port at one rank, in this process, on the union of the four
+    ranks' shards, against the JAX mesh's four ranks together: its
+    exchange keeps every row in order (the JAX mesh's exchanged rows are
+    the same multiset), and the step's and the group-by's outputs, whose
+    keys are unique, are the JAX ranks' outputs ordered by key, exactly
+    (values under nulls included; mean_x by the JAX finalizer's formula
+    on the mesh's sum_x and count_x)."""
+    jax_ex, jax_out, jax_agg = jax_four_ranks
+    shards = [pe.example_join_shards(r, 4) for r in range(4)]
+    left = batch_from_numpy(_union([lt for lt, _ in shards]), device="cpu")
+    right = batch_from_numpy(_union([rt for _, rt in shards]), device="cpu")
+    ex = pshuffle.exchange(left, ["k"], group)
+    assert ex.length == left.length
+    got = _port_columns(ex)
+    _assert_columns_equal(got, {n: (c[0], np.ones(left.length, bool))
+                                for n, c in _port_columns(left).items()})
+    want = _jax_union(jax_ex)
+    _assert_columns_equal(_columns_by_key(got, "k"),
+                          _columns_by_key(want, "k"))
+    out = pe.join_step(left, right, group)
+    _assert_columns_equal(_port_columns(out),
+                          _columns_by_key(_jax_union(jax_out), "k"))
+    for c in out.columns:
+        tp.assert_zero_padding(c)
+    batch = batch_from_numpy(_union(_group_shards(4)), device="cpu")
+    agg = pdist.distributed_group_by(batch, ["g"], AGGS, group=group)
+    want = _columns_by_key(_jax_union(jax_agg), "g")
+    s, s_ok = want["sum_x"]
+    c, c_ok = want["count_x"]
+    want["mean_x"] = (s.astype(np.float64) / np.maximum(c, 1),
+                      s_ok & c_ok & (c > 0))
+    _assert_columns_equal(_port_columns(agg), want)
+    for c in agg.columns:
+        tp.assert_zero_padding(c)
 
 
 def test_four_spawned_ranks_match_the_jax_mesh(jax_four_ranks):

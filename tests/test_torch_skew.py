@@ -2,7 +2,7 @@
 `distributed_hash_join`, and the exchange of a dictionary column, against
 the JAX package's on the same numpy shards (`tests/torch_skew_cases.py`).
 
-The JAX reference is one `jax.jit` program on a 4-device CPU mesh
+The JAX reference is a `jax.jit` program a case on a 4-device CPU mesh
 (`parallel.shard_map_batches`), computed once per module; the port runs
 every case in one spawn of four gloo ranks.  Tolerances, per rank:
   * `detect_hot_buckets`: the hot-bucket mask and the hot-row flags, bit
@@ -21,7 +21,17 @@ every case in one spawn of four gloo ranks.  Tolerances, per rank:
     package (a granule of 64 rows here, 128 there), so the chunks cut at
     other rows and rows come in another order;
   * the join's duplicates and overflow flags: equal;
-  * the dictionary exchange: the keys exact, the dictionary kept.
+  * the dictionary exchange: the keys exact, the dictionary kept;
+  * the other key and column classes (`torch_skew_cases`: the exchange
+    of int64, Decimal128, utf8 and float64 columns, a group-by on a utf8
+    key with a decimal sum, joins on a utf8 and a float64 key): exact,
+    float64 columns by their bits,
+    and a string view's len_bound by one rule (the port keeps the longest
+    string of any rank, the JAX package its static bound or, after its
+    exchange, that bound rounded up to its byte matrix's 16-byte width);
+    the skew path on the utf8 key in two probe chunks, whose hot build
+    rows carry a decimal and a utf8 payload through the replication: as
+    multisets of rows (its filtered cold side's capacity differs).
 Build keys are unique except in the "dups" case, whose N:M rows fit the
 `out_capacity` both packages are given; no JAX exchange bucket overflows
 (its capped buckets hold 256 rows of the 512, 128 of a 128-row chunk).
@@ -30,6 +40,8 @@ The in-process cases run the port alone: `entry.join_step` with the skew
 path and chunks on Zipf shards against the numpy oracle, and the float32
 rule of the hot test.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -45,6 +57,7 @@ from arrowtpu.core import column as jcol
 from arrowtpu.parallel.distributed import detect_hot_buckets
 from arrowtpu_torch import column_to_numpy
 from arrowtpu_torch import entry as pe
+from arrowtpu_torch.core import limbs as plimbs
 from arrowtpu_torch.interop.numpy_bridge import batch_from_numpy
 from arrowtpu_torch.parallel import distributed as pdist
 from arrowtpu_torch.parallel import mesh as pmesh
@@ -55,6 +68,22 @@ N = cases.NDEV
 def _jax_batch(arrays):
     return jbt.record_batch({name: tp.jax_column(v, ok, "int64")
                              for name, (v, ok) in arrays.items()})
+
+
+def _jax_typed_batch(arrays):
+    """A JAX-package batch of a torch_skew_cases shard (as
+    `cases.port_batch` builds the port's)."""
+    cols = {}
+    for name, a in arrays.items():
+        if isinstance(a, list):
+            cols[name] = jcol.from_pylist(a, jcol.st.utf8)
+        elif name == "d":
+            cols[name] = jcol.primitive(
+                plimbs.split_int64(a[0], 4), jcol.st.Decimal128(15, 2),
+                validity=jbm.from_numpy_bools(a[1]), length=len(a[0]))
+        else:
+            cols[name] = tp.jax_column(a[0], a[1], str(a[0].dtype))
+    return jbt.record_batch(cols)
 
 
 def _jax_dictionary_batch(rank, proto, dtype):
@@ -68,45 +97,68 @@ def _jax_dictionary_batch(rank, proto, dtype):
 
 @pytest.fixture(scope="module")
 def jax_cases():
-    """{case: per-rank result} of the JAX mesh, one jit."""
-    left = parallel.stack_batches([_jax_batch(cases.probe_shard(r))
-                                   for r in range(N)])
-    rights = [parallel.stack_batches([_jax_batch(cases.build_shard(r, c))
-                                      for r in range(N)])
-              for c in cases.BUILD_CASES]
+    """{case: per-rank result} of the JAX mesh, one `jax.jit` a case: XLA's
+    compile time on the CPU grows faster than the program, so the cases
+    compile in 57 s as eleven programs and in 71 s as one."""
+    inputs = {
+        "lb": [_jax_batch(cases.probe_shard(r)) for r in range(N)],
+        **{c: [_jax_batch(cases.build_shard(r, c)) for r in range(N)]
+           for c in cases.BUILD_CASES},
+        "mixed": [_jax_typed_batch(cases.mixed_shard(r)) for r in range(N)],
+        "text": [_jax_typed_batch(cases.text_probe_shard(r, False))
+                 for r in range(N)],
+        "text_hot": [_jax_typed_batch(cases.text_probe_shard(r, True))
+                     for r in range(N)],
+        "text_build": [_jax_typed_batch(cases.text_build_shard(r))
+                       for r in range(N)]}
     dtype = jcol.st.Dictionary(jcol.st.int32, jcol.st.utf8)
     proto = jcol.dictionary_encode_host(cases.WORDS, dtype)
-    dicts = parallel.stack_batches([_jax_dictionary_batch(r, proto, dtype)
-                                    for r in range(N)])
+    inputs["db"] = [_jax_dictionary_batch(r, proto, dtype) for r in range(N)]
+    stacked = {name: parallel.stack_batches(b) for name, b in inputs.items()}
     skew = dict(skew_threshold=cases.THRESHOLD,
                 hot_capacity=cases.HOT_CAPACITY)
 
-    def body(lb, unique, dups, overflow, db):
-        lb_d = jbt.RecordBatch(
+    def join(probe, rb, on="k", **kw):
+        out, info = parallel.distributed_hash_join(
+            probe, rb, [on], num_partitions=N, axis_name="d", **kw)
+        return out, info.duplicates, info.overflow
+
+    def with_d(lb, db):
+        return jbt.RecordBatch(
             jcol.st.Schema(tuple(lb.schema.fields) + (db.schema.field("d"),)),
             lb.columns + (db["d"],))
 
-        def join(rb, probe=lb, **kw):
-            out, info = parallel.distributed_hash_join(
-                probe, rb, ["k"], num_partitions=N, axis_name="d", **kw)
-            return out, info.duplicates, info.overflow
-
-        return {
-            "hot": detect_hot_buckets(lb, ["k"], axis_name="d",
-                                      threshold_frac=cases.THRESHOLD),
-            "skew": join(unique, lb_d, **skew),
-            "skew_chunks": join(dups, **skew, probe_chunks=cases.CHUNKS,
-                                out_capacity=cases.OUT_CAPACITY),
-            "hot_overflow": join(overflow, **skew),
-            "chunks": join(unique, lb_d, probe_chunks=cases.CHUNKS),
-            "dictionary": parallel.exchange(db, ["k"], axis_name="d",
-                                            num_partitions=N),
-        }
-
+    # case: (its inputs, its body)
+    bodies = {
+        "hot": (("lb",), lambda lb: detect_hot_buckets(
+            lb, ["k"], axis_name="d", threshold_frac=cases.THRESHOLD)),
+        "skew": (("lb", "db", "unique"),
+                 lambda lb, db, rb: join(with_d(lb, db), rb, **skew)),
+        "skew_chunks": (("lb", "dups"), lambda lb, rb: join(
+            lb, rb, **skew, probe_chunks=cases.CHUNKS,
+            out_capacity=cases.OUT_CAPACITY)),
+        "hot_overflow": (("lb", "overflow"),
+                         lambda lb, rb: join(lb, rb, **skew)),
+        "chunks": (("lb", "db", "unique"), lambda lb, db, rb: join(
+            with_d(lb, db), rb, probe_chunks=cases.CHUNKS)),
+        "dictionary": (("db",), lambda db: parallel.exchange(
+            db, ["k"], axis_name="d", num_partitions=N)),
+        "mixed_exchange": (("mixed",), lambda b: parallel.exchange(
+            b, ["k"], axis_name="d", num_partitions=N)),
+        "mixed_group_by": (("mixed",), lambda b: parallel.distributed_group_by(
+            b, ["s"], cases.MIXED_AGGS, num_partitions=N, axis_name="d")),
+        "text_join": (("text", "text_build"),
+                      lambda lb, rb: join(lb, rb, "s")),
+        "text_skew": (("text_hot", "text_build"), lambda lb, rb: join(
+            lb, rb, "s", **skew, probe_chunks=2)),
+        "float_join": (("text", "text_build"),
+                       lambda lb, rb: join(lb, rb, "f")),
+    }
     mesh = parallel.make_mesh(N)
-    out = jax.jit(lambda *a: parallel.shard_map_batches(body, mesh, *a))(
-        left, *rights, dicts)
-    return {name: parallel.unstack_batches(v) for name, v in out.items()}
+    return {name: parallel.unstack_batches(jax.jit(
+        lambda *a, body=body: parallel.shard_map_batches(body, mesh, *a))(
+            *(stacked[i] for i in names)))
+        for name, (names, body) in bodies.items()}
 
 
 @pytest.fixture(scope="module")
@@ -191,6 +243,83 @@ def test_chunked_join_matches_the_jax_mesh_as_multisets(jax_cases,
     dups = [p[1] for p in port_cases[case]]
     assert dups == [case == "skew_chunks"] * N
     assert sum(p[0].length for p in port_cases[case]) > 0
+
+
+def _assert_typed_batch_equal(jb, pb):
+    """Exact, as `tp.assert_batch_equal`, with float64 columns also by
+    their bits (signed zeros, NaN payloads) and a string view's len_bound
+    by this rule: the port keeps the longest string of every rank, the
+    JAX package its static bound or, after its exchange, the byte
+    matrix's width (that bound rounded up to 16 bytes)."""
+    from arrowtpu_torch.core import column as pcol
+    from arrowtpu_torch.ops.strings import matrix_width
+
+    assert [f.name for f in jb.schema.fields] == pb.schema.names
+    for f in jb.schema.fields:
+        j, p = jb[f.name], pb[f.name]
+        if isinstance(p, pcol.StringViewColumn):
+            assert p.len_bound <= j.len_bound == matrix_width(j.len_bound) \
+                or p.len_bound == j.len_bound, (p.len_bound, j.len_bound)
+            assert matrix_width(p.len_bound) == matrix_width(j.len_bound)
+            p = dataclasses.replace(p, len_bound=j.len_bound)
+        tp.assert_column_equal(j, p, f.name)
+        if str(p.dtype) == "float64":
+            np.testing.assert_array_equal(
+                column_to_numpy(p)[0].view(np.uint64),
+                tp.jax_to_numpy(j)[0].view(np.uint64), err_msg=f.name)
+
+
+def _typed_rows(b, pkg):
+    """A batch's rows as sorted tuples of Python values (float64 as
+    bits), for a multiset comparison of batches with string columns."""
+    cols = []
+    for c in b.columns:
+        if str(c.dtype) == "float64":
+            v, ok, n = (column_to_numpy(c) if pkg == "port"
+                        else tp.jax_to_numpy(c))
+            cols.append([int(x) if o else None
+                         for x, o in zip(v.view(np.uint64), ok)])
+        else:
+            cols.append(c.to_pylist())
+    return sorted(zip(*cols), key=repr)
+
+
+TYPED_EXACT = ["mixed_exchange", "mixed_group_by", "text_join",
+               "float_join"]
+
+
+@pytest.mark.parametrize("case", TYPED_EXACT)
+def test_typed_cases_match_the_jax_mesh_exactly(jax_cases, port_cases,
+                                               case):
+    """The exchange of (int64, Decimal128, utf8, float64) columns, the
+    group-by on a utf8 key with a decimal sum, joins on a utf8 and on a
+    float64 key: per rank, exact."""
+    mixed = case.startswith("mixed")
+    for j, p in zip(jax_cases[case], port_cases[case]):
+        _assert_typed_batch_equal(j if mixed else j[0], p if mixed else p[0])
+        if not mixed:
+            _assert_flags(j, p)
+    assert all((p if mixed else p[0]).length > 0
+               for p in port_cases[case])
+
+
+def test_text_skew_chunks_match_the_jax_mesh_as_multisets(jax_cases,
+                                                         port_cases):
+    """The skew path on a utf8 key in two probe chunks, its hot build
+    rows' decimal and string payloads replicated (arenas rebased by
+    rank): per rank the same rows as the JAX mesh's, as multisets (the
+    filtered cold side's capacity differs, so the chunks cut at other
+    rows), with equal lengths, flags and types, and zero padding."""
+    for j, p in zip(jax_cases["text_skew"], port_cases["text_skew"]):
+        jb, pb = j[0], p[0]
+        assert [f.name for f in jb.schema.fields] == pb.schema.names
+        assert [str(f.dtype) for f in jb.schema.fields] == [
+            str(c.dtype) for c in pb.columns]
+        for c in pb.columns:
+            tp.assert_zero_padding(c)
+        assert pb.length == int(jb.length) > 0
+        assert _typed_rows(pb, "port") == _typed_rows(jb, "jax")
+        _assert_flags(j, p)
 
 
 def test_dictionary_exchange_matches_the_jax_mesh(jax_cases, port_cases):
