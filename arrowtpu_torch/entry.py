@@ -45,6 +45,19 @@ one-letter string flags (four decimal sums, three means, a count) and the
 sort by the flags.  `q1_oracle` / `check_q1` hold it to numpy on the
 integer cents: the sums exactly, the means bit for bit.
 
+`q14_step` and `q19_step` are TPC-H Q14 (Clause 2.4.14, the promotion
+effect) and Q19 (Clause 2.4.19, discounted revenue) over lineitem ⋈
+part, the predicate layer at full size: date compares and a filter,
+`hash_join` with part as the build side, l_extendedprice * (1 -
+l_discount) through `ops.numeric`, Q14's `zip_(p_type LIKE 'PROMO%',
+disc_price, 0)`, and Q19's pushed-down conjuncts (`like` on the
+dictionaries, decimal compares, `or_kleene` of `and_kleene` chains on
+part) with the whole predicate applied again after the join; both return
+exact decimal sums.  `example_part_arrays` draws `part` by Clause 4.2.3
+(the same retail price formula as lineitem's extended price),
+`part_batch` builds it on the card (strings as utf8 views), and
+`q14_oracle` / `q19_oracle` / `check_query` hold the steps to numpy.
+
 `text_join_batches` carries config 5's join step on a text key: k as
 TPC-H's c_name, "Customer#%09d" (18 bytes, in the arena; `text_keys`), on
 both sides and rv as a Decimal128(15, 2), so `join_step` runs the string
@@ -1025,3 +1038,359 @@ def check_text_join_output(outputs: Sequence[bt.RecordBatch], want) -> int:
             raise AssertionError(f"output types {out.schema}")
     return check_join_output([_text_output_as_ints(o) for o in outputs],
                              want)
+
+
+# ---------------------------------------------------------------------------
+# TPC-H part, and Q14 and Q19 over lineitem ⋈ part: the predicate layer
+# ---------------------------------------------------------------------------
+
+# Clause 4.2.2.13's lists
+PART_COLOURS = (
+    "almond antique aquamarine azure beige bisque black blanched blue blush "
+    "brown burlywood burnished chartreuse chiffon chocolate coral "
+    "cornflower cornsilk cream cyan dark deep dim dodger drab firebrick "
+    "floral forest frosted gainsboro ghost goldenrod green grey honeydew "
+    "hot indian ivory khaki lace lavender lawn lemon light lime linen "
+    "magenta maroon medium metallic midnight mint misty moccasin navajo "
+    "navy olive orange orchid pale papaya peach peru pink plum powder puff "
+    "purple red rose rosy royal saddle salmon sandy seashell sienna sky "
+    "slate smoke snow spring steel tan thistle tomato turquoise violet "
+    "wheat white yellow").split()
+PART_TYPE_SYLLABLES = (
+    ("STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO"),
+    ("ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED"),
+    ("TIN", "NICKEL", "BRASS", "STEEL", "COPPER"))
+PART_CONTAINER_SYLLABLES = (
+    ("SM", "LG", "MED", "JUMBO", "WRAP"),
+    ("CASE", "BOX", "BAG", "JAR", "PKG", "PACK", "CAN", "DRUM"))
+# each string column's words, indexed by the code `example_part_arrays`
+# draws: type (s1 * 25 + s2 * 5 + s3), container (s1 * 8 + s2), brand
+# ((M - 1) * 5 + N - 1; the manufacturer is M)
+PART_TYPES = [f"{a} {b} {c}" for a in PART_TYPE_SYLLABLES[0]
+              for b in PART_TYPE_SYLLABLES[1] for c in PART_TYPE_SYLLABLES[2]]
+PART_CONTAINERS = [f"{a} {b}" for a in PART_CONTAINER_SYLLABLES[0]
+                   for b in PART_CONTAINER_SYLLABLES[1]]
+PART_BRANDS = [f"Brand#{m}{n}" for m in range(1, 6) for n in range(1, 6)]
+PART_MFGRS = [f"Manufacturer#{m}" for m in range(1, 6)]
+PART_COLUMNS = ["p_partkey", "p_name", "p_mfgr", "p_brand", "p_type",
+                "p_size", "p_container", "p_retailprice", "p_comment"]
+# the coded string columns: (name, words)
+PART_WORDS = {"p_mfgr": PART_MFGRS, "p_brand": PART_BRANDS,
+              "p_type": PART_TYPES, "p_container": PART_CONTAINERS}
+
+
+def _word_pool(words: Sequence[str]):
+    """-> (the words' bytes back to back, each word's start, its length)."""
+    raw = [w.encode() for w in words]
+    lens = np.array([len(w) for w in raw], np.int64)
+    return (np.frombuffer(b"".join(raw), np.uint8),
+            np.cumsum(lens) - lens, lens)
+
+
+def _distinct_draws(rng, n: int, k: int, m: int) -> np.ndarray:
+    """(n, k) int: k distinct values of [0, m) a row, uniform, with no loop
+    over rows: the j-th draw is uniform over the m - j values left, then
+    stepped past the smaller draws already taken."""
+    out = np.zeros((n, k), np.int64)
+    for j in range(k):
+        r = rng.integers(0, m - j, n)
+        for taken in np.sort(out[:, :j], axis=1).T:
+            r += r >= taken
+        out[:, j] = r
+    return out
+
+
+def _name_strings(words: np.ndarray):
+    """(n, 5) colour indices -> (bytes, starts, lengths) of the names, the
+    five words joined by spaces (vectorized over rows)."""
+    pool, wstart, wlen = _word_pool(PART_COLOURS)
+    lens = wlen[words]  # (n, 5)
+    row_len = lens.sum(axis=1) + words.shape[1] - 1
+    starts = np.cumsum(row_len) - row_len
+    buf = np.full(int(row_len.sum()), ord(" "), np.uint8)
+    at = starts.copy()
+    for j in range(words.shape[1]):
+        for c in range(int(wlen.max())):
+            ok = lens[:, j] > c
+            buf[at[ok] + c] = pool[wstart[words[ok, j]] + c]
+        at += lens[:, j] + 1
+    return buf, starts, row_len
+
+
+def example_part_arrays(sf: float = 1.0, seed: int = 7) -> dict:
+    """part at scale factor `sf` by TPC-H Clause 4.2.3, drawn in numpy with
+    no loop over rows: p_partkey 1..sf x 200,000; p_name five distinct
+    colours of Clause 4.2.2.13 joined by spaces; manufacturer M and brand
+    N in 1..5; a type and a container from the syllable lists; size
+    1..50; the retail price (90000 + (key / 10) % 20001 + 100 x (key %
+    1000)) cents, the formula `example_lineitem_arrays` prices with; a
+    5-22 byte comment from a text pool.  -> {name: array}: the key, the
+    size and the price in cents as arrays, p_mfgr / p_brand / p_type /
+    p_container as codes into their word lists (`PART_WORDS`), p_name and
+    p_comment as (bytes, starts, lengths)."""
+    rng = np.random.default_rng(seed)
+    n = int(sf * 200_000)
+    key = np.arange(1, n + 1, dtype=np.int64)
+    mfgr = rng.integers(0, 5, n, dtype=np.int64)
+    brand = mfgr * 5 + rng.integers(0, 5, n, dtype=np.int64)
+    ptype = rng.integers(0, len(PART_TYPES), n, dtype=np.int64)
+    container = rng.integers(0, len(PART_CONTAINERS), n, dtype=np.int64)
+    size = rng.integers(1, 51, n, dtype=np.int32)
+    names = _name_strings(_distinct_draws(rng, n, 5, len(PART_COLOURS)))
+    pool_bytes = 22 * n + 64
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", np.uint8)
+    pool = letters[rng.integers(0, 27, pool_bytes, dtype=np.uint8)]
+    clen = rng.integers(5, 23, n, dtype=np.int32)
+    cstart = (rng.random(n) * (pool_bytes - clen)).astype(np.int64)
+    return {"p_partkey": key, "p_name": names, "p_mfgr": mfgr,
+            "p_brand": brand, "p_type": ptype, "p_size": size,
+            "p_container": container,
+            "p_retailprice": 90_000 + (key // 10) % 20_001 + 100 * (
+                key % 1000),
+            "p_comment": (pool, cstart, clen)}
+
+
+def part_strings(arrays: dict, name: str) -> Tuple[np.ndarray, np.ndarray,
+                                                    np.ndarray]:
+    """A part string column's (bytes, starts, lengths): a coded column's
+    rows point into its word pool."""
+    if name in PART_WORDS:
+        pool, wstart, wlen = _word_pool(PART_WORDS[name])
+        codes = arrays[name]
+        return pool, wstart[codes], wlen[codes]
+    return arrays[name]
+
+
+def part_batch(arrays: dict, device=None) -> bt.RecordBatch:
+    """The 9-column part batch (NOT NULL): int64 key, the strings as utf8
+    views (over their word pools, or the names' and comments' bytes), an
+    int32 size, a Decimal128(15, 2) retail price."""
+    device = resolve_device(device)
+    cols = {}
+    for name in PART_COLUMNS:
+        if name == "p_partkey":
+            cols[name] = col.primitive(
+                torch.from_numpy(arrays[name]).to(device))
+        elif name == "p_size":
+            cols[name] = col.primitive(
+                torch.from_numpy(arrays[name]).to(device), st.int32)
+        elif name == "p_retailprice":
+            cols[name] = decimal_from_int64(arrays[name], DECIMAL_15_2,
+                                            device=device)
+        else:
+            cols[name] = string_view_from_numpy(*part_strings(arrays, name),
+                                                device=device)
+    return bt.record_batch(cols)
+
+
+def _disc_price(batch: bt.RecordBatch):
+    """l_extendedprice * (1 - l_discount) through `ops.numeric` (the
+    decimal on the right of the `sub`): Decimal128(32, 4)."""
+    return ops.mul(batch["l_extendedprice"], ops.sub(1, batch["l_discount"]))
+
+
+def _month_range(date: str) -> Tuple[int, int]:
+    lo = np.datetime64(date, "D")
+    hi = (lo.astype("datetime64[M]") + 1).astype("datetime64[D]") + (
+        lo - lo.astype("datetime64[M]").astype("datetime64[D]"))
+    return int(lo.astype(np.int64)), int(hi.astype(np.int64))
+
+
+def _sum_decimal(c: col.PrimitiveColumn) -> _pydec.Decimal:
+    from .ops import decimal as dec
+
+    limbs, _ = dec.sum_(c)
+    return dec.to_decimal(limbs, c.dtype.scale)
+
+
+Q14_DATE = "1995-09-01"  # the validation value of Clause 2.4.14.3
+Q14_READS = ("l_partkey", "l_extendedprice", "l_discount")
+
+
+def q14_predicate(lineitem: bt.RecordBatch, date: str = Q14_DATE
+                  ) -> col.BooleanColumn:
+    lo, hi = _month_range(date)
+    ship = lineitem["l_shipdate"]
+    return ops.and_kleene(ops.gt_eq(ship, lo), ops.lt(ship, hi))
+
+
+def q14_step(lineitem: bt.RecordBatch, part: bt.RecordBatch,
+             date: str = Q14_DATE) -> dict:
+    """TPC-H Q14 (Clause 2.4.14, the promotion effect): the month's
+    lineitem rows (`filter_record_batch` of the three columns the query
+    reads), `hash_join` with part (the build side) on l_partkey =
+    p_partkey, disc_price = l_extendedprice * (1 - l_discount) by
+    `ops.numeric`, promo = zip_(p_type LIKE 'PROMO%', disc_price, 0), and
+    their exact sums.  -> {"rows": the joined rows, "promo" and "total":
+    the sums (Decimal, scale 4), "promo_revenue": 100.00 * promo / total
+    as a Decimal (40 digits)}."""
+    kept = ops.filter_record_batch(
+        bt.record_batch({n: lineitem[n] for n in Q14_READS}),
+        q14_predicate(lineitem, date))
+    joined, _ = ops.hash_join(
+        kept, bt.record_batch({n: part[n] for n in ("p_partkey", "p_type")}),
+        ["l_partkey"], right_on=["p_partkey"])
+    disc_price = _disc_price(joined)
+    promo = ops.zip_(ops.like(joined["p_type"], "PROMO%"), disc_price, 0)
+    return _q14_result(joined.length, _sum_decimal(promo),
+                       _sum_decimal(disc_price))
+
+
+def _q14_result(rows: int, promo: _pydec.Decimal, total: _pydec.Decimal
+                ) -> dict:
+    with _pydec.localcontext(_pydec.Context(prec=40)):
+        share = (_pydec.Decimal("100.00") * promo / total if total
+                 else None)
+    return {"rows": rows, "promo": promo, "total": total,
+            "promo_revenue": share}
+
+
+def q14_oracle(lineitem: dict, part: dict, date: str = Q14_DATE) -> dict:
+    """Q14 in numpy on the integer cents (each part is row key - 1, as
+    `example_part_arrays` numbers them): q14_step's result."""
+    lo, hi = _month_range(date)
+    ship = lineitem["l_shipdate"]
+    mask = (ship >= lo) & (ship < hi)
+    pk = lineitem["l_partkey"][mask]
+    if not np.array_equal(part["p_partkey"][pk - 1], pk):
+        raise AssertionError("a part key is not its row + 1")
+    price = lineitem["l_extendedprice"][mask] * (
+        100 - lineitem["l_discount"][mask])
+    promo_type = PART_TYPE_SYLLABLES[0].index("PROMO")
+    promo = (part["p_type"][pk - 1] // 25) == promo_type
+    return _q14_result(int(mask.sum()),
+                       _pydec.Decimal(int(price[promo].sum())).scaleb(-4),
+                       _pydec.Decimal(int(price.sum())).scaleb(-4))
+
+
+# Clause 2.4.19.3's validation parameters: (brand, containers, quantity,
+# the largest size) of each branch; both branches' ship modes and
+# instruction.  'AIR REG' is kept as the query writes it: dbgen's mode is
+# 'REG AIR', so only 'AIR' matches.
+Q19_BRANCHES = (
+    ("Brand#12", ("SM CASE", "SM BOX", "SM PACK", "SM PKG"), 1, 5),
+    ("Brand#23", ("MED BAG", "MED BOX", "MED PKG", "MED PACK"), 10, 10),
+    ("Brand#34", ("LG CASE", "LG BOX", "LG PACK", "LG PKG"), 20, 15))
+Q19_SHIPMODES = ("AIR", "AIR REG")
+Q19_SHIPINSTRUCT = "DELIVER IN PERSON"
+Q19_LINEITEM = ("l_partkey", "l_quantity", "l_extendedprice", "l_discount",
+                "l_shipmode", "l_shipinstruct")
+Q19_PART = ("p_partkey", "p_brand", "p_container", "p_size")
+
+
+def _all(terms):
+    mask = terms[0]
+    for t in terms[1:]:
+        mask = ops.and_kleene(mask, t)
+    return mask
+
+
+def _any(terms, op=None):
+    op = op or ops.or_kleene
+    mask = terms[0]
+    for t in terms[1:]:
+        mask = op(mask, t)
+    return mask
+
+
+def _between(c, lo, hi):
+    return ops.and_kleene(ops.gt_eq(c, lo), ops.lt_eq(c, hi))
+
+
+def q19_lineitem_predicate(batch: bt.RecordBatch) -> col.BooleanColumn:
+    """The lineitem-only conjuncts, pushed down: l_shipmode IN (...) and
+    l_shipinstruct = ... by `like` on the dictionaries (evaluated once per
+    dictionary value), l_quantity in [1, 30], the union of the branches'
+    ranges, by decimal compares."""
+    lo = min(q for _, _, q, _ in Q19_BRANCHES)
+    hi = max(q for _, _, q, _ in Q19_BRANCHES) + 10
+    mode = _any([ops.like(batch["l_shipmode"], m) for m in Q19_SHIPMODES],
+                ops.or_)
+    return _all([mode, ops.like(batch["l_shipinstruct"], Q19_SHIPINSTRUCT),
+                 _between(batch["l_quantity"], lo, hi)])
+
+
+def _part_branch(batch, brand, containers, size):
+    inside = _any([ops.like(batch["p_container"], c) for c in containers],
+                  ops.or_)
+    return _all([ops.like(batch["p_brand"], brand), inside,
+                 _between(batch["p_size"], 1, size)])
+
+
+def q19_part_predicate(batch: bt.RecordBatch) -> col.BooleanColumn:
+    """The part-only disjunction, pushed down: or_kleene of the three
+    branches' and_kleene chains (p_brand by `like`'s eq matcher,
+    p_container IN (...) by `or_` of eq matches, p_size BETWEEN)."""
+    return _any([_part_branch(batch, b, cs, s)
+                 for b, cs, _, s in Q19_BRANCHES])
+
+
+def q19_joined_predicate(batch: bt.RecordBatch) -> col.BooleanColumn:
+    """The whole three-way predicate on joined rows (its key equality
+    holds by the join)."""
+    mode = _any([ops.like(batch["l_shipmode"], m) for m in Q19_SHIPMODES],
+                ops.or_)
+    common = ops.and_kleene(
+        mode, ops.like(batch["l_shipinstruct"], Q19_SHIPINSTRUCT))
+    return ops.and_kleene(common, _any([
+        ops.and_kleene(_part_branch(batch, b, cs, s),
+                       _between(batch["l_quantity"], q, q + 10))
+        for b, cs, q, s in Q19_BRANCHES]))
+
+
+def q19_step(lineitem: bt.RecordBatch, part: bt.RecordBatch) -> dict:
+    """TPC-H Q19 (Clause 2.4.19, discounted revenue), planned as usual:
+    the lineitem and part conjuncts pushed down as one filter each, the
+    `hash_join` (part the build side), the whole predicate again on the
+    joined rows, and the exact sum of l_extendedprice * (1 - l_discount).
+    -> {"rows": joined rows, "kept": rows passing the whole predicate,
+    "revenue": Decimal, scale 4}."""
+    li = ops.filter_record_batch(
+        bt.record_batch({n: lineitem[n] for n in Q19_LINEITEM}),
+        q19_lineitem_predicate(lineitem))
+    pa = ops.filter_record_batch(
+        bt.record_batch({n: part[n] for n in Q19_PART}),
+        q19_part_predicate(part))
+    joined, _ = ops.hash_join(li, pa, ["l_partkey"], right_on=["p_partkey"])
+    kept = ops.filter_record_batch(joined, q19_joined_predicate(joined))
+    return {"rows": joined.length, "kept": kept.length,
+            "revenue": _sum_decimal(_disc_price(kept))}
+
+
+def q19_oracle(lineitem: dict, part: dict) -> dict:
+    """Q19 in numpy on codes and integer cents: q19_step's result."""
+    modes = [SHIPMODE.index(m) for m in Q19_SHIPMODES if m in SHIPMODE]
+    qty = lineitem["l_quantity"]
+    lmask = (np.isin(lineitem["l_shipmode"], modes)
+             & (lineitem["l_shipinstruct"]
+                == SHIPINSTRUCT.index(Q19_SHIPINSTRUCT))
+             & (qty >= 100) & (qty <= 3000))
+    pk = lineitem["l_partkey"][lmask]
+    q = qty[lmask]
+    row = pk - 1
+    brand, cont, size = (part[n][row] for n in ("p_brand", "p_container",
+                                                "p_size"))
+    pmask = np.zeros(len(part["p_partkey"]), bool)
+    whole = np.zeros(len(pk), bool)
+    for b, cs, qlo, smax in Q19_BRANCHES:
+        codes = [PART_CONTAINERS.index(c) for c in cs]
+        branch = lambda br, co, sz: ((br == PART_BRANDS.index(b))  # noqa
+                                     & np.isin(co, codes) & (sz >= 1)
+                                     & (sz <= smax))
+        pmask |= branch(part["p_brand"], part["p_container"], part["p_size"])
+        whole |= (branch(brand, cont, size) & (q >= qlo * 100)
+                  & (q <= (qlo + 10) * 100))
+    price = (lineitem["l_extendedprice"][lmask]
+             * (100 - lineitem["l_discount"][lmask]))
+    return {"rows": int(pmask[row].sum()), "kept": int(whole.sum()),
+            "revenue": _pydec.Decimal(int(price[whole].sum())).scaleb(-4)}
+
+
+def check_query(got: dict, want: dict, name: str) -> dict:
+    """Raise unless every entry of a query step's result equals the
+    oracle's."""
+    for key, value in want.items():
+        if got[key] != value:
+            raise AssertionError(f"{name}: {key} {got[key]} != oracle "
+                                 f"{value}")
+    return got

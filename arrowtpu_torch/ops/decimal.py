@@ -53,9 +53,14 @@ def _pow10_limbs(nl: int, k: int) -> int:
 def _scalar_limbs(u: int, nl: int, like: col.PrimitiveColumn) -> torch.Tensor:
     """An unscaled integer as a (1, nl) row of limbs on `like`'s device: the
     limb ops broadcast it over the rows, so work on the scalar's side (its
-    sign flips, its scale-up) is done once, not once a row."""
-    limbs = torch.from_numpy(lb.from_scalar(u, nl).view(np.int32).copy())
-    return limbs.to(like.device)[None]
+    sign flips, its scale-up) is done once, not once a row.  Each limb is
+    a fill on the device: a copy from the host would wait for the card's
+    queue."""
+    words = lb.from_scalar(u, nl).view(np.int32).tolist()
+    limbs = torch.empty((1, nl), dtype=torch.int32, device=like.device)
+    for j, w in enumerate(words):
+        limbs[0, j] = w
+    return limbs
 
 
 def _align(a: col.PrimitiveColumn, b) -> tuple:

@@ -192,17 +192,37 @@ Phases (each raises on failure; the exit code is then non-zero):
      column class through it), peak and busy share, and the distributed
      Q1's.  Phases 6, 6b and 15 time their steps over 5 runs (10 before
      phases 16-17 were added), so that the run stays within its earlier
-     time.
+     time;
+  18. (after phase 17, on the card beside phase 13's lineitem) TPC-H's
+     `part` at SF10 (`entry.example_part_arrays`, 2,000,000 rows by Clause
+     4.2.3, `entry.part_batch`: utf8 views), then the LIKE family with
+     TPC-H's own patterns (Q2's p_type LIKE '%BRASS', Q9's p_name LIKE
+     '%green%', Q16's p_type NOT LIKE 'MEDIUM POLISHED%', Q20's p_name
+     LIKE 'forest%', Q19's p_brand = 'Brand#12' and p_type ILIKE
+     'promo%'), each count exact against numpy on the host strings, each
+     line with its time (CUDA events, median of 10) and the bytes of its
+     byte matrix;
+  19. TPC-H Q14 (`entry.q14_step`: the month's lineitem filtered, hash
+     join with part, disc_price through `ops.numeric`, zip_ of p_type
+     LIKE 'PROMO%') and Q19 (`entry.q19_step`: both sides' conjuncts
+     pushed down, the join, the three-way predicate again, the revenue)
+     over phase 13's lineitem and phase 18's part, each exact against its
+     oracle (`q14_oracle`, `q19_oracle`); the launch counts set to 0 just
+     before each step and read just after (K1 must launch in the lineitem
+     filter), counted by calling module and word size, every K1 and K2
+     call held to plain; then each step's time (CUDA events, median of
+     5), its stages, peak memory and busy share, and Q14's promo revenue.
 
 The line before the last lists the kernels as JSON (`launches` from the
 flagship step for K1 and K2, from K3's entry point for K3, from
 run_probes for the probe kernels, from config 4 at 100 keys for
 dense_agg and from the Q6 step for K1's 16-byte words; every path's counts under `launches_by_path`, the skewed
 step's filters as a path of their own, TPC-H Q1, the text join step, the
-lineitem exchange and the distributed Q1 too; the flagship, join
+lineitem exchange, the distributed Q1, Q14 and Q19 too; the flagship, join
 and skewed join steps, int64-keyed, must launch no dense_agg; K1's 16-byte
-row carries its Q1 calls), after the Q1 step's and the l_comment sort's
-JSON lines and the card's line; the last line is {"ok": true, "device":
+row carries its Q1 calls), after the Q1 step's, the l_comment sort's,
+the LIKE lines' and the Q14 and Q19 steps' JSON lines and the card's
+line; the last line is {"ok": true, "device":
 {...}}.
 Without a CUDA device the script exits with an error and prints no
 result.
@@ -1198,6 +1218,212 @@ def lineitem_exchange_phase(pe, ops, k1, k2, build, dev, arrays, batch,
     log(f"lineitem exchange and distributed Q1 timing: {line}")
     return {"lineitem exchange": ex_launches,
             "distributed TPC-H Q1": q1_launches}, line
+
+
+# phases 18-19: TPC-H part, the LIKE family, Q14 and Q19
+PART_SF = 10  # 2,000,000 parts, beside phase 13's SF10 lineitem
+LIKE_REPS = 10
+QUERY_REPS = 5
+# TPC-H's own patterns: (label, column, op, pattern, the host test of a
+# string as numpy bytes)
+LIKE_LINES = [
+    ("Q2 p_type LIKE '%BRASS'", "p_type", "like", "%BRASS",
+     lambda s: np.strings.endswith(s, b"BRASS")),
+    ("Q9 p_name LIKE '%green%'", "p_name", "like", "%green%",
+     lambda s: np.strings.find(s, b"green") >= 0),
+    ("Q16 p_type NOT LIKE 'MEDIUM POLISHED%'", "p_type", "nlike",
+     "MEDIUM POLISHED%",
+     lambda s: ~np.strings.startswith(s, b"MEDIUM POLISHED")),
+    ("Q20 p_name LIKE 'forest%'", "p_name", "like", "forest%",
+     lambda s: np.strings.startswith(s, b"forest")),
+    ("Q19 p_brand = 'Brand#12'", "p_brand", "like", "Brand#12",
+     lambda s: s == b"Brand#12"),
+    ("p_type ILIKE 'promo%'", "p_type", "ilike", "promo%",
+     lambda s: np.strings.startswith(np.strings.lower(s), b"promo"))]
+
+
+def host_strings(pe, arrays, name):
+    """A part string column as a numpy bytes array (S<longest>), built
+    from its bytes, starts and lengths on the host."""
+    buf, starts, lens = pe.part_strings(arrays, name)
+    width = int(lens.max())
+    idx = starts[:, None] + np.arange(width)
+    raw = np.where(np.arange(width) < lens[:, None],
+                   buf[np.minimum(idx, len(buf) - 1)], 0).astype(np.uint8)
+    return raw.view(f"S{width}").ravel()
+
+
+def like_matrix_bytes(c, op, pattern):
+    """-> (the bytes of the byte matrix a LIKE line builds, its kind)."""
+    from arrowtpu_torch.ops import strings as ps
+
+    compiled = ps.compile_like(pattern.lower() if op == "ilike"
+                               else pattern)
+    return c.capacity * ps.like_width(c, compiled), compiled.kind
+
+
+def part_like_phase(pe, ops, dev):
+    """Phase 18: TPC-H part at SF10 built on the card, then the LIKE
+    family over it with TPC-H's patterns, each count exact against numpy
+    on the host strings, timed (CUDA events, median).  -> (the part arrays
+    and batch, the lines)."""
+    t0 = time.perf_counter()
+    arrays = pe.example_part_arrays(PART_SF)
+    t_gen = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    part = pe.part_batch(arrays, dev)
+    torch.cuda.synchronize()
+    part_gib = (torch.cuda.memory_allocated() - held) / 2**30
+    log(f"part at SF{PART_SF}: {part.length} rows drawn in {t_gen:.1f} s, "
+        f"{part_gib:.3f} GiB on the card; len_bound p_name "
+        f"{part['p_name'].len_bound}, p_type {part['p_type'].len_bound}")
+    hosts, lines = {}, []
+    for label, name, op, pattern, host_test in LIKE_LINES:
+        if name not in hosts:
+            hosts[name] = host_strings(pe, arrays, name)
+        c = part[name]
+        got = getattr(ops, op)(c, pattern)
+        count = int(got.values_bool()[:got.length].sum())
+        want = int(host_test(hosts[name]).sum())
+        if count != want or got.validity is not None:
+            raise AssertionError(f"{label}: {count} rows, numpy {want}")
+        nbytes, kind = like_matrix_bytes(c, op, pattern)
+        times = run_times_ms(lambda: getattr(ops, op)(c, pattern),
+                             reps=LIKE_REPS, warmup=2)
+        line = {"line": label, "kind": kind, "count": count,
+                "ms": statistics.median(times), "min_ms": times[0],
+                "max_ms": times[-1], "matrix_bytes": nbytes}
+        log(f"LIKE: {line}")
+        lines.append(line)
+    return arrays, part, lines
+
+
+def q14_stages(pe, ops, batch, part):
+    """Q14's stages, each timed alone (CUDA events, median)."""
+    from arrowtpu_torch.core import batch as bt
+
+    sub = bt.record_batch({n: batch[n] for n in pe.Q14_READS})
+    mask = pe.q14_predicate(batch)
+    kept = ops.filter_record_batch(sub, mask)
+    right = bt.record_batch({n: part[n] for n in ("p_partkey", "p_type")})
+    joined, _ = ops.hash_join(kept, right, ["l_partkey"],
+                              right_on=["p_partkey"])
+    promo_mask = ops.like(joined["p_type"], "PROMO%")
+    price = pe._disc_price(joined)
+    promo = ops.zip_(promo_mask, price, 0)
+    reps = dict(reps=QUERY_REPS, warmup=2)
+    return {
+        "predicate_ms": median_ms(lambda: pe.q14_predicate(batch), **reps),
+        "filter_ms": median_ms(lambda: ops.filter_record_batch(sub, mask),
+                               **reps),
+        "join_ms": median_ms(lambda: ops.hash_join(
+            kept, right, ["l_partkey"], right_on=["p_partkey"]), **reps),
+        "like_ms": median_ms(lambda: ops.like(joined["p_type"], "PROMO%"),
+                             **reps),
+        "prices_ms": median_ms(lambda: pe._disc_price(joined), **reps),
+        "zip_ms": median_ms(lambda: ops.zip_(promo_mask, price, 0), **reps),
+        "sums_ms": median_ms(lambda: (pe._sum_decimal(promo),
+                                      pe._sum_decimal(price)), **reps),
+        "kept": kept.length, "joined": joined.length}
+
+
+def q19_stages(pe, ops, batch, part):
+    """Q19's stages, each timed alone (CUDA events, median)."""
+    from arrowtpu_torch.core import batch as bt
+
+    lsub = bt.record_batch({n: batch[n] for n in pe.Q19_LINEITEM})
+    psub = bt.record_batch({n: part[n] for n in pe.Q19_PART})
+    lmask, pmask = pe.q19_lineitem_predicate(batch), pe.q19_part_predicate(
+        part)
+    li = ops.filter_record_batch(lsub, lmask)
+    pa = ops.filter_record_batch(psub, pmask)
+    joined, _ = ops.hash_join(li, pa, ["l_partkey"], right_on=["p_partkey"])
+    jmask = pe.q19_joined_predicate(joined)
+    kept = ops.filter_record_batch(joined, jmask)
+    reps = dict(reps=QUERY_REPS, warmup=2)
+    return {
+        "lineitem_predicate_ms": median_ms(
+            lambda: pe.q19_lineitem_predicate(batch), **reps),
+        "part_predicate_ms": median_ms(
+            lambda: pe.q19_part_predicate(part), **reps),
+        "filters_ms": median_ms(lambda: (
+            ops.filter_record_batch(lsub, lmask),
+            ops.filter_record_batch(psub, pmask)), **reps),
+        "join_ms": median_ms(lambda: ops.hash_join(
+            li, pa, ["l_partkey"], right_on=["p_partkey"]), **reps),
+        "joined_predicate_ms": median_ms(
+            lambda: pe.q19_joined_predicate(joined), **reps),
+        "joined_filter_ms": median_ms(
+            lambda: ops.filter_record_batch(joined, jmask), **reps),
+        "prices_and_sum_ms": median_ms(
+            lambda: pe._sum_decimal(pe._disc_price(kept)), **reps),
+        "lineitem_kept": li.length, "parts_kept": pa.length,
+        "joined": joined.length, "kept": kept.length}
+
+
+def query_phase(pe, ops, k1, k2, build, dev, arrays, batch, part_arrays,
+                part):
+    """Phase 19: TPC-H Q14 and Q19 over phase 13's SF10 lineitem and phase
+    18's part, each exact against its oracle, the launch counts set to 0
+    just before the step and read just after (K1 must launch in the
+    lineitem filter), every K1 and K2 call held to its plain version,
+    then the step's time, stages, peak memory and busy share.  -> ({path:
+    launches}, {query: timing line})."""
+    from arrowtpu_torch.kernels import dense_agg as dk
+
+    runs = {"Q14": (pe.q14_step, pe.q14_oracle, q14_stages),
+            "Q19": (pe.q19_step, pe.q19_oracle, q19_stages)}
+    launches, timing = {}, {}
+    for name, (step, oracle_fn, stages_fn) in runs.items():
+        t0 = time.perf_counter()
+        want = oracle_fn(arrays, part_arrays)
+        t_oracle = time.perf_counter() - t0
+        args = {}
+        with held_to_plain({"K1": k1, "K2": k2}, args) as calls, \
+                build.launch_words() as words:
+            k1.launches = k2.launches = dk.launches = 0
+            build.count_launches = 0
+            got = step(batch, part)
+            torch.cuda.synchronize()
+            run = {"K1": k1.launches, "K2": k2.launches,
+                   "dense_agg": dk.launches,
+                   "tile_counts": build.count_launches,
+                   **{f"{k}_{w}": words.count((k, w))
+                      for k, w in sorted(set(words))}}
+        pe.check_query(got, want, name)
+        callers = by_caller(args, build)
+        in_filter = [c for c in args.get("K1", [])
+                     if c.caller == "arrowtpu_torch.ops.filter"
+                     and c.keep.shape[0] == batch.capacity]
+        if not in_filter or run["K1"] <= 0:
+            raise AssertionError(f"{name}: K1 did not launch in the "
+                                 f"lineitem filter ({callers})")
+        log(f"{name}: exact against its oracle ({t_oracle:.1f} s on the "
+            f"host): {got}; launches {run}; K1 / K2 calls by module and "
+            f"word bytes {callers}; every call held to plain (P, n, kept, "
+            f"out_rows): {calls}")
+        del args, in_filter
+        stages = stages_fn(pe, ops, batch, part)
+        times = run_times_ms(lambda: step(batch, part), reps=QUERY_REPS,
+                             warmup=2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        step(batch, part)
+        peak = torch.cuda.max_memory_allocated()
+        busy = profile(lambda: step(batch, part), reps=3)
+        line = {"step_ms": statistics.median(times), "min_ms": times[0],
+                "max_ms": times[-1], "reps": len(times), **stages,
+                "result": {k: str(v) for k, v in got.items()},
+                "peak_gib": peak / 2**30, "held_before_gib": held / 2**30,
+                "step_adds_gib": (peak - held) / 2**30, **busy}
+        log(f"{name} timing: {line}")
+        launches[f"TPC-H {name}"] = run
+        timing[name] = line
+    log(f"Q14 promo revenue: {timing['Q14']['result']['promo_revenue']} % "
+        "(p_type uniform over 150 types: about 1/6 of the revenue)")
+    return launches, timing
 
 
 def check_probes(kp, probes, dev) -> None:
@@ -2360,7 +2586,20 @@ def main() -> int:
         pe, ops, k1, k2, _build, dev, arrays, batch, q1_want)
     log(f"phase 17 (lineitem exchange, distributed Q1): "
         f"{time.perf_counter() - t0:.1f} s")
-    del arrays, batch, q1_want
+    del q1_want
+    torch.cuda.empty_cache()
+
+    # phase 18: part at SF10 and the LIKE family
+    t0 = time.perf_counter()
+    part_arrays, part, like_lines = part_like_phase(pe, ops, dev)
+    log(f"phase 18 (part, LIKE family): {time.perf_counter() - t0:.1f} s")
+
+    # phase 19: Q14 and Q19 over lineitem and part
+    t0 = time.perf_counter()
+    query_launches, query_timing = query_phase(
+        pe, ops, k1, k2, _build, dev, arrays, batch, part_arrays, part)
+    log(f"phase 19 (TPC-H Q14, Q19): {time.perf_counter() - t0:.1f} s")
+    del arrays, batch, part_arrays, part
     torch.cuda.empty_cache()
 
     # phase 14
@@ -2462,7 +2701,8 @@ def main() -> int:
                   for label, c in agg_launches.items()},
                "TPC-H Q6": q6_launches, "TPC-H Q1": q1_launches,
                "nested batch filter": nested_launches,
-               "text join step": text_launches, **lineitem_launches}
+               "text join step": text_launches, **lineitem_launches,
+               **query_launches}
     kernels = []
     for key in ("K1", "K2", "K3", *shown, "dense_agg", "K1_16"):
         row = kernels_rows[key]
@@ -2487,6 +2727,9 @@ def main() -> int:
     log(f"text join step: {json.dumps(text_timing)}")
     log(f"lineitem exchange, distributed Q1: {json.dumps(lineitem_timing)}")
     log(f"l_comment sort: {json.dumps(comment)}")
+    log(f"LIKE family over SF{PART_SF} part: {json.dumps(like_lines)}")
+    for name, line in query_timing.items():
+        log(f"TPC-H {name} step: {json.dumps(line)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

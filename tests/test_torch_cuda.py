@@ -9,7 +9,9 @@ imports no JAX, so it runs on a machine that has only PyTorch:
 Tolerance: bit-exact (count and zero tail included), except float sums
 and means of random values, whose cumsum the card adds in another order
 than the CPU: those are held within 2**-40 x the sum of |v| over the
-column (over the count for a mean).
+column (over the count for a mean); and the NaNs of float arithmetic,
+which are NaN on both, but the card's with its one canonical payload
+(it does not carry an input NaN's payload through an op).
 """
 
 import numpy as np
@@ -915,22 +917,30 @@ def _bits(t):
     return t
 
 
-def _same_column(g, w):
+def _same_column(g, w, nan_payloads=True):
     """A column on the card equals the CPU's: class, length, capacity and
-    every tensor (recursively; an arena only as bytes; floats by bits)."""
+    every tensor (recursively; an arena only as bytes; floats by bits).
+    `nan_payloads=False` takes any NaN as any other: the card gives every
+    NaN result of float arithmetic one canonical payload, the host keeps
+    an input NaN's."""
     assert type(g) is type(w) and g.length == w.length
     assert g.capacity == w.capacity and g.dtype == w.dtype
     for name in ("values", "views", "arena", "validity", "starts", "sizes",
                  "keys", "child", "children"):
         x, y = getattr(g, name, None), getattr(w, name, None)
         if isinstance(x, torch.Tensor):
-            assert x.device.type == "cuda" and torch.equal(
-                _bits(x.cpu()), _bits(y)), name
+            x = x.cpu() if x.device.type == "cuda" else None
+            assert x is not None, f"{name} is not on the card"
+            if not nan_payloads and x.is_floating_point():
+                nan = x.isnan()
+                assert torch.equal(nan, y.isnan()), name
+                x, y = x.masked_fill(nan, 0), y.masked_fill(nan, 0)
+            assert torch.equal(_bits(x), _bits(y)), name
         elif isinstance(x, tuple):
             for a, b in zip(x, y):
-                _same_column(a, b)
+                _same_column(a, b, nan_payloads)
         elif x is not None and not isinstance(x, (int, st.DataType)):
-            _same_column(x, y)
+            _same_column(x, y, nan_payloads)
         else:
             assert (x is None) == (y is None), name
 
@@ -1298,3 +1308,220 @@ def test_distributed_join_on_every_key_class_on_card_matches_cpu(cuda, kind,
     assert outs[0][1:] == outs[1][1:] and outs[1][0].length > 20_000
     for a, b in zip(outs[0][0].columns, outs[1][0].columns):
         _same_column(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the predicate layer: numeric, bitwise, boolean, zip and strings on the
+# card against the port's own CPU results on the same numpy inputs
+# ---------------------------------------------------------------------------
+
+from arrowtpu_torch import entry as pentry  # noqa: E402
+from arrowtpu_torch import ops as pops  # noqa: E402
+from arrowtpu_torch.interop.numpy_bridge import column_from_numpy  # noqa: E402
+
+ELEMENTWISE_N = 5000
+ELEMENTWISE_DTYPES = ["int8", "int16", "int32", "int64", "uint8", "uint16",
+                      "uint32", "float32", "float64"]
+
+
+def _elementwise_values(name, seed):
+    """ELEMENTWISE_N values: the type's corners paired with each other
+    (INT_MIN, -1, 0, the maximum; NaN, -0.0, infinities, a subnormal),
+    then random ones over the whole range."""
+    rng = np.random.default_rng(seed)
+    dt = np.dtype(name)
+    if dt.kind == "f":
+        fi = np.finfo(dt)
+        corners = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf, 1.5, -2.5,
+                            fi.max, -fi.max, fi.tiny, fi.tiny / 4, 7.0,
+                            -7.0, 3e-3], dt)
+        rest = (rng.standard_normal(ELEMENTWISE_N) * 1e3).astype(dt)
+    else:
+        info = np.iinfo(dt)
+        corners = np.array(sorted({info.min, info.min + 1, -1 if info.min
+                                   else 2, 0, 1, info.max, 7}), dt)
+        rest = rng.integers(info.min, info.max, ELEMENTWISE_N, endpoint=True,
+                            dtype=np.uint64 if name == "uint32"
+                            else np.int64).astype(dt)
+    k = len(corners)
+    grid = np.repeat(corners, k) if seed % 2 else np.tile(corners, k)
+    rest[:k * k] = grid
+    return rest
+
+
+def _both(values, valid, name, device):
+    """The same column on the card and on the CPU."""
+    dt = st.bool_ if name == "bool" else getattr(st, name)
+    return tuple(column_from_numpy(values, valid, len(values), dt, device=d)
+                 for d in (device, "cpu"))
+
+
+def _valid_bools(seed, density=0.1):
+    return np.random.default_rng(seed + 50).random(ELEMENTWISE_N) > density
+
+
+@pytest.mark.parametrize("name", ELEMENTWISE_DTYPES)
+def test_numeric_ops_on_card_match_cpu(cuda, name):
+    """add, sub, mul, div, rem column with column and with scalars on both
+    sides, neg, the checked ops' columns and flags, zero and -1 divisors,
+    a float64 divided by a Python scalar (a one-element tensor on the
+    card, so no reciprocal multiply) and the float rem: bit for bit."""
+    float_ = np.dtype(name).kind == "f"
+    (ga, ca) = _both(_elementwise_values(name, 1), _valid_bools(1), name,
+                     cuda)
+    (gb, cb) = _both(_elementwise_values(name, 2), None, name, cuda)
+    scalars = (2.5, 1e-3, 3.0) if float_ else (7, 0, -1, 300)
+
+    def same(g, c):  # NaN results differ in payload
+        _same_column(g, c, nan_payloads=False)
+    for op in ("add", "sub", "mul", "div", "rem"):
+        f = getattr(pops, op)
+        same(f(ga, gb), f(ca, cb))
+        for s in scalars:
+            same(f(ga, s), f(ca, s))
+            same(f(s, gb), f(s, cb))
+        if not float_:
+            same(f(ga, 1.5), f(ca, 1.5))  # a float64 result
+        g, gflag = getattr(pops, f"{op}_checked")(ga, gb)
+        c, cflag = getattr(pops, f"{op}_checked")(ca, cb)
+        same(g, c)
+        assert gflag.device.type == "cuda" and bool(gflag) == bool(cflag)
+    same(pops.neg(ga), pops.neg(ca))
+    if name == "float64":  # the division by a host scalar, one per value
+        for s in (3.0, 10.0, 7.0, 0.1):
+            same(pops.div(ga, s), pops.div(ca, s))
+
+
+def test_int_min_and_minus_one_on_card(cuda):
+    """INT_MIN / -1 and INT_MIN * -1 (computed as wrapping negations,
+    flagged by the checked ops) and zero divisors at each width."""
+    for name in ("int8", "int16", "int32", "int64"):
+        mn = np.iinfo(np.dtype(name)).min
+        x = np.array([mn, mn, 5, -5, mn, 9], name)
+        y = np.array([-1, 0, 0, -1, 1, -1], name)
+        (ga, ca), (gb, cb) = (_both(v, None, name, cuda) for v in (x, y))
+        for op in ("div", "rem", "mul"):
+            _same_column(getattr(pops, op)(ga, gb), getattr(pops, op)(ca, cb))
+        assert bool(pops.div_checked(ga, gb)[1])
+        assert bool(pops.mul_checked(ga, -1)[1])
+        assert pops.div(ga, gb).to_pylist()[0] == mn
+
+
+@pytest.mark.parametrize("name", ELEMENTWISE_DTYPES[:7])
+def test_bitwise_ops_on_card_match_cpu(cuda, name):
+    """and / or / xor / not, and shifts by amounts in range, at and past
+    the width, and negative (column and scalar): the explicit amount rule
+    gives the CPU's result on the card."""
+    (ga, ca) = _both(_elementwise_values(name, 3), _valid_bools(3), name,
+                     cuda)
+    (gb, cb) = _both(_elementwise_values(name, 4), None, name, cuda)
+    bits = np.dtype(name).itemsize * 8
+    lo = -70 if np.dtype(name).kind == "i" else 0
+    hi = min(bits + 70, np.iinfo(np.dtype(name)).max)
+    amounts = np.random.default_rng(5).integers(lo, hi, ELEMENTWISE_N)
+    (gk, ck) = _both(amounts.astype(name), _valid_bools(5), name, cuda)
+    for op in ("bit_and", "bit_or", "bit_xor"):
+        f = getattr(pops, op)
+        _same_column(f(ga, gb), f(ca, cb))
+        _same_column(f(ga, 0x5A), f(ca, 0x5A))
+    _same_column(pops.bit_not(ga), pops.bit_not(ca))
+    for op in ("shift_left", "shift_right"):
+        f = getattr(pops, op)
+        _same_column(f(ga, gk), f(ca, ck))
+        for k in (0, 3, bits - 1, bits, 70, -1, -65):
+            _same_column(f(ga, k), f(ca, k))
+
+
+def test_boolean_zip_nullif_shift_on_card_match_cpu(cuda):
+    rng = np.random.default_rng(6)
+    (ga, ca), (gb, cb) = (
+        _both(rng.random(ELEMENTWISE_N) < 0.5, _valid_bools(s, 0.2), "bool",
+              cuda) for s in (7, 8))
+    for op in ("and_", "or_", "xor", "and_not", "and_kleene", "or_kleene"):
+        _same_column(getattr(pops, op)(ga, gb), getattr(pops, op)(ca, cb))
+    for op in ("not_", "is_null", "is_not_null"):
+        _same_column(getattr(pops, op)(ga), getattr(pops, op)(ca))
+    for name in ("int32", "int64", "uint32", "float64"):
+        (gx, cx) = _both(_elementwise_values(name, 9), _valid_bools(9),
+                         name, cuda)
+        (gy, cy) = _both(_elementwise_values(name, 10), None, name, cuda)
+        _same_column(pops.zip_(ga, gx, gy), pops.zip_(ca, cx, cy))
+        _same_column(pops.zip_(ga, gx, 0), pops.zip_(ca, cx, 0))
+        _same_column(pops.nullif(gx, ga), pops.nullif(cx, ca))
+        for offset in (3, -17):
+            _same_column(pops.shift(gx, offset), pops.shift(cx, offset))
+    dec = [None if rng.random() < 0.1 else int(v)
+           for v in rng.integers(-10**12, 10**12, ELEMENTWISE_N)]
+    gd, cd = (pcol.from_pylist(dec, st.Decimal128(15, 2), device=d)
+              for d in (cuda, "cpu"))
+    ge, ce = (pcol.from_pylist(dec[::-1], st.Decimal128(15, 2), device=d)
+              for d in (cuda, "cpu"))
+    import decimal
+    for falsy in ((ge, ce), (0, 0), (decimal.Decimal("9.99"),) * 2):
+        _same_column(pops.zip_(ga, gd, falsy[0]), pops.zip_(ca, cd, falsy[1]))
+    _same_column(pops.sub(1, gd), pops.sub(1, cd))
+    _same_column(pops.neg(gd), pops.neg(cd))
+
+
+LIKE_WORDS = ["PROMO BRUSHED TIN", "STANDARD ANODIZED BRASS", "promo plated",
+              "forest green lace", "Brand#12", "", "a%b", "été",
+              "MEDIUM POLISHED STEEL", "dark green", "ÉTÉ forest", "SM CASE",
+              "a string well past the sixteen-byte granule, with green"]
+
+
+@pytest.mark.parametrize("dictionary", [False, True])
+def test_like_family_on_card_matches_cpu(cuda, dictionary):
+    """Every LIKE kind (eq, starts, ends, contains on the card; the regex
+    kind on the host, its result back on the card), ilike and the
+    negations, starts_with / ends_with / contains and regexp_is_match, on
+    views and on a dictionary."""
+    rng = np.random.default_rng(11)
+    data = [None if rng.random() < 0.1 else LIKE_WORDS[i]
+            for i in rng.integers(0, len(LIKE_WORDS), ELEMENTWISE_N)]
+    make = (pcol.dictionary_encode_host if dictionary else
+            pcol.string_view)
+    g = make(data, device=cuda)
+    c = make(data, device="cpu")
+    for p in ("PROMO%", "%BRASS", "%green%", "Brand#12", "P_OMO%", "%a%b%",
+              "", "%", "é%", "MEDIUM POLISHED%"):
+        for op in ("like", "nlike", "ilike", "nilike"):
+            _same_column(getattr(pops, op)(g, p), getattr(pops, op)(c, p))
+    for op, arg in (("starts_with", "PROMO"), ("ends_with", "BRASS"),
+                    ("contains", "green")):
+        _same_column(getattr(pops, op)(g, arg), getattr(pops, op)(c, arg))
+    for pattern, flags in (("green", ""), ("promo", "i")):
+        _same_column(pops.regexp_is_match(g, pattern, flags),
+                     pops.regexp_is_match(c, pattern, flags))
+
+
+def test_substring_concat_case_on_card_match_cpu(cuda):
+    rng = np.random.default_rng(12)
+    data = [None if rng.random() < 0.1 else LIKE_WORDS[i]
+            for i in rng.integers(0, len(LIKE_WORDS), ELEMENTWISE_N)]
+    ascii_data = [s if s is None or s.isascii() else "plain" for s in data]
+    g, c = (pcol.string_view(ascii_data, device=d) for d in (cuda, "cpu"))
+    g2, c2 = (pcol.string_view(data[::-1], device=d) for d in (cuda, "cpu"))
+    for start, length in ((0, None), (2, 5), (-4, None), (30, 3)):
+        _same_column(pops.substring(g, start, length),
+                     pops.substring(c, start, length))
+    _same_column(pops.concat_elements(g, g2), pops.concat_elements(c, c2))
+    for op in ("lower", "upper"):
+        _same_column(getattr(pops, op)(g), getattr(pops, op)(c))
+        # a non-ASCII byte: mapped on the host, back on the card
+        got = getattr(pops, op)(g2)
+        assert got.views.device.type == "cuda"
+        assert got.to_pylist() == getattr(pops, op)(c2).to_pylist()
+
+
+def test_q14_q19_on_card_against_oracle(cuda):
+    """TPC-H Q14 and Q19 over about 200,000 lineitem rows and 6,600 parts
+    on the card, exact against their oracles; K1 launches in each step."""
+    la = example_lineitem_arrays(sf=0.033, seed=6)
+    pa = pentry.example_part_arrays(sf=0.033)
+    lb, pb = lineitem_batch(la, device=cuda), pentry.part_batch(pa, cuda)
+    for name, fn, oracle in (("Q14", pentry.q14_step, pentry.q14_oracle),
+                             ("Q19", pentry.q19_step, pentry.q19_oracle)):
+        with _build.launch_words() as words:
+            got = fn(lb, pb)
+        assert ("K1", 16) in words and ("K1", 8) in words, (name, words)
+        pentry.check_query(got, oracle(la, pa), name)
