@@ -27,6 +27,12 @@ DENSE_GROUPBY_BUCKETS = int(
     os.environ.get("ARROWTPU_DENSE_GROUPBY_BUCKETS", "256"))
 
 
+# Elements of a list sort key that take part in the order (the JAX
+# package's own bound): lists equal on their first LIST_SORT_BOUND elements
+# compare by their lengths (rowformat/encode.py).
+LIST_SORT_BOUND = 8
+
+
 def round_up(n: int, m: int = CAPACITY_GRANULE) -> int:
     return -(-n // m) * m
 

@@ -69,6 +69,19 @@ ahead of a lineitem-orders join; at one rank `check_same_rows` holds it
 to its input, row for row), and `q1_distributed_step` runs Q1's sums and
 count as a distributed group-by (`check_q1` with `Q1_DISTRIBUTED_AGGS`).
 
+`q3_step` is TPC-H Q3 (Clause 2.4.3, shipping priority) over customer ⋈
+orders ⋈ lineitem: three filters (`like` on the c_mktsegment dictionary,
+date compares), two `hash_join`s (customer, then the joined orders, as the
+build side), revenue through `ops.numeric`, a `group_by` on (l_orderkey,
+o_orderdate, o_shippriority) with a Date32 key, and the top ten by
+`sort_batch`.  `example_orders_arrays` / `orders_batch` and
+`example_customer_arrays` / `customer_batch` draw TPC-H's `orders` (the
+order keys and dates that `example_lineitem_arrays` drew) and `customer`
+by Clause 4.2.3; `q3_oracle` / `check_q3` hold the step to numpy.
+`sorted_runs_step` is an ORDER BY run as an external sort runs it: the
+batch cut into runs (`slice_batch`), each sorted (`sort_batch`), the runs
+merged (`merge_batches`).
+
 `lexsort_step` is BASELINE config 3 (`bench.py` config3_lexsort): the
 lexsort of (int32, float64, dictionary-utf8) columns.
 `example_lexsort_columns` draws them as the bench does, and
@@ -944,36 +957,37 @@ TEXT_KEY_BYTES = len(TEXT_KEY_PREFIX) + TEXT_KEY_DIGITS  # 18: out of line
 
 
 def text_keys(keys: np.ndarray, valid: np.ndarray = None,
-              device=None) -> col.StringViewColumn:
+              device=None, prefix: bytes = TEXT_KEY_PREFIX
+              ) -> col.StringViewColumn:
     """TPC-H's c_name of each key, "Customer#%09d" % k (Clause 4.2.3; 18
-    bytes, so every string lives in the arena), as a utf8 view column
-    built on `device`: the arena holds row i's bytes at 18 * i; a null
-    key (`valid` False) is a null row with a zero view."""
+    bytes, so every string lives in the arena), or another prefix's
+    ("Clerk#%09d", 15 bytes), as a utf8 view column built on `device`: the
+    arena holds row i's bytes at width * i; a null key (`valid` False) is a
+    null row with a zero view."""
     device = resolve_device(device)
+    width = len(prefix) + TEXT_KEY_DIGITS
     k = torch.from_numpy(np.ascontiguousarray(keys, dtype=np.int64)).to(
         device)
     n = k.shape[0]
     cap = round_up(max(n, 1))
     p10 = 10 ** torch.arange(TEXT_KEY_DIGITS - 1, -1, -1, device=device)
     digits = (k[:, None] // p10 % 10 + ord("0")).to(torch.uint8)
-    prefix = torch.tensor(list(TEXT_KEY_PREFIX), dtype=torch.uint8,
-                          device=device)
-    rows = torch.cat([prefix.expand(n, -1), digits], dim=1)
-    arena = torch.zeros(round_up(max(n * TEXT_KEY_BYTES, 1)),
+    head = torch.tensor(list(prefix), dtype=torch.uint8, device=device)
+    rows = torch.cat([head.expand(n, -1), digits], dim=1)
+    arena = torch.zeros(round_up(max(n * width, 1)),
                         dtype=torch.uint8, device=device)
-    arena[:n * TEXT_KEY_BYTES] = rows.reshape(-1)
+    arena[:n * width] = rows.reshape(-1)
     ok = (torch.ones(n, dtype=torch.bool, device=device) if valid is None
           else torch.from_numpy(np.asarray(valid, bool)).to(device))
     views = torch.zeros((cap, 4), dtype=torch.int32, device=device)
-    views[:n, 0] = torch.where(ok, TEXT_KEY_BYTES, 0)
+    views[:n, 0] = torch.where(ok, width, 0)
     views[:n, 1] = torch.where(ok, rows[:, :4].contiguous().view(
         torch.int32)[:, 0], 0)
     views[:n, 3] = torch.where(ok, torch.arange(
-        n, dtype=torch.int32, device=device) * TEXT_KEY_BYTES, 0)
+        n, dtype=torch.int32, device=device) * width, 0)
     validity = (None if valid is None or np.asarray(valid).all()
                 else bm.from_numpy_bools(np.asarray(valid, bool), cap, device))
-    return col.StringViewColumn(views, arena, validity, n, st.utf8,
-                                TEXT_KEY_BYTES)
+    return col.StringViewColumn(views, arena, validity, n, st.utf8, width)
 
 
 def text_join_batches(shards: Tuple[Arrays, Arrays], device=None
@@ -1394,3 +1408,314 @@ def check_query(got: dict, want: dict, name: str) -> dict:
             raise AssertionError(f"{name}: {key} {got[key]} != oracle "
                                  f"{value}")
     return got
+
+
+# ---------------------------------------------------------------------------
+# TPC-H Q3 over customer, orders and lineitem; the external sort
+# ---------------------------------------------------------------------------
+
+ORDER_PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED",
+                    "5-LOW"]
+MKTSEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD",
+               "MACHINERY"]
+ORDERS_COLUMNS = ["o_orderkey", "o_custkey", "o_orderstatus", "o_totalprice",
+                  "o_orderdate", "o_orderpriority", "o_clerk",
+                  "o_shippriority", "o_comment"]
+CUSTOMER_COLUMNS = ["c_custkey", "c_name", "c_address", "c_nationkey",
+                    "c_phone", "c_acctbal", "c_mktsegment", "c_comment"]
+ORDER_STATUS = b"FOP"
+CLERK_PREFIX = b"Clerk#"
+TEXT_LETTERS = b"abcdefghijklmnopqrstuvwxyz "
+ADDRESS_LETTERS = (b"0123456789abcdefghijklmnopqrstuvwxyz"
+                   b"ABCDEFGHIJKLMNOPQRSTUVWXYZ ,")
+
+
+def _pool_strings(rng, n: int, lo: int, hi: int, letters: bytes) -> tuple:
+    """n strings of lo..hi bytes, each a substring of one pool of random
+    `letters` (as dbgen takes its text): (pool, starts, lengths)."""
+    pool_bytes = min(TEXT_POOL_BYTES, hi * n + 64)
+    alphabet = np.frombuffer(letters, np.uint8)
+    pool = alphabet[rng.integers(0, len(alphabet), pool_bytes,
+                                 dtype=np.uint8)]
+    lens = rng.integers(lo, hi + 1, n, dtype=np.int32)
+    starts = (rng.random(n) * (pool_bytes - lens)).astype(np.int64)
+    return pool, starts, lens
+
+
+def example_orders_arrays(sf: float = 1.0, seed: int = 6,
+                          lineitem: dict = None) -> dict:
+    """TPC-H's `orders` at scale factor `sf` by Clause 4.2.3, in numpy with
+    no loop over rows, for the lineitem of `example_lineitem_arrays(sf,
+    seed)`: the order keys and dates are that generator's (its first two
+    draws replayed from `seed`), so every l_orderkey finds its order and
+    l_shipdate > o_orderdate.  o_orderstatus is F where all of the order's
+    lines have l_linestatus F, O where all have O, else P; o_totalprice is
+    the exact sum of l_extendedprice * (100 + l_tax) * (100 - l_discount)
+    over its lines (cents x 10**4), rounded half up to cents.  Both come
+    from `lineitem` (drawn here when None).  The rest from a second
+    generator: o_custkey in [1, sf x 150,000], never a multiple of 3 (a
+    third of the customers have no order, as dbgen does it), the priority
+    uniform over the five, o_clerk "Clerk#%09d" over [1, sf x 1,000],
+    o_shippriority 0, o_comment 19-78 bytes of one text pool.  -> {name:
+    array}: the status as codes into "FOP", the priority as codes, the
+    clerk as its number, the comment as (pool, starts, lengths)."""
+    rng = np.random.default_rng(seed)
+    orders = int(1_500_000 * sf)
+    lines = rng.integers(1, 8, orders, dtype=np.int8)
+    start, end = _days("1992-01-01"), _days("1998-12-31") - 151
+    odate = rng.integers(start, end + 1, orders, dtype=np.int32)
+    if lineitem is None:
+        lineitem = example_lineitem_arrays(sf, seed)
+    ends = np.cumsum(lines, dtype=np.int64)
+    firsts = ends - lines
+    shipped = np.add.reduceat(lineitem["l_linestatus"].astype(np.int64),
+                              firsts)
+    status = np.where(shipped == lines, 0, np.where(shipped == 0, 1, 2))
+    price = (lineitem["l_extendedprice"] * (100 + lineitem["l_tax"])
+             * (100 - lineitem["l_discount"]))
+    total = (np.add.reduceat(price, firsts) + 5_000) // 10_000
+    ids = np.arange(orders, dtype=np.int64)
+    more = np.random.default_rng((seed, 4))
+    customers = int(sf * 150_000)
+    u = more.integers(0, customers - customers // 3, orders, dtype=np.int64)
+    return {
+        "o_orderkey": ids // 8 * 32 + ids % 8 + 1,
+        "o_custkey": u // 2 * 3 + u % 2 + 1,
+        "o_orderstatus": status.astype(np.int8),
+        "o_totalprice": total,
+        "o_orderdate": odate,
+        "o_orderpriority": more.integers(0, len(ORDER_PRIORITIES), orders,
+                                         dtype=np.int32),
+        "o_clerk": more.integers(1, max(int(sf * 1_000), 1) + 1, orders,
+                                 dtype=np.int64),
+        "o_shippriority": np.zeros(orders, np.int32),
+        "o_comment": _pool_strings(more, orders, 19, 78, TEXT_LETTERS)}
+
+
+def orders_batch(arrays: dict, device=None) -> bt.RecordBatch:
+    """The nine-column orders batch (NOT NULL): int64 keys, the status as
+    a one-letter utf8 view, o_totalprice a Decimal128(15, 2), o_orderdate
+    a Date32, the priority a dictionary of utf8, o_clerk and o_comment
+    utf8 views, o_shippriority int32."""
+    device = resolve_device(device)
+    n = len(arrays["o_orderkey"])
+    status = np.frombuffer(ORDER_STATUS, np.uint8)
+    return bt.record_batch({
+        "o_orderkey": col.primitive(torch.from_numpy(
+            arrays["o_orderkey"]).to(device)),
+        "o_custkey": col.primitive(torch.from_numpy(
+            arrays["o_custkey"]).to(device)),
+        "o_orderstatus": string_view_from_numpy(
+            status, arrays["o_orderstatus"].astype(np.int64),
+            np.ones(n, np.int32), device=device),
+        "o_totalprice": decimal_from_int64(arrays["o_totalprice"],
+                                           DECIMAL_15_2, device=device),
+        "o_orderdate": col.primitive(torch.from_numpy(
+            arrays["o_orderdate"]).to(device), st.Date32()),
+        "o_orderpriority": _words_dictionary(arrays["o_orderpriority"],
+                                             ORDER_PRIORITIES, device),
+        "o_clerk": text_keys(arrays["o_clerk"], device=device,
+                             prefix=CLERK_PREFIX),
+        "o_shippriority": col.primitive(torch.from_numpy(
+            arrays["o_shippriority"]).to(device)),
+        "o_comment": string_view_from_numpy(*arrays["o_comment"],
+                                            device=device)})
+
+
+def example_customer_arrays(sf: float = 1.0, seed: int = 6) -> dict:
+    """TPC-H's `customer` at scale factor `sf` by Clause 4.2.3 (sf x
+    150,000 rows), in numpy with no loop over rows: c_custkey 1..n; c_name
+    "Customer#%09d" of the key (built by `text_keys`); c_address 10-40
+    bytes and c_comment 29-116 bytes, each a substring of a pool;
+    c_nationkey in [0, 24]; c_phone "CC-NNN-NNN-NNNN" with CC = nationkey
+    + 10; c_acctbal in [-999.99, 9999.99] (cents); c_mktsegment uniform
+    over the five segments (codes).  -> {name: array}; the strings as
+    (pool, starts, lengths)."""
+    rng = np.random.default_rng((seed, 3))
+    n = int(sf * 150_000)
+    nation = rng.integers(0, 25, n, dtype=np.int64)
+    digits = rng.integers(0, 10, (n, 10), dtype=np.uint8) + ord("0")
+    phone = np.full((n, 15), ord("-"), np.uint8)
+    phone[:, 0] = (nation + 10) // 10 + ord("0")
+    phone[:, 1] = (nation + 10) % 10 + ord("0")
+    phone[:, [3, 4, 5, 7, 8, 9, 11, 12, 13, 14]] = digits
+    return {
+        "c_custkey": np.arange(1, n + 1, dtype=np.int64),
+        "c_address": _pool_strings(rng, n, 10, 40, ADDRESS_LETTERS),
+        "c_nationkey": nation,
+        "c_phone": (phone.reshape(-1), np.arange(n, dtype=np.int64) * 15,
+                    np.full(n, 15, np.int32)),
+        "c_acctbal": rng.integers(-99_999, 1_000_000, n, dtype=np.int64),
+        "c_mktsegment": rng.integers(0, len(MKTSEGMENTS), n, dtype=np.int32),
+        "c_comment": _pool_strings(rng, n, 29, 116, TEXT_LETTERS)}
+
+
+def customer_batch(arrays: dict, device=None) -> bt.RecordBatch:
+    """The eight-column customer batch (NOT NULL): int64 keys, utf8 views,
+    c_acctbal a Decimal128(15, 2), c_mktsegment a dictionary of utf8."""
+    device = resolve_device(device)
+    return bt.record_batch({
+        "c_custkey": col.primitive(torch.from_numpy(
+            arrays["c_custkey"]).to(device)),
+        "c_name": text_keys(arrays["c_custkey"], device=device),
+        "c_address": string_view_from_numpy(*arrays["c_address"],
+                                            device=device),
+        "c_nationkey": col.primitive(torch.from_numpy(
+            arrays["c_nationkey"]).to(device)),
+        "c_phone": string_view_from_numpy(*arrays["c_phone"], device=device),
+        "c_acctbal": decimal_from_int64(arrays["c_acctbal"], DECIMAL_15_2,
+                                        device=device),
+        "c_mktsegment": _words_dictionary(arrays["c_mktsegment"],
+                                          MKTSEGMENTS, device),
+        "c_comment": string_view_from_numpy(*arrays["c_comment"],
+                                            device=device)})
+
+
+# Clause 2.4.3.3's validation parameters
+Q3_SEGMENT, Q3_DATE = "BUILDING", "1995-03-15"
+Q3_CUSTOMER = ("c_custkey",)
+Q3_ORDERS = ("o_orderkey", "o_custkey", "o_orderdate", "o_shippriority")
+Q3_LINEITEM = ("l_orderkey", "l_extendedprice", "l_discount")
+Q3_KEYS = ["l_orderkey", "o_orderdate", "o_shippriority"]
+Q3_LIMIT = 10
+
+
+def _pick(batch: bt.RecordBatch, names) -> bt.RecordBatch:
+    return bt.record_batch({n: batch[n] for n in names})
+
+
+def q3_filters(customer: bt.RecordBatch, orders: bt.RecordBatch,
+               lineitem: bt.RecordBatch, segment: str = Q3_SEGMENT,
+               date: str = Q3_DATE):
+    """Q3's three pushed-down filters: customer on c_mktsegment = segment
+    (`like` on the dictionary: one match a dictionary value), orders on
+    o_orderdate < date, lineitem on l_shipdate > date, each the columns
+    the query reads."""
+    day = _days(date)
+    return (ops.filter_record_batch(_pick(customer, Q3_CUSTOMER), ops.like(
+                customer["c_mktsegment"], segment)),
+            ops.filter_record_batch(_pick(orders, Q3_ORDERS),
+                                    ops.lt(orders["o_orderdate"], day)),
+            ops.filter_record_batch(_pick(lineitem, Q3_LINEITEM),
+                                    ops.gt(lineitem["l_shipdate"], day)))
+
+
+def q3_joins(cust: bt.RecordBatch, ords: bt.RecordBatch,
+             li: bt.RecordBatch) -> bt.RecordBatch:
+    """customer ⋈ orders on custkey (customer the build side), then
+    lineitem ⋈ that on orderkey (the orders side the build side)."""
+    co, _ = ops.hash_join(ords, cust, ["o_custkey"], right_on=["c_custkey"])
+    joined, _ = ops.hash_join(li, co, ["l_orderkey"],
+                              right_on=["o_orderkey"])
+    return joined
+
+
+def q3_group(joined: bt.RecordBatch) -> bt.RecordBatch:
+    """revenue = l_extendedprice * (1 - l_discount) through `ops.numeric`
+    (a Decimal128(32, 4)), summed by (l_orderkey, o_orderdate,
+    o_shippriority): the Date32 key on the sort pipeline."""
+    revenue = _disc_price(joined)
+    return gb.group_by(bt.record_batch({
+        **{k: joined[k] for k in Q3_KEYS}, "revenue": revenue}),
+        Q3_KEYS, [("revenue", "sum")])
+
+
+def q3_top(grouped: bt.RecordBatch) -> bt.RecordBatch:
+    """ORDER BY revenue DESC, o_orderdate LIMIT 10."""
+    from .config import SortOptions
+
+    return ops.sort_batch(grouped, ["sum_revenue", "o_orderdate"],
+                          [SortOptions(descending=True), SortOptions()],
+                          limit=Q3_LIMIT)
+
+
+def q3_step(customer: bt.RecordBatch, orders: bt.RecordBatch,
+            lineitem: bt.RecordBatch, segment: str = Q3_SEGMENT,
+            date: str = Q3_DATE) -> dict:
+    """TPC-H Q3 (Clause 2.4.3): the three filters, the two joins, the
+    revenue and its group-by, the top ten.  -> {"joined": rows joined,
+    "groups": groups, "top": the ten rows (l_orderkey, o_orderdate,
+    o_shippriority, sum_revenue)}."""
+    grouped = q3_group(q3_joins(*q3_filters(customer, orders, lineitem,
+                                            segment, date)))
+    return {"groups": grouped.length, "top": q3_top(grouped)}
+
+
+def q3_oracle(customer: dict, orders: dict, lineitem: dict,
+              segment: str = Q3_SEGMENT, date: str = Q3_DATE) -> dict:
+    """Q3 in numpy on codes and integer units of 10**-4 (each order's
+    lines sum into its row: an order key maps back to its row, each
+    customer key is its row + 1).  -> {"groups", "top": {column: array of
+    the first ten rows}, "tied": the (key, date, priority, revenue) rows
+    that tie with the tenth on (revenue, date), as a set}."""
+    day = _days(date)
+    building = customer["c_mktsegment"] == MKTSEGMENTS.index(segment)
+    okeys = orders["o_orderkey"]
+    order_ok = (orders["o_orderdate"] < day) & building[
+        orders["o_custkey"] - 1]
+    lk = lineitem["l_orderkey"]
+    row = (lk - 1) // 32 * 8 + (lk - 1) % 32
+    if not np.array_equal(okeys[row], lk):
+        raise AssertionError("an order key is not at its row")
+    line_ok = (lineitem["l_shipdate"] > day) & order_ok[row]
+    revenue = np.zeros(len(okeys), np.int64)
+    np.add.at(revenue, row[line_ok], lineitem["l_extendedprice"][line_ok]
+              * (100 - lineitem["l_discount"][line_ok]))
+    groups = np.flatnonzero(revenue)
+    rev, odate = revenue[groups], orders["o_orderdate"][groups]
+    order = np.lexsort((odate, -rev))
+    top = groups[order[:Q3_LIMIT]]
+
+    def rows(ix):
+        return {"l_orderkey": okeys[ix], "o_orderdate":
+                orders["o_orderdate"][ix], "o_shippriority":
+                orders["o_shippriority"][ix], "sum_revenue": revenue[ix]}
+
+    tied = set()
+    if len(top) == Q3_LIMIT:
+        last = top[-1]
+        same = groups[(rev == revenue[last]) & (odate == orders[
+            "o_orderdate"][last])]
+        tied = set(zip(*[v.tolist() for v in rows(same).values()]))
+    return {"groups": int(len(groups)), "top": rows(top), "tied": tied}
+
+
+def check_q3(got: dict, want: dict) -> dict:
+    """Raise unless q3_step's result equals the oracle's: the group count
+    and the ten rows in order, exactly; rows that tie with the tenth on
+    (revenue, date) are compared as a set (any of them may come last)."""
+    from .core import limbs as lb
+
+    if got["groups"] != want["groups"]:
+        raise AssertionError(f"Q3: {got['groups']} groups != oracle "
+                             f"{want['groups']}")
+    top = got["top"]
+    units = lb.join_ints(top["sum_revenue"].values[:top.length].cpu().numpy())
+    have = list(zip(*[top[k].values[:top.length].cpu().tolist()
+                      for k in Q3_KEYS], units))
+    wanted = list(zip(*[want["top"][k].tolist() for k in Q3_KEYS
+                        + ["sum_revenue"]]))
+    if len(have) != len(wanted) or any(
+            top[k].null_count() for k in Q3_KEYS + ["sum_revenue"]):
+        raise AssertionError(f"Q3: {len(have)} rows (or nulls) != oracle "
+                             f"{len(wanted)}")
+    for i, (h, w) in enumerate(zip(have, wanted)):
+        if h != w and not (h in want["tied"] and w in want["tied"]):
+            raise AssertionError(f"Q3: row {i} {h} != oracle {w}")
+    return {"groups": got["groups"], "rows": have,
+            "tied_with_tenth": len(want["tied"])}
+
+
+def sorted_runs_step(batch: bt.RecordBatch, by: Sequence[str],
+                     options=None, runs: int = 8):
+    """An ORDER BY over a table larger than a batch, as an external sort
+    runs it: the batch cut into `runs` slices (`slice_batch`), each sorted
+    (`sort_batch`), then the sorted runs merged (`merge_batches`).  ->
+    (the merged batch, {"slices": the runs as cut, "sorted": each run
+    sorted}) for timing the stages."""
+    n = batch.length
+    size = -(-n // runs)
+    slices = [ops.slice_batch(batch, i * size, size) for i in range(runs)]
+    ordered = [ops.sort_batch(s, by, options) for s in slices]
+    return (ops.merge_batches(ordered, by, options),
+            {"slices": slices, "sorted": ordered})

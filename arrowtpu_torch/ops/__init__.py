@@ -1,14 +1,18 @@
 """Compute operators on columns and record batches."""
 
-from . import arity, bitwise, boolean, numeric, strings, zip as zipmod
+from . import (arity, bitwise, boolean, coalesce, equal, merge, numeric,
+               strings, zip as zipmod)
 from .bitwise import bit_and, bit_not, bit_or, bit_xor, shift_left, shift_right
 from .boolean import (and_, and_kleene, and_not, is_not_null, is_null, not_,
                       or_, or_kleene, xor)
 from .cmp import distinct, eq, gt, gt_eq, lt, lt_eq, neq, not_distinct
-from .concat import concat, concat_batches
+from .coalesce import BatchCoalescer, slice_, slice_batch
+from .concat import concat, concat_batches, interleave
+from .equal import equal_batches, equal_columns
 from .filter import apply_plan, build_plan, filter_, filter_record_batch
 from .groupby import group_by
 from .join import hash_join
+from .merge import merge_batches, merge_indices, merge_n
 from .numeric import (add, add_checked, div, div_checked, mul, mul_checked,
                       neg, raise_if, rem, rem_checked, sub, sub_checked)
 from . import sort as sortmod
@@ -21,7 +25,10 @@ from .strings import (bit_length, concat_elements, contains, ends_with,
 from .take import take, take_record_batch
 from .zip import nullif, shift, zip_
 
-__all__ = ["arity", "bitwise", "boolean", "numeric", "strings", "zipmod",
+__all__ = ["arity", "bitwise", "boolean", "coalesce", "equal", "merge",
+           "numeric", "strings", "zipmod", "BatchCoalescer", "slice_",
+           "slice_batch", "interleave", "equal_batches", "equal_columns",
+           "merge_batches", "merge_indices", "merge_n",
            "bit_and", "bit_not", "bit_or", "bit_xor", "shift_left",
            "shift_right", "and_", "and_kleene", "and_not", "is_not_null",
            "is_null", "not_", "or_", "or_kleene", "xor", "distinct", "eq",

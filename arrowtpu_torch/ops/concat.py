@@ -11,8 +11,9 @@ total length rounded up to the capacity granule).
     one contributes valid rows);
   * string views: the arenas are concatenated whole, and each input's
     non-inline views (byte length > 12) have their arena offset rebased by
-    the start of that input's arena; `len_bound` is the inputs' largest,
-    or None if any is None;
+    the start of that input's arena (inputs that share one arena, slices
+    of one column, keep it); `len_bound` is the inputs' largest, or None
+    if any is None;
   * dictionary columns concatenate their keys and keep the dictionary,
     which must be the same values object in every input (the JAX package
     asks for the same arrays): dictionaries are not merged yet.
@@ -26,7 +27,17 @@ total length rounded up to the capacity granule).
     the size;
   * run-end and union columns raise, as in the JAX package.
 
-`interleave` waits for `ops/merge.py`.
+`interleave(columns, src_idx, row_idx)` (the reference's interleave.rs)
+gives `out[i] = columns[src_idx[i]][row_idx[i]]`: the sources are
+concatenated (with at least one padding row past their total), each
+(source, row) pair maps onto the concatenation through the sources'
+cumulative lengths, and one `take` gathers the rows (`gather_rows`: a
+16-byte row as one element).  A row is null where either index is null or
+the row index falls outside its source's length; such a row reads the
+padding, zeros, as the JAX package's slab of whole capacities gives it.
+The output has the index column's length and capacity.  It takes
+primitive columns (multi-word rows included), booleans and string views;
+every other class raises, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -100,20 +111,9 @@ def _concat(columns: Sequence[col.Column], cap: int) -> col.Column:
             first.dtype)
 
     if isinstance(first, col.StringViewColumn):
-        views, start = [], 0
-        for c in columns:
-            v = c.views
-            if start:
-                v = v.clone()
-                long = v[:, 0] > 12
-                v[:, 3] = torch.where(long, v[:, 3] + start, v[:, 3])
-            views.append(v)
-            start += c.arena.shape[0]
-        bounds = [c.len_bound for c in columns]
-        return col.StringViewColumn(
-            _cat(views, lengths, cap), torch.cat([c.arena for c in columns]),
-            validity, total, first.dtype,
-            None if any(b is None for b in bounds) else max(bounds))
+        views, arena, bound = _one_arena(columns)
+        return col.StringViewColumn(_cat(views, lengths, cap), arena,
+                                    validity, total, first.dtype, bound)
 
     if isinstance(first, col.ListViewColumn):
         starts, rebase = [], 0
@@ -140,6 +140,28 @@ def _concat(columns: Sequence[col.Column], cap: int) -> col.Column:
     raise st.ComputeError(f"concat: unsupported column {type(first).__name__}")
 
 
+def _one_arena(columns: Sequence[col.StringViewColumn]):
+    """-> (each input's views, over one arena; that arena; the len_bound:
+    the inputs' largest, or None if any is None).  Inputs that share one
+    arena (slices or runs of one column) keep it; otherwise the arenas go
+    back to back and each input's long views (byte length > 12) are
+    rebased by the start of its arena."""
+    bounds = [c.len_bound for c in columns]
+    bound = None if any(b is None for b in bounds) else max(bounds)
+    first = columns[0]
+    if all(c.arena is first.arena for c in columns):
+        return [c.views for c in columns], first.arena, bound
+    views, start = [], 0
+    for c in columns:
+        v = c.views
+        if start:
+            v = v.clone()
+            v[:, 3] = torch.where(v[:, 0] > 12, v[:, 3] + start, v[:, 3])
+        views.append(v)
+        start += c.arena.shape[0]
+    return views, torch.cat([c.arena for c in columns]), bound
+
+
 def concat_batches(batches: Sequence[bt.RecordBatch]) -> bt.RecordBatch:
     """The batches' rows back to back; every batch has the first's field
     names."""
@@ -151,3 +173,36 @@ def concat_batches(batches: Sequence[bt.RecordBatch]) -> bt.RecordBatch:
             raise st.SchemaError("concat_batches: schema mismatch")
     return bt.RecordBatch(schema, tuple(
         concat([b.columns[i] for b in batches]) for i in range(len(schema))))
+
+
+_INTERLEAVED = (col.PrimitiveColumn, col.BooleanColumn, col.StringViewColumn)
+
+
+def check_interleaved(column: col.Column) -> None:
+    """Raise for a class that `interleave` does not take."""
+    if not isinstance(column, _INTERLEAVED):
+        raise st.ComputeError(
+            f"interleave: unsupported column {type(column).__name__}")
+
+
+def interleave(columns: Sequence[col.Column], src_idx: col.PrimitiveColumn,
+               row_idx: col.PrimitiveColumn) -> col.Column:
+    """out[i] = columns[src_idx[i]][row_idx[i]] (module docstring)."""
+    from .take import take
+
+    if not columns:
+        raise st.ComputeError("interleave: no inputs")
+    check_interleaved(columns[0])
+    lengths = [c.length for c in columns]
+    total = sum(lengths)
+    whole = _concat(columns, round_up(total + 1))
+    lens = torch.tensor(lengths, dtype=torch.int64, device=whole.device)
+    src = src_idx.values.to(torch.int64).clamp(0, len(columns) - 1)
+    row = row_idx.values.to(torch.int64)
+    inside = (row >= 0) & (row < lens[src])
+    # a row outside its source reads row `total`: padding, out of bounds
+    flat = torch.where(inside, (lens.cumsum(0) - lens)[src] + row, total)
+    index = col.PrimitiveColumn(flat, bm.union(src_idx.validity,
+                                               row_idx.validity),
+                                src_idx.length, st.int64)
+    return take(whole, index)

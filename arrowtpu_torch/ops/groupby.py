@@ -3,8 +3,9 @@
 Counterpart of `arrowtpu/ops/groupby.py`, with its two engines behind one
 API and the same choice between them on every input:
 
-  * the dense-range engine (`_dense_group_by`) for a single integer key of
-    at most 32 bits with integer value columns (`_dense_eligible`, the
+  * the dense-range engine (`_dense_group_by`) for a single integer (or
+    Date32 / Time32) key of at most 32 bits with integer or temporal value
+    columns (`_dense_eligible`, the
     reference's rule: a key held in one plane there) whose live, valid
     keys span fewer than `DENSE_GROUPBY_BUCKETS - off` values (off is 1
     when the key has a validity bitmap: bucket 0 is then the null group).
@@ -68,8 +69,19 @@ the width's largest precision); mean -> float64 (a decimal's:
 to_float(sum) / max(count, 1) / 10**scale); sum / min / max / mean are
 null for a group with no valid value.  A string key's output shares its
 input's arena.  String values raise under every aggregate, as in the
-reference; temporal and interval columns are not ported as keys or
-values yet.
+reference.
+
+Temporal columns (Date32, Date64, Timestamp with or without a time zone,
+Time32, Time64, Duration) are keys and values as the integers they hold,
+and come back with their own dtype.  As values they take every aggregate
+the JAX package computes: count, min and max; sum in the JAX package's
+type (its own for a 64-bit type, int32 for Date32 and Time32) and mean as
+float64.  The JAX package types the min and max of a Date32 or Time32
+int32; here they keep their own type (ROADMAP C.3).  Date32 and Time32
+keys take the dense engine as 32-bit integer keys do, and temporal values
+count as integer values there, as in the reference.  An interval value
+takes count alone; an interval key raises (the JAX package fails on both
+with a shape error).
 """
 
 from __future__ import annotations
@@ -191,20 +203,39 @@ def _is_decimal(c) -> bool:
             and st.decimal_limbs(c.dtype) is not None)
 
 
+_TEMPORAL = (st.Date32, st.Date64, st.Timestamp, st.Time32, st.Time64,
+             st.Duration)
+
+
+def _is_temporal(c) -> bool:
+    return isinstance(c, col.PrimitiveColumn) and isinstance(c.dtype,
+                                                             _TEMPORAL)
+
+
+def _is_int_like(c) -> bool:
+    """An integer or temporal column: integer values of one native dtype."""
+    return _is_int(c) or _is_temporal(c)
+
+
 def _is_key(c) -> bool:
-    """The JAX package's key columns (`_column_operands`), less its
-    temporal and interval keys."""
+    """The JAX package's key columns (`_column_operands`) but intervals."""
     return (isinstance(c, (col.BooleanColumn, col.DictionaryColumn,
                            col.StringViewColumn))
-            or _is_decimal(c) or (isinstance(c, col.PrimitiveColumn) and
-                                  isinstance(c.dtype, (st.Int, st.Float,
-                                                       st.FixedSizeBinary))))
+            or _is_decimal(c) or _is_temporal(c)
+            or (isinstance(c, col.PrimitiveColumn) and
+                isinstance(c.dtype, (st.Int, st.Float, st.FixedSizeBinary))))
 
 
-def _is_value(c) -> bool:
+def _is_value(c, agg: str) -> bool:
+    """Boolean, decimal, integer, float and temporal columns take every
+    aggregate; an interval takes count."""
+    if isinstance(c, col.PrimitiveColumn) and isinstance(c.dtype,
+                                                         st.Interval):
+        return agg == "count"
     return (isinstance(c, col.BooleanColumn) or _is_decimal(c)
-            or (isinstance(c, col.PrimitiveColumn)
-                and isinstance(c.dtype, (st.Int, st.Float))))
+            or _is_temporal(c) or (isinstance(c, col.PrimitiveColumn)
+                                   and isinstance(c.dtype, (st.Int,
+                                                            st.Float))))
 
 
 def _check(batch, keys, aggs):
@@ -219,9 +250,9 @@ def _check(batch, keys, aggs):
         if agg not in AGGS:
             raise st.ComputeError(f"unknown aggregate {agg!r}")
         c = batch[name]
-        if not _is_value(c):
+        if not _is_value(c, agg):
             raise st.ComputeError(
-                f"aggregate on {name!r} of type {c.dtype} is not supported")
+                f"{agg} of {name!r} of type {c.dtype} is not supported")
 
 
 def _normalize(keys, aggs):
@@ -293,15 +324,15 @@ def plan_group_by(batch: bt.RecordBatch, keys: Sequence[str],
 
 
 def _dense_eligible(batch, keys, aggs) -> bool:
-    """The reference's rule (`_dense_eligible`): one integer key held in
-    one plane there (at most 32 bits; its int64 is a limb pair) and
-    integer value columns of any width."""
+    """The reference's rule (`_dense_eligible`): one integer or temporal
+    key held in one plane there (at most 32 bits; its 64-bit types are
+    limb pairs) and integer or temporal value columns of any width."""
     if len(keys) != 1:
         return False
     kc = batch[keys[0]]
-    if not (_is_int(kc) and kc.dtype.bits <= 32):
+    if not (_is_int_like(kc) and kc.values.element_size() <= 4):
         return False
-    return all(a in AGGS and _is_int(batch[n]) for n, a in aggs)
+    return all(a in AGGS and _is_int_like(batch[n]) for n, a in aggs)
 
 
 def _dense_probe(batch, keys, aggs):
@@ -397,7 +428,9 @@ def _dense_group_by(batch, keys, aggs, kmin: torch.Tensor,
             best = {"sum": total, "min": torch.where(has, lo, 0),
                     "max": torch.where(has, hi, 0)}[agg]
             out = col.PrimitiveColumn(place(best, c.values.dtype),
-                                      place_valid(has), groups, c.dtype)
+                                      place_valid(has), groups,
+                                      _sum_dtype(c) if agg == "sum"
+                                      else c.dtype)
         fields.append(st.Field(f"{agg}_{name}", out.dtype))
         cols.append(out)
     return bt.RecordBatch(st.Schema(tuple(fields)), tuple(cols))
@@ -427,6 +460,16 @@ def _value_rows(c) -> torch.Tensor:
     if isinstance(c, col.BooleanColumn):
         return c.values_bool().to(torch.int32)
     return c.values.to(torch.int64) if c.values.dtype in _WIDEN else c.values
+
+
+def _sum_dtype(c) -> st.DataType:
+    """The logical type of a value column's sum: the JAX package's, which
+    is int32 for booleans, Date32 and Time32 (its 32-bit values' own
+    dtype) and the column's type otherwise."""
+    if isinstance(c, col.BooleanColumn) or isinstance(c.dtype, (st.Date32,
+                                                                st.Time32)):
+        return st.int32
+    return c.dtype
 
 
 def _out_dtype(c) -> torch.dtype:
@@ -607,7 +650,8 @@ def _native_agg(c, agg, cnt, ok, vals, boundary, out_cap, num_groups,
     if agg in ("sum", "mean"):
         s = sums()
         if agg == "sum":
-            return col.PrimitiveColumn(s.to(odt), has_v, num_groups, out_dt)
+            return col.PrimitiveColumn(s.to(odt), has_v, num_groups,
+                                       _sum_dtype(c))
         mean = s.to(torch.float64) / cnt.clamp(min=1).to(torch.float64)
         return col.PrimitiveColumn(mean, has_v, num_groups, st.float64)
     if vo_rows is not None:

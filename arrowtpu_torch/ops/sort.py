@@ -8,7 +8,8 @@ the live rows, ties in row order.  Index columns are int32, and rows past
 their length are 0 (the port's padding contract).  String-view keys sort
 by their byte matrix; a long one through the grouped sort (a prefix of
 plane groups, then refinements under a run rank, `_sorted_perm`).  Struct
-and list-view keys are not ported yet; they raise ComputeError.
+keys sort by their children in field order, list-view keys by their first
+`config.LIST_SORT_BOUND` elements, then their lengths (rowformat/encode.py).
 """
 
 from __future__ import annotations

@@ -25,11 +25,21 @@ planes, so all nulls tie and keep their row order.
 The u32 planes hold the JAX package's plane values, in [0, 2**32).
 `encode_columns_grouped` splits a long string key into a prefix of
 `STRING_CHUNK_WORDS` word planes and refinement groups of as many, for the
-rank-chained sort (rowformat/pack.py `sort_by_plane_groups`).  Struct and
-list-view sort keys are not ported yet; they raise ComputeError.
+rank-chained sort (rowformat/pack.py `sort_by_plane_groups`).
+
+  * a struct: its own sentinel, then each child's full encoding (its
+    sentinel and value planes, default options) in field order;
+  * a list view of primitive elements: for each element j below
+    `config.LIST_SORT_BOUND`, a present plane (the list has more than j
+    elements), an element-valid plane and that element's planes (zero
+    where absent or null), then a length plane.  Lists that differ only
+    past the bound compare by their lengths, exactly as in the JAX
+    package.  Other element classes raise ComputeError;
+  * a null column is one zero plane and no sentinel.
 
 `hash_planes_of` gives the JAX package's u32 key planes (ascending, nulls
-first) of every class `encode_column` takes, for rowformat/hashing.py: a
+first) of every class `encode_column` takes but struct and list view
+(which raise: no join or partition takes them), for rowformat/hashing.py: a
 plane that is signed here (integers, temporal types, the float key) is
 rebased or split as the JAX package holds it; a null column is one zero
 plane.  Intervals raise: the JAX package's plane of an interval is
@@ -39,12 +49,13 @@ gives a join both sets from one encoding.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from .. import schema as st
-from ..config import SortOptions
+from ..config import LIST_SORT_BOUND, SortOptions
 from ..core import column as col
 from ..core import limbs as lb
 
@@ -95,8 +106,46 @@ def _string_planes(c: col.StringViewColumn, width: Optional[int] = None
              for k in range(L // 4)] + [lens.to(torch.int64)])
 
 
+def _element_planes(child: col.Column, idx: torch.Tensor
+                    ) -> List[torch.Tensor]:
+    """The value planes of a list's primitive child at rows `idx`."""
+    if (isinstance(child, col.PrimitiveColumn)
+            and (child.values.dim() == 1
+                 or st.decimal_limbs(child.dtype) is not None)):
+        from ..ops.take import gather_rows
+
+        return _value_planes(dataclasses.replace(
+            child, values=gather_rows(child.values, idx), validity=None,
+            length=idx.shape[0]))
+    raise st.ComputeError("encode: list sort keys support primitive "
+                          f"elements, not {child.dtype}")
+
+
+def _list_planes(c: col.ListViewColumn) -> List[torch.Tensor]:
+    """[present_j, element-valid_j, element j's planes] for j below
+    LIST_SORT_BOUND, then the length plane (null rows count 0)."""
+    child = c.child
+    valid = c.valid_bool()
+    starts = c.starts.to(torch.int64)
+    sizes = torch.where(valid, c.sizes.to(torch.int64), 0)
+    child_ok = child.valid_bool()
+    last = max(child.capacity - 1, 0)
+    planes: List[torch.Tensor] = []
+    for j in range(LIST_SORT_BOUND):
+        present = (sizes > j).to(torch.int64)
+        idx = (starts + j).clamp(0, last)
+        ok = present * child_ok[idx].to(torch.int64)
+        planes += [present, ok] + [p * ok for p in _element_planes(child,
+                                                                   idx)]
+    return planes + [sizes]
+
+
 def _value_planes(c: col.Column, width: Optional[int] = None
                   ) -> List[torch.Tensor]:
+    if isinstance(c, col.StructColumn):
+        return [p for ch in c.children for p in encode_column(ch)]
+    if isinstance(c, col.ListViewColumn):
+        return _list_planes(c)
     if isinstance(c, col.BooleanColumn):
         return [c.values_bool().to(torch.int64)]
     if isinstance(c, col.DictionaryColumn):
@@ -123,7 +172,10 @@ def _value_planes(c: col.Column, width: Optional[int] = None
 
 def encode_column(c: col.Column, opts: SortOptions = SortOptions()
                   ) -> List[torch.Tensor]:
-    """[sentinel, value planes...] of one key column."""
+    """[sentinel, value planes...] of one key column (a null column: one
+    zero plane)."""
+    if isinstance(c, col.NullColumn):
+        return [torch.zeros(c.capacity, dtype=torch.int64, device=c.device)]
     planes = _value_planes(c)
     valid = c.valid_bool().to(torch.int64)
     planes = [p * valid for p in planes]
@@ -208,8 +260,9 @@ def key_planes(columns: Sequence[col.Column],
             eq.append(zero)
             hashed.append(zero)
             continue
-        if isinstance(c, col.PrimitiveColumn) and isinstance(c.dtype,
-                                                             st.Interval):
+        if isinstance(c, (col.StructColumn, col.ListViewColumn)) or (
+                isinstance(c, col.PrimitiveColumn)
+                and isinstance(c.dtype, st.Interval)):
             raise st.ComputeError(
                 f"hash: unsupported key {type(c).__name__} {c.dtype}")
         raw = _value_planes(c, w)

@@ -211,18 +211,47 @@ Phases (each raises on failure; the exit code is then non-zero):
      before each step and read just after (K1 must launch in the lineitem
      filter), counted by calling module and word size, every K1 and K2
      call held to plain; then each step's time (CUDA events, median of
-     5), its stages, peak memory and busy share, and Q14's promo revenue.
+     5), its stages, peak memory and busy share, and Q14's promo revenue;
+  20. (after phase 19, on phase 13's lineitem less its two dictionary
+     columns, which `interleave` does not take: 14 columns) an external
+     sort, `entry.sorted_runs_step`: the table cut into 8 runs
+     (`slice_batch`), each sorted by (l_shipdate, l_extendedprice desc,
+     l_orderkey, l_linenumber), a unique key, then `merge_batches`; it
+     must equal one `sort_batch` of the whole (`equal_batches` on the card)
+     and, on its key columns, numpy's lexsort of the arrays, row for row.
+     Then the RowConverter round trip of (l_returnflag, l_linestatus,
+     l_shipdate desc, l_extendedprice, l_shipmode, l_comment) over the
+     whole table, each column back by `equal_columns` on the card (numpy's
+     lexsort runs on a host thread from the end of phase 13 on).  The
+     launch counts are read around the sort (it runs no port kernel); the
+     stages are timed (CUDA events, median of 3: the cut, the run sorts,
+     `merge_indices`, `interleave` per column class, `merge_batches`, the
+     whole step, one `sort_batch`, `convert_columns`, `convert_rows`) with
+     the step's busy share and peak memory;
+  21. TPC-H Q3 (`entry.q3_step`: customer filtered on c_mktsegment =
+     'BUILDING' by `like` on its dictionary, orders on o_orderdate and
+     lineitem on l_shipdate, customer ⋈ orders and lineitem ⋈ that by
+     `hash_join`, revenue through `ops.numeric`, the group-by on
+     (l_orderkey, o_orderdate, o_shippriority) with a Date32 key, the top
+     ten by `sort_batch`) over phase 13's lineitem and SF10 orders (15M
+     rows) and customer (1.5M) drawn by `entry.example_orders_arrays` /
+     `example_customer_arrays` and built on the card: exact against
+     `entry.q3_oracle`, the launch counts set to 0 just before the step and
+     read just after (K1 must launch in the filters), every K1 and K2 call
+     held to plain; the step's time (median of 5), its stages, peak memory
+     and busy share.
 
 The line before the last lists the kernels as JSON (`launches` from the
 flagship step for K1 and K2, from K3's entry point for K3, from
 run_probes for the probe kernels, from config 4 at 100 keys for
 dense_agg and from the Q6 step for K1's 16-byte words; every path's counts under `launches_by_path`, the skewed
 step's filters as a path of their own, TPC-H Q1, the text join step, the
-lineitem exchange, the distributed Q1, Q14 and Q19 too; the flagship, join
+lineitem exchange, the distributed Q1, Q14, Q19, the external sort and Q3
+too; the flagship, join
 and skewed join steps, int64-keyed, must launch no dense_agg; K1's 16-byte
 row carries its Q1 calls), after the Q1 step's, the l_comment sort's,
-the LIKE lines' and the Q14 and Q19 steps' JSON lines and the card's
-line; the last line is {"ok": true, "device":
+the LIKE lines', the Q14 and Q19 steps', the external sort's and the Q3
+step's JSON lines and the card's line; the last line is {"ok": true, "device":
 {...}}.
 Without a CUDA device the script exits with an error and prints no
 result.
@@ -1426,6 +1455,289 @@ def query_phase(pe, ops, k1, k2, build, dev, arrays, batch, part_arrays,
     return launches, timing
 
 
+RUNS = 8  # phase 20: the external sort's runs
+LEXSORT_CHECK = 1_000_000  # rows of phase 20's host key held to np.lexsort
+SORT_REPS = 3
+SORT_BY = ["l_shipdate", "l_extendedprice", "l_orderkey", "l_linenumber"]
+ROW_COLUMNS = ["l_returnflag", "l_linestatus", "l_shipdate",
+               "l_extendedprice", "l_shipmode", "l_comment"]
+
+
+def _sort_options():
+    from arrowtpu_torch.config import SortOptions
+
+    return [SortOptions(), SortOptions(descending=True), SortOptions(),
+            SortOptions()]
+
+
+def _packed_order(date, price) -> np.ndarray:
+    """The rows' order by (date, price desc, row): one numpy sort of the
+    three packed into an int64 (the row index makes the key unique, so an
+    unstable sort gives the stable order)."""
+    n = len(date)
+    date = date.astype(np.int64) - int(date.min())
+    price = int(price.max()) - price.astype(np.int64)
+    pb, rb = int(price.max()).bit_length(), max(n - 1, 1).bit_length()
+    if int(date.max()).bit_length() + pb + rb > 63:
+        raise AssertionError("the sort key does not fit 63 bits")
+    packed = (date << (pb + rb)) | (price << rb) | np.arange(n)
+    packed.sort()
+    return packed & ((1 << rb) - 1)
+
+
+def lexsorted_keys(arrays) -> dict:
+    """The key columns of the arrays in numpy's lexsort order.  The arrays
+    come in (l_orderkey, l_linenumber) order (checked), so a stable
+    lexsort by (l_shipdate, -l_extendedprice) orders them by the whole
+    key.  np.lexsort's two stable argsorts take ~40 s at 60M rows; one
+    numpy sort of the packed key gives the same order in a few seconds,
+    and is held to np.lexsort on the first LEXSORT_CHECK rows."""
+    okey, line = arrays["l_orderkey"], arrays["l_linenumber"]
+    dk, dl = np.diff(okey), np.diff(line)
+    if not np.all((dk > 0) | ((dk == 0) & (dl > 0))):
+        raise AssertionError("lineitem rows are not in key order")
+    date, price = arrays["l_shipdate"], arrays["l_extendedprice"]
+    m = LEXSORT_CHECK
+    if not np.array_equal(_packed_order(date[:m], price[:m]),
+                          np.lexsort((-price[:m], date[:m]))):
+        raise AssertionError("the packed sort differs from np.lexsort")
+    order = _packed_order(date, price)
+    return {name: arrays[name][order] for name in SORT_BY}
+
+
+def check_sorted_keys(want: dict, merged) -> None:
+    """The merged batch's key columns against `lexsorted_keys`, row for
+    row."""
+    n = merged.length
+    price = merged["l_extendedprice"].values[:n, :2].contiguous().view(
+        torch.int64).reshape(-1)
+    got = {"l_shipdate": merged["l_shipdate"].values[:n],
+           "l_extendedprice": price,
+           "l_orderkey": merged["l_orderkey"].values[:n],
+           "l_linenumber": merged["l_linenumber"].values[:n]}
+    if merged["l_extendedprice"].values[:n, 2:].any():
+        raise AssertionError("an extended price has high limbs")
+    for name, values in got.items():
+        if not np.array_equal(values.cpu().numpy(), want[name]):
+            raise AssertionError(f"external sort: {name} differs from "
+                                 "numpy's lexsort")
+
+
+def external_sort_phase(pe, ops, k1, k2, build, dev, arrays, batch):
+    """Phase 20: phase 13's lineitem less its two dictionary columns
+    sorted as RUNS runs and merged (`entry.sorted_runs_step`), equal by
+    `equal_batches` on the card to one `sort_batch` of the whole and, on
+    its key columns, to numpy's lexsort of the arrays (`lexsorted_keys`);
+    then the RowConverter round trip of ROW_COLUMNS over the whole table,
+    each column equal by `equal_columns` on the card.  The path runs no
+    kernel of the port: the counts are read around it, and any K1 or K2
+    call in it would be held to plain.  The stages are timed (CUDA events,
+    median of SORT_REPS).  -> ({"K1": .., "K2": ..}, timing line)."""
+    from arrowtpu_torch.core import batch as bt
+    from arrowtpu_torch.rowformat.decode import RowConverter
+    from arrowtpu_torch.config import SortOptions
+
+    t0 = time.perf_counter()
+    names = [f.name for f in batch.schema.fields
+             if f.name not in ("l_shipinstruct", "l_shipmode")]
+    table = bt.record_batch({n: batch[n] for n in names})
+    opts = _sort_options()
+    with held_to_plain({"K1": k1, "K2": k2}) as calls:
+        k1.launches = k2.launches = 0
+        build.count_launches = 0
+        merged, stages = pe.sorted_runs_step(table, SORT_BY, opts, RUNS)
+        torch.cuda.synchronize()
+        launches = {"K1": k1.launches, "K2": k2.launches,
+                    "tile_counts": build.count_launches}
+    whole = ops.sort_batch(table, SORT_BY, opts)
+    if not bool(ops.equal_batches(merged, whole)):
+        raise AssertionError("external sort: the merge differs from one "
+                             "sort_batch of the whole")
+    del whole
+    t1 = time.perf_counter()
+    check_sorted_keys(lexsorted_keys(arrays), merged)
+    t_host = time.perf_counter() - t1
+    n = merged.length
+    del merged
+    slices, ordered = stages["slices"], stages["sorted"]
+    reps = dict(reps=SORT_REPS, warmup=1)
+    timing = {
+        "rows": table.length, "columns": len(names), "runs": RUNS,
+        "slice_ms": median_ms(lambda: [ops.slice_batch(
+            table, i * slices[0].length, slices[0].length)
+            for i in range(RUNS)], **reps),
+        "run_sorts_ms": median_ms(lambda: [ops.sort_batch(r, SORT_BY, opts)
+                                           for r in slices], **reps)}
+    del slices, stages
+    keys = [[r[n] for n in SORT_BY] for r in ordered]
+    timing["merge_indices_ms"] = median_ms(
+        lambda: ops.merge_indices(keys, opts), **reps)
+    src, row = ops.merge_indices(keys, opts)
+    classes = {"int64": "l_orderkey", "int32": "l_linenumber",
+               "date32": "l_shipdate", "decimal128": "l_extendedprice",
+               "utf8 flag": "l_returnflag", "utf8 comment": "l_comment"}
+    timing["interleave_ms"] = {
+        label: median_ms(lambda: ops.interleave(
+            [r[name] for r in ordered], src, row), **reps)
+        for label, name in classes.items()}
+    timing["concat_batches_ms"] = median_ms(
+        lambda: ops.concat_batches(ordered), **reps)
+    timing["merge_batches_ms"] = median_ms(
+        lambda: ops.merge_batches(ordered, SORT_BY, opts), **reps)
+    del keys, src, row
+    timing["step_ms"] = median_ms(lambda: pe.sorted_runs_step(
+        table, SORT_BY, opts, RUNS), **reps)
+    timing["whole_sort_batch_ms"] = median_ms(
+        lambda: ops.sort_batch(table, SORT_BY, opts), **reps)
+    del ordered
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    pe.sorted_runs_step(table, SORT_BY, opts, RUNS)
+    torch.cuda.synchronize()
+    timing.update(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  held_before_gib=held / 2**30)
+    timing.update(profile(lambda: pe.sorted_runs_step(table, SORT_BY, opts,
+                                                      RUNS), reps=1))
+
+    # the RowConverter round trip over the whole table
+    cols = [batch[n] for n in ROW_COLUMNS]
+    rc = RowConverter([SortOptions(descending=n == "l_shipdate")
+                       for n in ROW_COLUMNS])
+    planes = rc.convert_columns(cols)
+    back = rc.convert_rows(planes, batch.length)
+    for name, a, b in zip(ROW_COLUMNS, cols, back):
+        if not bool(ops.equal_columns(a, b)):
+            raise AssertionError(f"RowConverter: {name} does not come back")
+    timing["row_planes"] = len(planes)
+    timing["row_planes_gib"] = sum(p.nbytes for p in planes) / 2**30
+    del back
+    timing["convert_columns_ms"] = median_ms(
+        lambda: rc.convert_columns(cols), **reps)
+    timing["convert_rows_ms"] = median_ms(
+        lambda: rc.convert_rows(planes, batch.length), **reps)
+    del planes
+    torch.cuda.empty_cache()
+    log(f"RowConverter round trip of {ROW_COLUMNS} over {batch.length} rows:"
+        f" every column back (equal_columns on the card)")
+    log(f"external sort: {n} rows x {len(names)} columns in {RUNS} runs, "
+        f"equal to one sort_batch (equal_batches on the card) and, on its "
+        f"keys, to numpy's lexsort ({t_host:.1f} s on the host); launches "
+        f"{launches}, K1 / K2 calls held to plain {calls} (its path runs no "
+        "kernel of the port)")
+    log(f"external sort timing ({time.perf_counter() - t0:.1f} s with the "
+        f"checks): {timing}")
+    return launches, timing
+
+
+Q3_SF = 10
+
+
+def q3_stages(pe, ops, customer, orders, lineitem):
+    """Q3's stages, each timed alone (CUDA events, median), and the
+    group-by's encode and sort."""
+    from arrowtpu_torch.core import batch as bt
+    from arrowtpu_torch.rowformat import encode as rf
+    from arrowtpu_torch.rowformat import pack as rp
+
+    cust, ords, li = pe.q3_filters(customer, orders, lineitem)
+    co, _ = ops.hash_join(ords, cust, ["o_custkey"], right_on=["c_custkey"])
+    joined = pe.q3_joins(cust, ords, li)
+    grouped = pe.q3_group(joined)
+    keys = [joined[k] for k in pe.Q3_KEYS]
+    planes = rf.encode_columns(keys)
+    reps = dict(reps=QUERY_REPS, warmup=2)
+    day = pe._days(pe.Q3_DATE)
+    out = {
+        "customer_filter_ms": median_ms(lambda: ops.filter_record_batch(
+            bt.record_batch({"c_custkey": customer["c_custkey"]}),
+            ops.like(customer["c_mktsegment"], pe.Q3_SEGMENT)), **reps),
+        "orders_filter_ms": median_ms(lambda: ops.filter_record_batch(
+            bt.record_batch({n: orders[n] for n in pe.Q3_ORDERS}),
+            ops.lt(orders["o_orderdate"], day)), **reps),
+        "lineitem_filter_ms": median_ms(lambda: ops.filter_record_batch(
+            bt.record_batch({n: lineitem[n] for n in pe.Q3_LINEITEM}),
+            ops.gt(lineitem["l_shipdate"], day)), **reps),
+        "customer_orders_join_ms": median_ms(lambda: ops.hash_join(
+            ords, cust, ["o_custkey"], right_on=["c_custkey"]), **reps),
+        "lineitem_join_ms": median_ms(lambda: ops.hash_join(
+            li, co, ["l_orderkey"], right_on=["o_orderkey"]), **reps),
+        "revenue_ms": median_ms(lambda: pe._disc_price(joined), **reps),
+        "group_by_ms": median_ms(lambda: pe.q3_group(joined), **reps),
+        "group_by_encode_ms": median_ms(lambda: rf.encode_columns(keys),
+                                        **reps),
+        "group_by_sort_ms": median_ms(lambda: rp.sort_permutation(
+            planes, joined.capacity, joined.length), **reps),
+        "top10_ms": median_ms(lambda: pe.q3_top(grouped), **reps),
+        "customers_kept": cust.length, "orders_kept": ords.length,
+        "lineitem_kept": li.length, "customer_orders": co.length,
+        "joined": joined.length, "groups": grouped.length}
+    return out
+
+
+def q3_phase(pe, ops, k1, k2, build, dev, arrays, batch):
+    """Phase 21: TPC-H Q3 at SF10 over phase 13's lineitem and new SF10
+    orders and customer tables built on the card, exact against
+    `entry.q3_oracle`; the launch counts set to 0 just before the step and
+    read just after (K1 must launch in the filters), counted by calling
+    module and word size, every K1 and K2 call held to plain; then the
+    step's time, stages, peak memory and busy share.  -> (launches,
+    timing line)."""
+    from arrowtpu_torch.kernels import dense_agg as dk
+
+    t0 = time.perf_counter()
+    orders_arrays = pe.example_orders_arrays(Q3_SF, lineitem=arrays)
+    customer_arrays = pe.example_customer_arrays(Q3_SF)
+    orders = pe.orders_batch(orders_arrays, dev)
+    customer = pe.customer_batch(customer_arrays, dev)
+    torch.cuda.synchronize()
+    t_data = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = pe.q3_oracle(customer_arrays, orders_arrays, arrays)
+    t_oracle = time.perf_counter() - t0
+    del orders_arrays, customer_arrays
+    args = {}
+    with held_to_plain({"K1": k1, "K2": k2}, args) as calls, \
+            build.launch_words() as words:
+        k1.launches = k2.launches = dk.launches = 0
+        build.count_launches = 0
+        got = pe.q3_step(customer, orders, batch)
+        torch.cuda.synchronize()
+        run = {"K1": k1.launches, "K2": k2.launches, "dense_agg": dk.launches,
+               "tile_counts": build.count_launches,
+               **{f"{k}_{w}": words.count((k, w))
+                  for k, w in sorted(set(words))}}
+    result = pe.check_q3(got, want)
+    callers = by_caller(args, build)
+    in_filter = [c for c in args.get("K1", [])
+                 if c.caller == "arrowtpu_torch.ops.filter"]
+    if not in_filter or run["K1"] <= 0:
+        raise AssertionError(f"Q3: K1 did not launch in the filters "
+                             f"({callers})")
+    log(f"Q3: orders {orders.length} and customer {customer.length} rows "
+        f"built on the card in {t_data:.1f} s; exact against its oracle "
+        f"({t_oracle:.1f} s on the host): {result}; launches {run}; K1 / K2 "
+        f"calls by module and word bytes {callers}; every call held to "
+        f"plain (P, n, kept, out_rows): {calls}")
+    del args, in_filter
+    stages = q3_stages(pe, ops, customer, orders, batch)
+    times = run_times_ms(lambda: pe.q3_step(customer, orders, batch),
+                         reps=QUERY_REPS, warmup=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    pe.q3_step(customer, orders, batch)
+    peak = torch.cuda.max_memory_allocated()
+    busy = profile(lambda: pe.q3_step(customer, orders, batch), reps=3)
+    line = {"step_ms": statistics.median(times), "min_ms": times[0],
+            "max_ms": times[-1], "reps": len(times), **stages,
+            "groups": result["groups"], "top": result["rows"][:3],
+            "peak_gib": peak / 2**30, "held_before_gib": held / 2**30,
+            "step_adds_gib": (peak - held) / 2**30, **busy}
+    log(f"Q3 timing: {line}")
+    return {"TPC-H Q3": run}, line
+
+
 def check_probes(kp, probes, dev) -> None:
     """Phase 9: every probe kernel and stage variant against its plain
     version on the same inputs, bit for bit."""
@@ -2599,7 +2911,23 @@ def main() -> int:
     query_launches, query_timing = query_phase(
         pe, ops, k1, k2, _build, dev, arrays, batch, part_arrays, part)
     log(f"phase 19 (TPC-H Q14, Q19): {time.perf_counter() - t0:.1f} s")
-    del arrays, batch, part_arrays, part
+    del part_arrays, part
+    torch.cuda.empty_cache()
+
+    # phase 20: the external sort of lineitem, the RowConverter round trip
+    t0 = time.perf_counter()
+    sort_launches, sort_timing = external_sort_phase(
+        pe, ops, k1, k2, _build, dev, arrays, batch)
+    torch.cuda.empty_cache()
+    log(f"phase 20 (external sort, RowConverter): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # phase 21: TPC-H Q3 over customer, orders and lineitem
+    t0 = time.perf_counter()
+    q3_launches, q3_timing = q3_phase(pe, ops, k1, k2, _build, dev, arrays,
+                                      batch)
+    log(f"phase 21 (TPC-H Q3, SF{Q3_SF}): {time.perf_counter() - t0:.1f} s")
+    del arrays, batch
     torch.cuda.empty_cache()
 
     # phase 14
@@ -2702,7 +3030,8 @@ def main() -> int:
                "TPC-H Q6": q6_launches, "TPC-H Q1": q1_launches,
                "nested batch filter": nested_launches,
                "text join step": text_launches, **lineitem_launches,
-               **query_launches}
+               **query_launches, "external sort": sort_launches,
+               **q3_launches}
     kernels = []
     for key in ("K1", "K2", "K3", *shown, "dense_agg", "K1_16"):
         row = kernels_rows[key]
@@ -2730,6 +3059,8 @@ def main() -> int:
     log(f"LIKE family over SF{PART_SF} part: {json.dumps(like_lines)}")
     for name, line in query_timing.items():
         log(f"TPC-H {name} step: {json.dumps(line)}")
+    log(f"external sort of lineitem: {json.dumps(sort_timing)}")
+    log(f"TPC-H Q3 step: {json.dumps(q3_timing)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

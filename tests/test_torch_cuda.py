@@ -1525,3 +1525,205 @@ def test_q14_q19_on_card_against_oracle(cuda):
             got = fn(lb, pb)
         assert ("K1", 16) in words and ("K1", 8) in words, (name, words)
         pentry.check_query(got, oracle(la, pa), name)
+
+
+# ---------------------------------------------------------------------------
+# the rest of sort and group-by: interleave, merge, RowConverter, slice /
+# coalesce, equal, struct / list-view keys, temporal group-by, Q3
+# ---------------------------------------------------------------------------
+
+from arrowtpu_torch.config import SortOptions  # noqa: E402
+from arrowtpu_torch.rowformat.decode import RowConverter  # noqa: E402
+
+OPTION_PAIRS = [(False, True), (False, False), (True, True), (True, False)]
+
+
+def _runs(batch, lengths):
+    out, start = [], 0
+    for n in lengths:
+        out.append(pops.slice_batch(batch, start, n))
+        start += n
+    return out
+
+
+def test_interleave_and_merge_on_card_match_cpu(cuda):
+    """Three sorted runs of uneven lengths of every class interleave takes
+    (string views, decimals of 8, 16 and 32 bytes, dates, intervals, a
+    fixed-size binary): merge_indices, merge_batches and interleave on the
+    card equal the CPU, the merge equals one sort of the whole, by
+    equal_batches on the card, and interleave by the merge index equals the
+    merged column."""
+    by = ["day", "d128"]
+    opts = [SortOptions(), SortOptions(True, False)]
+    outs = []
+    for d in (cuda, "cpu"):
+        runs = [pops.sort_batch(r, by, opts)
+                for r in _runs(_classes_batch(d), (30_000, 7, 39_993))]
+        src, row = pops.merge_indices([[r[n] for n in by] for r in runs],
+                                      opts)
+        merged = pops.merge_batches(runs, by, opts)
+        whole = pops.sort_batch(pops.concat_batches(runs), by, opts)
+        same = pops.equal_batches(merged, whole)
+        assert same.device.type == torch.device(d).type and bool(same)
+        woven = pops.interleave([r["d128"] for r in runs], src, row)
+        assert bool(pops.equal_columns(woven, merged["d128"]))
+        outs.append((src, row, merged, woven))
+    _same_column(outs[0][0], outs[1][0])
+    _same_column(outs[0][1], outs[1][1])
+    for a, b in zip(outs[0][2].columns, outs[1][2].columns):
+        _same_column(a, b)
+    _same_column(outs[0][3], outs[1][3])
+
+
+def _row_columns(device, n=50_000):
+    rng = np.random.default_rng(17)
+    f64 = rng.standard_normal(n)
+    special = np.array([0, 0x8000000000000000, 0x7FF0000000000000,
+                        0xFFF0000000000000, 0x7FF8000000000000,
+                        0xFFF8000000000000, 0x7FF0000000000001,
+                        0xFFF0000000000123], np.uint64).view(np.float64)
+    f64[::997][:len(special)] = special
+    f32 = rng.standard_normal(n).astype(np.float32)
+    f32[::991][:4] = np.array([0x7FC00001, 0xFFC00123, 0x80000000,
+                               0x7F800000], np.uint32).view(np.float32)
+    ok = rng.random(n) > 0.1
+    words = ["", "abc", "twelve bytes", "a string past the inline bytes"]
+    strs = [None if rng.random() < 0.1 else words[rng.integers(4)]
+            for _ in range(n)]
+    return [pcol.primitive(f64, validity=ok, device=device),
+            pcol.primitive(f32, validity=ok, device=device),
+            pcol.primitive(rng.integers(-128, 128, n).astype(np.int8),
+                           validity=ok, device=device),
+            pcol.primitive(rng.integers(0, 2**32, n).astype(np.uint32),
+                           st.Int(32, False), validity=ok, device=device),
+            pcol.boolean(rng.random(n) < 0.5, validity=ok, device=device),
+            pcol.primitive(rng.integers(0, 20000, n), st.Date32(),
+                           validity=ok, device=device),
+            pcol.string_view(strs, device=device),
+            pcol.from_pylist([None if s is None else s[:3] for s in strs],
+                             st.Dictionary(st.int32, st.utf8), device=device),
+            pcol.from_pylist([None if rng.random() < 0.1 else int(x) for x in
+                              rng.integers(-10**15, 10**15, n)],
+                             st.Decimal128(18, 2), device=device)]
+
+
+@pytest.mark.parametrize("descending,nulls_first", OPTION_PAIRS)
+def test_row_converter_on_card_matches_cpu(cuda, descending, nulls_first):
+    """convert_columns and convert_rows on the card: the planes equal the
+    CPU's, and the columns come back as they were (NaN payloads and -0.0
+    included: floats by their bits, null rows zero)."""
+    got = {}
+    for d in (cuda, "cpu"):
+        cols = _row_columns(d)
+        rc = RowConverter([SortOptions(descending, nulls_first)] * len(cols))
+        planes = rc.convert_columns(cols)
+        back = rc.convert_rows(planes, cols[0].length)
+        for a, b in zip(cols, back):
+            assert bool(pops.equal_columns(a, b))
+        got[d] = (planes, back)
+    for a, b in zip(got[cuda][0], got["cpu"][0]):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(got[cuda][1], got["cpu"][1]):
+        _same_column(a, b)
+
+
+def test_coalescer_slice_and_equal_on_card_match_cpu(cuda):
+    """BatchCoalescer (a push through a mask included) and slice_batch on
+    the card equal the CPU; equal_columns is a 0-d bool on the card that
+    tells one changed valid value."""
+    outs = []
+    for d in (cuda, "cpu"):
+        b = _classes_batch(d)
+        co = pops.BatchCoalescer(b.schema, 16_384)
+        for r in _runs(b, (10_000, 7, 20_000)):
+            co.push_batch(r)
+        keep = np.random.default_rng(18).random(b.length - 30_007) < 0.7
+        co.push_batch_with_filter(pops.slice_batch(b, 30_007, b.length),
+                                  pcol.boolean(keep, device=d))
+        done = []
+        while (x := co.next_completed_batch()) is not None:
+            done.append(x)
+        outs.append(done + [co.finish()])
+    assert len(outs[0]) == len(outs[1]) > 2
+    for x, y in zip(*outs):
+        for a, b in zip(x.columns, y.columns):
+            _same_column(a, b)
+    d128 = outs[0][0]["d128"]
+    changed = d128.values.clone()
+    row = int(torch.nonzero(d128.valid_bool())[0])
+    changed[row, 0] += 1
+    same = pops.equal_columns(d128, d128)
+    assert same.device.type == "cuda" and bool(same)
+    assert not bool(pops.equal_columns(d128, pcol.PrimitiveColumn(
+        changed, d128.validity, d128.length, d128.dtype)))
+
+
+def test_struct_and_list_sort_keys_on_card_match_cpu(cuda):
+    rng = np.random.default_rng(19)
+    n = 20_000
+    lists = [None if rng.random() < 0.1 else
+             [None if rng.random() < 0.05 else int(x)
+              for x in rng.integers(0, 2, rng.integers(0, 12))]
+             for _ in range(n)]
+    structs = [None if rng.random() < 0.1 else
+               {"i": int(rng.integers(3)), "s": "s" * int(rng.integers(20))}
+               for _ in range(n)]
+    got = []
+    for d in (cuda, "cpu"):
+        lv = pcol.from_pylist(lists, st.List(st.int64), device=d)
+        sv = pcol.from_pylist(structs, st.Struct((
+            st.Field("i", st.int32), st.Field("s", st.utf8))), device=d)
+        got.append([pops.sortmod.sort_to_indices(c, SortOptions(*o))
+                    for c in (lv, sv) for o in OPTION_PAIRS]
+                   + [pops.lexsort_to_indices([sv, lv])])
+    for a, b in zip(*got):
+        _same_column(a, b)
+
+
+def test_temporal_group_by_on_card_matches_cpu(cuda):
+    """Date32 (dense engine), Timestamp and Duration keys (sort pipeline)
+    with timestamp min / max, a duration sum and an interval count."""
+    rng = np.random.default_rng(20)
+    n = 100_000
+    ok = rng.random(n) > 0.1
+    outs = []
+    for d in (cuda, "cpu"):
+        b = pbt.record_batch({
+            "day": pcol.primitive(rng.integers(0, 200, n) if not outs else
+                                  outs[0][0], st.Date32(), device=d),
+            "ts": pcol.primitive(np.arange(n) % 977 * 1_000_003,
+                                 st.Timestamp("us", "UTC"), validity=ok,
+                                 device=d),
+            "dur": pcol.primitive(np.arange(n) % 13 - 6, st.Duration("ms"),
+                                  validity=ok, device=d),
+            "iv": pcol.primitive(np.tile(np.arange(4, dtype=np.uint32),
+                                         (n, 1)), st.Interval(),
+                                 validity=ok, device=d)})
+        dk.launches = 0
+        dense = group_by(b, ["day"], [("ts", "min"), ("dur", "sum")])
+        dense_launches = dk.launches
+        sort = [group_by(b, [k], [("ts", "min"), ("ts", "max"),
+                                  ("dur", "sum"), ("iv", "count")])
+                for k in ("ts", "dur")]
+        outs.append((b["day"].values[:n].cpu().numpy(), dense, sort,
+                     dense_launches))
+    assert outs[0][3] == 1
+    for x, y in zip([outs[0][1]] + outs[0][2], [outs[1][1]] + outs[1][2]):
+        for a, b in zip(x.columns, y.columns):
+            _same_column(a, b)
+
+
+def test_q3_on_card_against_oracle(cuda):
+    """TPC-H Q3 over about 200,000 lineitem rows, 50,000 orders and 4,950
+    customers on the card: exact against q3_oracle, K1 launched in the
+    filters."""
+    la = example_lineitem_arrays(sf=0.033, seed=6)
+    oa = pentry.example_orders_arrays(0.033, lineitem=la)
+    ca = pentry.example_customer_arrays(0.033)
+    with _build.launch_words() as words:
+        got = pentry.q3_step(pentry.customer_batch(ca, cuda),
+                             pentry.orders_batch(oa, cuda),
+                             lineitem_batch(la, device=cuda))
+    assert ("K1", 8) in words and ("K1", 16) in words, words
+    out = pentry.check_q3(got, pentry.q3_oracle(ca, oa, la))
+    assert len(out["rows"]) == 10

@@ -283,7 +283,8 @@ def test_errors():
     with pytest.raises(pst.ComputeError):
         psort.lexsort_to_indices([c, pt.primitive(np.arange(100),
                                                   device="cpu")])
-    with pytest.raises(pst.ComputeError):  # struct sort keys wait
+    with pytest.raises(pst.ComputeError):  # a list of non-primitives
         psort.sort_to_indices(pcol.from_pylist(
-            [{"a": 1}, {"a": 2}], pst.Struct((pst.Field("a", pst.int64),)),
+            [[{"a": 1}], [{"a": 2}]],
+            pst.List(pst.Struct((pst.Field("a", pst.int64),))),
             device="cpu"))

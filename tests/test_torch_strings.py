@@ -285,13 +285,25 @@ def test_sort_batch_by_strings_and_decimals():
 
 
 def test_struct_and_list_keys_still_raise():
+    """Struct and list-view keys sort now (tests/test_torch_rowconv.py);
+    what still raises: a list of strings as a sort key (its elements are
+    not primitive, as in the JAX package), and struct and list-view
+    columns as hashed keys (no join or partition takes them)."""
+    from arrowtpu_torch.rowformat import encode as penc
+
     st_ = pcol.from_pylist([{"a": 1}, {"a": 2}],
                            pst.Struct((pst.Field("a", pst.int64),)),
                            device="cpu")
     lv = pcol.from_pylist([[1], [2, 3]], pst.List(pst.int64), device="cpu")
+    assert psort.sort_to_indices(st_).values[:2].tolist() == [0, 1]
+    assert psort.sort_to_indices(lv).values[:2].tolist() == [0, 1]
+    with pytest.raises(pst.ComputeError):
+        psort.sort_to_indices(pcol.from_pylist([["b"], ["a", "c"]],
+                                               pst.List(pst.utf8),
+                                               device="cpu"))
     for c in (st_, lv):
         with pytest.raises(pst.ComputeError):
-            psort.sort_to_indices(c)
+            penc.hash_planes_of([c])
 
 
 def test_two_flag_keys_pack_to_one_word():
