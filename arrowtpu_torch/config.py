@@ -65,3 +65,11 @@ class TakeOptions:
     the source (ops/take.py)."""
 
     check_bounds: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class CastOptions:
+    """safe=True turns a value the target cannot hold into a null;
+    safe=False raises ComputeError (ops/cast.py)."""
+
+    safe: bool = True

@@ -45,7 +45,7 @@ class PrimitiveBuilder:
                  device=None):
         self.dtype = dtype
         self.device = device
-        self._np_dtype = torch.empty(0, dtype=dtype.to_torch()).numpy().dtype
+        self._np_dtype = col.numpy_dtype(dtype)
         self._buf = np.zeros(max(capacity, 16), self._np_dtype)
         self._n = 0
         self._valid = _Bits()

@@ -93,6 +93,8 @@ class PrimitiveColumn(Column):
         n = self.length
         if self.values.dim() == 2:
             vals = _words_to_py(self.values[:n].cpu().numpy(), self.dtype)
+        elif st.is_u64(self.dtype):
+            vals = self.values[:n].cpu().numpy().view(np.uint64).tolist()
         else:
             vals = self.values[:n].cpu().tolist()
         valid = self._valid_list(n)
@@ -558,13 +560,35 @@ def _words(values, dtype: st.DataType, device) -> torch.Tensor:
     return torch.from_numpy(host.view(np.int32)).to(resolve_device(device))
 
 
+def numpy_dtype(dtype: st.DataType) -> np.dtype:
+    """The numpy dtype that holds a one-dtype type's values on the host
+    (uint64's values, not the int64 bits its tensor holds)."""
+    if st.is_u64(dtype):
+        return np.dtype(np.uint64)
+    return torch.empty(0, dtype=dtype.to_torch()).numpy().dtype
+
+
+def _as_u64_bits(values):
+    """uint64 host or torch values -> their bits as int64 (None when the
+    values are not uint64)."""
+    if isinstance(values, np.ndarray) and values.dtype == np.uint64:
+        return values.view(np.int64)
+    if isinstance(values, torch.Tensor) and values.dtype == torch.uint64:
+        return values.view(torch.int64)
+    return None
+
+
 def primitive(values, dtype: st.DataType = None, validity=None, length=None,
               device=None) -> PrimitiveColumn:
     """A PrimitiveColumn from a tensor or host array, zero-padded to the
     capacity (the number of values rounded up to the granule).  `length`
     defaults to the number of values; rows past it are zeroed.  Decimal,
     interval and fixed-size binary values are (n, W) 32-bit words or
-    Python values (ints or Decimals, tuples, bytes; None for 0)."""
+    Python values (ints or Decimals, tuples, bytes; None for 0).  uint64
+    values (numpy or torch) are kept as their bits in int64."""
+    bits = _as_u64_bits(values)
+    if bits is not None:
+        values, dtype = bits, dtype or st.uint64
     if dtype is not None and st.words_per_row(dtype) is not None:
         t = _words(values, dtype, device)
     else:
@@ -720,8 +744,8 @@ def from_pylist(data, dtype: st.DataType = None, device=None) -> Column:
         return primitive(list(data), dtype,
                          validity=None if valid.all() else valid,
                          length=n, device=device)
-    npdt = torch.empty(0, dtype=dtype.to_torch()).numpy().dtype
-    vals = np.array([x if x is not None else 0 for x in data], dtype=npdt)
+    vals = np.array([x if x is not None else 0 for x in data],
+                    dtype=numpy_dtype(dtype))
     return primitive(vals, dtype, validity=None if valid.all() else valid,
                      device=device)
 

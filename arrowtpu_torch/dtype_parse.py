@@ -3,8 +3,7 @@
 The port's own copy of `arrowtpu/dtype_parse.py` over the port's schema
 (it imports nothing of the JAX package): the grammar is the types' display
 format (schema.py `__str__`, the same strings in both packages), and
-parse_datatype(str(dt)) == dt for every type the port has (uint64 and
-float16 are not among them)."""
+parse_datatype(str(dt)) == dt for every type the port has."""
 
 from __future__ import annotations
 
@@ -23,6 +22,8 @@ _SIMPLE = {
     "uint8": st.uint8,
     "uint16": st.uint16,
     "uint32": st.uint32,
+    "uint64": st.uint64,
+    "float16": st.float16,
     "float32": st.float32,
     "float64": st.float64,
     "date32": st.Date32(),

@@ -82,6 +82,18 @@ by Clause 4.2.3; `q3_oracle` / `check_q3` hold the step to numpy.
 batch cut into runs (`slice_batch`), each sorted (`sort_batch`), the runs
 merged (`merge_batches`).
 
+`clickbench_step(batch, q)` runs ClickBench's query q (1-8, by its text
+in ClickBench's queries.sql, `CLICKBENCH_QUERIES`) over `hits`: COUNT
+with a filter, SUM of a UInt8 cast to uint64, AVGs of a cast to float64
+(uint64 by hi * 2**32 + lo), COUNT(DISTINCT) as group counts of uint64
+keys, MIN / MAX of a Date32, the filtered group-by and the top tens,
+each ending on the host.  `example_hits_arrays` draws the five columns
+these queries read in ClickHouse's types (UserID uint64, RegionID uint32,
+ResolutionWidth uint16, AdvEngineID uint8, EventDate Date32) by the
+published table's laws at its 99,997,497 rows, `hits_batch` builds them
+on the card, and `clickbench_oracle` / `check_clickbench` hold the steps
+to numpy.
+
 `lexsort_step` is BASELINE config 3 (`bench.py` config3_lexsort): the
 lexsort of (int32, float64, dictionary-utf8) columns.
 `example_lexsort_columns` draws them as the bench does, and
@@ -908,9 +920,10 @@ def lineitem_exchange(batch: bt.RecordBatch, group: Group) -> bt.RecordBatch:
 def check_same_rows(got: bt.RecordBatch, want: bt.RecordBatch) -> int:
     """Raise AssertionError unless `got` holds `want`'s rows in order,
     bit for bit, on the device: the length, every row's validity, values
-    (a multi-word value's words), a dictionary's keys and its dictionary
-    (the same values object), a string view's bytes, length and
-    len_bound; and zero padding past the length.  -> the row count."""
+    (a multi-word value's words, a float's bits), a dictionary's keys and
+    its dictionary (the same values object), a string view's bytes,
+    length and len_bound; and zero padding past the length.  -> the row
+    count."""
     from .ops.strings import byte_matrix, max_byte_length
 
     n = want.length
@@ -938,8 +951,13 @@ def check_same_rows(got: bt.RecordBatch, want: bt.RecordBatch) -> int:
             same = torch.equal(g.values_bool()[:n], w.values_bool()[:n])
             tail = g.values_bool()[n:]
         else:
-            same = torch.equal(g.values[:n], w.values[:n])
-            tail = g.values[n:]
+            gv, wv = g.values, w.values
+            if gv.is_floating_point():  # by their bits: NaN, -0.0
+                bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+                    gv.element_size()]
+                gv, wv = gv.view(bits), wv.view(bits)
+            same = torch.equal(gv[:n], wv[:n])
+            tail = gv[n:]
         if not same:
             raise AssertionError(f"{name}: rows differ")
         if tail.any():
@@ -1719,3 +1737,242 @@ def sorted_runs_step(batch: bt.RecordBatch, by: Sequence[str],
     ordered = [ops.sort_batch(s, by, options) for s in slices]
     return (ops.merge_batches(ordered, by, options),
             {"slices": slices, "sorted": ordered})
+
+
+# ---------------------------------------------------------------------------
+# ClickBench's `hits`: uint64 and the whole-column aggregates
+# ---------------------------------------------------------------------------
+
+HITS_ROWS = 99_997_497  # the published table
+# the published table's distinct UserIDs; a smaller draw keeps the ratio
+HITS_USERS = 17_630_976
+HITS_REGIONS = 4_000
+HITS_COLUMNS = ["UserID", "RegionID", "ResolutionWidth", "AdvEngineID",
+                "EventDate"]
+HITS_TYPES = {"UserID": st.uint64, "RegionID": st.uint32,
+              "ResolutionWidth": st.uint16, "AdvEngineID": st.uint8,
+              "EventDate": st.Date32()}
+HITS_ADV_SHARE = 0.006  # rows with an AdvEngineID other than 0
+HITS_ADV_ENGINES = 30
+HITS_WIDTHS = [1366, 1920, 1280, 1024, 1600, 1440, 1536, 1680, 1360, 1400,
+               1152, 1280, 2560, 800, 1093, 1344, 1050, 1200, 360, 320,
+               375, 414, 768, 980, 1138, 1903, 1097, 1855, 2048, 1017]
+HITS_FIRST_DAY = "2013-07-01"
+HITS_DAYS = 31
+CLICKBENCH_QUERIES = {
+    1: "SELECT COUNT(*) FROM hits WHERE AdvEngineID <> 0;",
+    2: "SELECT SUM(AdvEngineID), COUNT(*), AVG(ResolutionWidth) FROM hits;",
+    3: "SELECT AVG(UserID) FROM hits;",
+    4: "SELECT COUNT(DISTINCT UserID) FROM hits;",
+    5: "SELECT MIN(EventDate), MAX(EventDate) FROM hits;",
+    6: "SELECT AdvEngineID, COUNT(*) FROM hits WHERE AdvEngineID <> 0 "
+       "GROUP BY AdvEngineID ORDER BY COUNT(*) DESC;",
+    7: "SELECT RegionID, COUNT(DISTINCT UserID) AS u FROM hits GROUP BY "
+       "RegionID ORDER BY u DESC LIMIT 10;",
+    8: "SELECT UserID, COUNT(*) FROM hits GROUP BY UserID ORDER BY "
+       "COUNT(*) DESC LIMIT 10;",
+}
+CLICKBENCH_LIMIT = 10
+
+
+def _zipf_index(rng, n: int, k: int, power: float) -> np.ndarray:
+    """n draws in [0, k), heavy at 0: floor(k * u**power)."""
+    u = rng.random(n)
+    u **= power
+    u *= k
+    return u.astype(np.int64)
+
+
+def example_hits_arrays(rows: int = HITS_ROWS, seed: int = 14) -> dict:
+    """ClickBench's `hits`, the five columns queries 1-8 read, drawn from
+    `seed` by the published table's laws (ClickHouse's types, NOT NULL):
+    UserID a random 64-bit hash of one of HITS_USERS users scaled to the
+    rows (half of the hashes 2**63 or more), rows per user heavy-tailed
+    (every step-th row a permutation of the users, so each appears; the
+    rest floor(users * u**2)); RegionID one of HITS_REGIONS ids, Zipf-like
+    (u**3); ResolutionWidth one of HITS_WIDTHS (common screens, weights
+    1/rank); AdvEngineID 0 on all but HITS_ADV_SHARE of the rows, else one
+    of 1..HITS_ADV_ENGINES (weights 1/rank); EventDate a day of July 2013.
+    -> {name: numpy array}."""
+    rng = np.random.default_rng(seed)
+    users = max(1, round(rows * HITS_USERS / HITS_ROWS))
+    table = rng.integers(0, 2**64, users, dtype=np.uint64, endpoint=False)
+    idx = _zipf_index(rng, rows, users, 2.0)
+    step = max(rows // users, 1)
+    idx[::step][:users] = rng.permutation(users)[:len(idx[::step])]
+    user_id = table[idx]
+    del idx
+    regions = rng.choice(np.arange(1, 2**15, dtype=np.uint32), HITS_REGIONS,
+                         replace=False)
+    region = regions[_zipf_index(rng, rows, HITS_REGIONS, 3.0)]
+    wp = 1.0 / np.arange(1, len(HITS_WIDTHS) + 1)
+    width_cdf = np.cumsum(wp / wp.sum())
+    widths = np.asarray(HITS_WIDTHS, np.uint16)
+    width = widths[np.minimum(np.searchsorted(width_cdf, rng.random(rows)),
+                              len(widths) - 1)]
+    ap = 1.0 / np.arange(1, HITS_ADV_ENGINES + 1)
+    adv_cdf = np.cumsum(ap / ap.sum())
+    adv = np.zeros(rows, np.uint8)
+    has = np.flatnonzero(rng.random(rows) < HITS_ADV_SHARE)
+    adv[has] = 1 + np.minimum(np.searchsorted(adv_cdf, rng.random(len(has))),
+                              HITS_ADV_ENGINES - 1)
+    date = (_days(HITS_FIRST_DAY) + rng.integers(0, HITS_DAYS, rows)
+            ).astype(np.int32)
+    return {"UserID": user_id, "RegionID": region, "ResolutionWidth": width,
+            "AdvEngineID": adv, "EventDate": date}
+
+
+def hits_batch(arrays: dict, device=None) -> bt.RecordBatch:
+    """The `hits` arrays as a batch on `device` (the card by default), each
+    column in its ClickHouse type (uint64 as its int64 bits)."""
+    return bt.record_batch({
+        n: column_from_numpy(arrays[n], None, dtype=HITS_TYPES[n],
+                             device=device) for n in HITS_COLUMNS})
+
+
+def _mean(total, n: torch.Tensor) -> float:
+    """sum / count: the float64 sum divided by the count as a device
+    tensor (never a host scalar, which the card's division would turn into
+    a multiply by the reciprocal)."""
+    value, has = total
+    return ops.finalize((value / n.to(torch.float64), has))
+
+
+def _top(grouped: bt.RecordBatch, key: str, count: str,
+         limit: Optional[int]) -> list:
+    """ORDER BY count DESC, key ASC [LIMIT limit] -> [(key, count)] on
+    the host."""
+    from .config import SortOptions
+
+    top = ops.sort_batch(grouped, [count, key],
+                         [SortOptions(descending=True), SortOptions()],
+                         limit=limit)
+    return list(zip(top[key].to_pylist(), top[count].to_pylist()))
+
+
+def clickbench_step(batch: bt.RecordBatch, q: int):
+    """ClickBench query q (1-8, `CLICKBENCH_QUERIES`) over a `hits` batch,
+    ending in its result on the host: an int (1, 4), a tuple (2: SUM,
+    COUNT, AVG; 5: MIN, MAX as days), a float (3) or [(key, count)]
+    (6-8).  SUM(AdvEngineID) casts the UInt8 to uint64 first, the AVGs
+    cast to float64 (uint64 by hi * 2**32 + lo) and divide the sum by the
+    count on the device; COUNT(DISTINCT ...) is a group count."""
+    if q == 1:
+        return ops.finalize(ops.sum_(ops.neq(batch["AdvEngineID"], 0)))
+    if q == 2:
+        adv, rw = batch["AdvEngineID"], batch["ResolutionWidth"]
+        n = ops.count(rw)
+        return (ops.finalize(ops.sum_(ops.cast(adv, st.uint64))),
+                int(n), _mean(ops.sum_(ops.cast(rw, st.float64)), n))
+    if q == 3:
+        uid = batch["UserID"]
+        return _mean(ops.sum_(ops.cast(uid, st.float64)), ops.count(uid))
+    if q == 4:
+        return gb.group_by(_pick(batch, ["UserID"]), ["UserID"], []).length
+    if q == 5:
+        d = batch["EventDate"]
+        return ops.finalize(ops.min_(d)), ops.finalize(ops.max_(d))
+    if q == 6:
+        adv = batch["AdvEngineID"]
+        kept = ops.filter_record_batch(_pick(batch, ["AdvEngineID"]),
+                                       ops.neq(adv, 0))
+        grouped = gb.group_by(kept, ["AdvEngineID"],
+                              [("AdvEngineID", "count")])
+        return _top(grouped, "AdvEngineID", "count_AdvEngineID", None)
+    if q == 7:
+        pairs = gb.group_by(_pick(batch, ["RegionID", "UserID"]),
+                            ["RegionID", "UserID"], [])
+        grouped = gb.group_by(pairs, ["RegionID"], [("UserID", "count")])
+        return _top(grouped, "RegionID", "count_UserID", CLICKBENCH_LIMIT)
+    if q == 8:
+        grouped = gb.group_by(_pick(batch, ["UserID"]), ["UserID"],
+                              [("UserID", "count")])
+        return _top(grouped, "UserID", "count_UserID", CLICKBENCH_LIMIT)
+    raise ValueError(f"no ClickBench query {q}")
+
+
+def _top_pairs(keys: np.ndarray, counts: np.ndarray,
+               limit: Optional[int]) -> list:
+    order = np.lexsort((keys, -counts.astype(np.int64)))
+    order = order if limit is None else order[:limit]
+    return list(zip(keys[order].tolist(), counts[order].tolist()))
+
+
+def _distinct(x: np.ndarray) -> np.ndarray:
+    """x's distinct values, ascending: one np.sort and a pass (np.unique
+    without counts hashes in numpy 2.3, minutes over 1e8 distinct
+    values)."""
+    s = np.sort(x)
+    return s[np.diff(s, prepend=~s[:1]) != 0]
+
+
+def _region_user_pairs(region: np.ndarray, uid: np.ndarray,
+                       users: np.ndarray):
+    """-> (the distinct (RegionID, UserID) pairs as uint64s, RegionID's
+    width in bits): RegionID in the top bits, then UserID less as many low
+    bits when that prefix still tells the users apart (checked: one sort),
+    else UserID's index in `users` (an argsort, slower)."""
+    bits = max(int(region.max()).bit_length(), 1)
+    user = uid >> np.uint64(bits)
+    if len(_distinct(user)) != len(users):
+        user = np.unique(uid, return_inverse=True)[1].astype(
+            np.uint64).reshape(-1)
+    return _distinct((region.astype(np.uint64) << np.uint64(64 - bits))
+                     | user), bits
+
+
+def clickbench_oracle(arrays: dict, q=None):
+    """ClickBench queries in numpy on the `hits` arrays: query q's result
+    as `clickbench_step` gives it, or (q None) {q: result} for all eight,
+    sharing one np.unique of UserID.  Sums are exact integers (AVG(UserID)
+    the exact mean, from the 32-bit halves summed in int64, rounded once);
+    COUNT(DISTINCT RegionID, UserID) packs each pair into one uint64
+    (`_region_user_pairs`).  Only sorts: no argsort and no hash set of
+    the 1e8 rows."""
+    qs = sorted(CLICKBENCH_QUERIES) if q is None else [q]
+    adv, uid = arrays["AdvEngineID"], arrays["UserID"]
+    n = len(uid)
+    out = {}
+    if any(x in qs for x in (4, 7, 8)):
+        users, counts = np.unique(uid, return_counts=True)
+    for x in qs:
+        if x == 1:
+            out[x] = int(np.count_nonzero(adv))
+        elif x == 2:
+            rw = int(arrays["ResolutionWidth"].sum(dtype=np.int64))
+            out[x] = (int(adv.sum(dtype=np.uint64)), n, rw / n)
+        elif x == 3:
+            hi = (uid >> np.uint64(32)).astype(np.int64).sum()
+            lo = (uid & np.uint64(0xFFFFFFFF)).astype(np.int64).sum()
+            out[x] = ((int(hi) << 32) + int(lo)) / n
+        elif x == 4:
+            out[x] = len(users)
+        elif x == 5:
+            d = arrays["EventDate"]
+            out[x] = (int(d.min()), int(d.max()))
+        elif x == 6:
+            per_engine = np.bincount(adv[adv != 0], minlength=256)
+            keys = np.flatnonzero(per_engine)
+            out[x] = _top_pairs(keys, per_engine[keys], None)
+        elif x == 7:
+            pairs, bits = _region_user_pairs(arrays["RegionID"], uid, users)
+            # the pairs are sorted, so are their regions: count the runs
+            region = pairs >> np.uint64(64 - bits)
+            starts = np.flatnonzero(np.diff(region, prepend=~region[:1]))
+            u = np.diff(np.append(starts, len(region)))
+            out[x] = _top_pairs(region[starts], u, CLICKBENCH_LIMIT)
+        elif x == 8:
+            out[x] = _top_pairs(users, counts, CLICKBENCH_LIMIT)
+    return out if q is None else out[q]
+
+
+def check_clickbench(got, want, q: int):
+    """Raise unless query q's result equals the oracle's: exactly, but
+    AVG(UserID) within a relative 1e-12 of the exact mean (a float64 sum
+    of 1e8 values in another order)."""
+    if q == 3:
+        if not abs(got - want) <= 1e-12 * abs(want):
+            raise AssertionError(f"ClickBench Q3: {got!r} != {want!r}")
+    elif got != want:
+        raise AssertionError(f"ClickBench Q{q}: {got!r} != {want!r}")
+    return got

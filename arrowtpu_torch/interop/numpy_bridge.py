@@ -7,7 +7,8 @@ or None for all valid.  Bitmap layouts never cross, so the JAX package's
 sublane-major bitmaps and limb pairs and this package's LSB bitmaps and
 native int64 meet only as plain arrays.  Decimals, intervals and fixed-size
 binary cross as (n, W) uint32 words (a decimal's little-endian limbs), the
-temporal types as their integers.
+temporal types as their integers, uint64 as numpy uint64 (the port holds
+its bits in int64), float16 as numpy float16.
 
 `string_view_from_numpy` builds a string view column from a byte buffer
 and each string's start and length, vectorized (a Python list per row is
@@ -67,6 +68,8 @@ def column_to_numpy(c: col.Column) -> Tuple[np.ndarray, np.ndarray, int]:
     vals = c.values[:n].cpu().numpy()
     if vals.ndim == 2:
         vals = vals.view(np.uint32)
+    elif st.is_u64(c.dtype):
+        vals = vals.view(np.uint64)
     return vals, valid, n
 
 

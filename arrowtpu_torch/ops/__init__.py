@@ -1,7 +1,14 @@
 """Compute operators on columns and record batches."""
 
-from . import (arity, bitwise, boolean, coalesce, equal, merge, numeric,
-               strings, zip as zipmod)
+from . import (aggregate, arity, bitwise, boolean, coalesce, equal, merge,
+               numeric, strings, zip as zipmod)
+from . import cast as castmod, dictionary as dictmod, union as unionmod
+from .aggregate import (bool_and, bool_or, count, finalize, max_, min_,
+                        product, sum_)
+from .cast import can_cast_types, cast, dictionary_decode, dictionary_encode
+from .dictionary import (garbage_collect_dictionary, merge_dictionary_values,
+                         should_merge_dictionary_values)
+from .union import take_union, union_extract
 from .bitwise import bit_and, bit_not, bit_or, bit_xor, shift_left, shift_right
 from .boolean import (and_, and_kleene, and_not, is_not_null, is_null, not_,
                       or_, or_kleene, xor)
@@ -25,8 +32,14 @@ from .strings import (bit_length, concat_elements, contains, ends_with,
 from .take import take, take_record_batch
 from .zip import nullif, shift, zip_
 
-__all__ = ["arity", "bitwise", "boolean", "coalesce", "equal", "merge",
-           "numeric", "strings", "zipmod", "BatchCoalescer", "slice_",
+__all__ = ["aggregate", "arity", "bitwise", "boolean", "coalesce", "equal",
+           "merge", "numeric", "strings", "zipmod", "castmod", "dictmod",
+           "unionmod", "bool_and", "bool_or", "count", "finalize", "max_",
+           "min_", "product", "sum_", "can_cast_types", "cast",
+           "dictionary_decode", "dictionary_encode",
+           "garbage_collect_dictionary", "merge_dictionary_values",
+           "should_merge_dictionary_values", "take_union", "union_extract",
+           "BatchCoalescer", "slice_",
            "slice_batch", "interleave", "equal_batches", "equal_columns",
            "merge_batches", "merge_indices", "merge_n",
            "bit_and", "bit_not", "bit_or", "bit_xor", "shift_left",

@@ -19,6 +19,16 @@ float32 there), so `binary` casts its operands to that type first.
 torch's uint16 and uint32 lack arithmetic: an op whose result has one of
 those types computes in int64 (`compute_dtype`) and keeps the result's low
 bits (`narrow_to`), which is the wrapping result.
+
+uint64 columns hold their bits in int64 (schema.py); here their dtype is
+`torch.uint64`, a name only: they compute in int64, which wraps as uint64
+does.  Two integer columns of which one is 64-bit follow the JAX
+package's rule for its limb pairs (`arrowtpu/ops/numeric.py` `_operands`):
+the result takes the type of the last 64-bit operand, so uint64 + int64
+is int64 and int64 + uint64 uint64, and uint64 with a narrower integer is
+uint64 (`jnp.result_type` would give float64).  Beside a float, a uint64
+operand is converted by value (`core/u64.to_float`).  float16 computes
+in float16.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import torch
 from .. import schema as st
 from ..core import bitmap as bm
 from ..core import column as col
+from ..core import u64
 
 # the unsigned types torch stores but cannot compute on, with their masks
 _WIDENED = {torch.uint16: 0xFFFF, torch.uint32: 0xFFFFFFFF}
@@ -59,7 +70,8 @@ def _signed_of(bits: int) -> torch.dtype:
 
 
 def _join(x: torch.dtype, y: torch.dtype) -> torch.dtype:
-    """The promotion of two column dtypes (JAX's lattice)."""
+    """The promotion of two column dtypes (JAX's lattice; the limb rule
+    for 64-bit integers, see the module docstring)."""
     if x == y:
         return x
     if x == torch.bool:
@@ -72,13 +84,13 @@ def _join(x: torch.dtype, y: torch.dtype) -> torch.dtype:
     if fx or fy:
         return x if fx else y
     (bx, sx), (by, sy) = _int_info(x), _int_info(y)
+    if 64 in (bx, by):
+        return y if by == 64 else x
     if sx == sy:
         return x if bx >= by else y
     (bs, bu) = (bx, by) if sx else (by, bx)
     if bs > bu:
         return x if sx else y
-    if bu >= 64:
-        raise st.ComputeError(f"no common type of {x} and {y}")
     return _signed_of(2 * bu)
 
 
@@ -86,7 +98,7 @@ def _dtype_of(x) -> torch.dtype:
     if isinstance(x, col.BooleanColumn):
         return torch.bool
     if isinstance(x, col.PrimitiveColumn) and x.values.dim() == 1:
-        return x.values.dtype
+        return torch.uint64 if st.is_u64(x.dtype) else x.values.dtype
     raise st.ComputeError(f"no elementwise dtype for {type(x).__name__} "
                           f"{getattr(x, 'dtype', '')}")
 
@@ -107,11 +119,14 @@ def result_dtype(a, b) -> torch.dtype:
 
 def compute_dtype(dt: torch.dtype) -> torch.dtype:
     """The dtype an op with result `dt` computes in."""
-    return torch.int64 if dt in _WIDENED else dt
+    return torch.int64 if dt in _WIDENED or dt == torch.uint64 else dt
 
 
 def narrow_to(values: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """Values computed in `compute_dtype(dt)` -> `dt`, wrapping."""
+    """Values computed in `compute_dtype(dt)` -> `dt`, wrapping (uint64
+    stays in its int64 bits)."""
+    if dt == torch.uint64:
+        return values
     if dt in _WIDENED:
         return (values & _WIDENED[dt]).to(dt)
     return values if values.dtype == dt else values.to(dt)
@@ -132,9 +147,11 @@ def operand(x, dt: torch.dtype, device) -> torch.Tensor:
     cdt = compute_dtype(dt)
     if not is_scalar(x):
         v = _vals(x)
+        if cdt.is_floating_point and st.is_u64(x.dtype):
+            return u64.to_float(v).to(cdt)
         return v if v.dtype == cdt else v.to(cdt)
     if not dt.is_floating_point and dt != torch.bool:
-        x = _wrap_int(int(x), dt)
+        x = u64.wrap(int(x)) if dt == torch.uint64 else _wrap_int(int(x), dt)
     return torch.full((1,), x, dtype=cdt, device=device)
 
 
@@ -213,8 +230,10 @@ def binary(a, b, fn, out_dtype: st.DataType = None) -> col.PrimitiveColumn:
     # the padding is zeroed before the narrowing: torch computes on uint16
     # and uint32 only in int64
     values = _cast(narrow_to(_zero_padding(values, base), dt), out_dtype)
-    return col.PrimitiveColumn(values, validity, base.length,
-                               out_dtype or st.from_torch(values.dtype))
+    if out_dtype is None:
+        out_dtype = st.from_torch(dt if values.dtype == compute_dtype(dt)
+                                  else values.dtype)
+    return col.PrimitiveColumn(values, validity, base.length, out_dtype)
 
 
 def binary_boolean_out(a, b, fn) -> col.BooleanColumn:

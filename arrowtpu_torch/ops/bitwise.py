@@ -12,8 +12,10 @@ shift to the hardware):
 
   * 8, 16 and 32 bits (XLA's shifts): an amount outside [0, bits) gives 0,
     or the sign fill for a signed `shift_right`;
-  * int64 (the JAX package's limb shifts): the amount is taken mod 64, so
-    shift_left(5, 70) is 320 and shift_left(5, -1) is INT64_MIN.
+  * int64 and uint64 (the JAX package's limb shifts): the amount is taken
+    mod 64, so shift_left(5, 70) is 320 and shift_left(5, -1) is
+    INT64_MIN; a uint64 `shift_right` is logical on its int64 bits
+    (`core/u64.shift_right`), where torch's `>>` is arithmetic.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from .. import schema as st
 from ..core import column as col
+from ..core import u64
 from . import arity
 
 
@@ -65,7 +68,9 @@ def _shift(a, b, left: bool):
     def fn(x, k):
         if bits == 64:
             k = k & 63
-            return x << k if left else x >> k
+            if left:
+                return x << k
+            return x >> k if signed else u64.shift_right(x, k)
         ok = (k >= 0) & (k < bits)
         k = torch.where(ok, k, 0)
         if left:

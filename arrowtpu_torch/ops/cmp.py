@@ -4,7 +4,9 @@ Counterpart of `arrowtpu/ops/cmp.py`: `eq`, `neq`, `lt`, `lt_eq`, `gt`,
 `gt_eq`, `distinct` and `not_distinct` on integer, float, boolean,
 temporal and decimal columns, either side a column or a Python scalar.
 Native dtypes compare natively (float `neq` is true on NaN, as IEEE and
-the JAX package's limb compare have it).  A decimal goes through
+the JAX package's limb compare have it); uint64 compares its bits with
+the top bit flipped (`core/u64.order_key`) at the operands' result type
+(`arity.result_dtype`), float16 natively.  A decimal goes through
 `ops/decimal.cmp`, with the operands' order flipped when the decimal is
 on the right.  The result's validity is the operands' AND; rows past the
 length are zero.
@@ -25,6 +27,7 @@ import torch
 from .. import schema as st
 from ..core import bitmap as bm
 from ..core import column as col
+from ..core import u64
 from . import arity
 
 _OPS = {"eq": operator.eq, "neq": operator.ne, "lt": operator.lt,
@@ -48,7 +51,19 @@ def _cmp(a, b, op: str) -> col.BooleanColumn:
         if isinstance(x, col.DictionaryColumn):
             raise st.ComputeError(
                 "cmp on dictionary: decode or compare keys explicitly")
+    if _has_u64(a, b):
+        dt = arity.result_dtype(a, b)
+        dev = (a if isinstance(a, col.Column) else b).device
+        x, y = arity.operand(a, dt, dev), arity.operand(b, dt, dev)
+        if dt == torch.uint64:
+            x, y = u64.order_key(x), u64.order_key(y)
+        return arity.binary_boolean_out(a, b, lambda *_: _OPS[op](x, y))
     return arity.binary_boolean_out(a, b, _OPS[op])
+
+
+def _has_u64(*xs) -> bool:
+    return any(isinstance(x, col.PrimitiveColumn) and st.is_u64(x.dtype)
+               for x in xs)
 
 
 def eq(a, b):
@@ -91,6 +106,8 @@ def _bits_differ(a, b) -> torch.Tensor:
     def bits(x):
         if isinstance(x, col.Column):
             return x.values.view(torch.int64)
+        if st.is_u64(base.dtype):
+            x = u64.wrap(int(x))
         return torch.tensor(x, dtype=base.values.dtype,
                             device=base.device).view(torch.int64)
     return bits(a) != bits(b)

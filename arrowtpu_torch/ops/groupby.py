@@ -71,6 +71,18 @@ null for a group with no valid value.  A string key's output shares its
 input's arena.  String values raise under every aggregate, as in the
 reference.
 
+uint64 and float16 columns are keys and values (the JAX package's
+`_column_operands`).  A uint64 key orders unsigned (its plane's top bit
+flipped) and takes the sort pipeline, as the reference's limb-pair key
+does; a uint64 value takes the dense engine with its top bit flipped
+into the kernel (so its signed min and max are unsigned; the sum is
+corrected by the count's parity), its sum wraps mod 2**64 and its mean
+is `hi * 2**32 + lo` over the count.  A float16 key or value orders by
+its total order (as float32's orders it in the reference), moves through
+K1 as its 16 bits widened to a word, and sums in float64 then float16,
+as the reference does; the reference's float16 key values are wrong
+(ROADMAP C.3 fault 11), the port's are the input's.
+
 Temporal columns (Date32, Date64, Timestamp with or without a time zone,
 Time32, Time64, Duration) are keys and values as the integers they hold,
 and come back with their own dtype.  As values they take every aggregate
@@ -98,6 +110,7 @@ from ..core import batch as bt
 from ..core import bitmap as bm
 from ..core import column as col
 from ..core import limbs as lb
+from ..core import u64
 from ..kernels import compact3 as k1
 from ..kernels import dense_agg as dk
 from ..rowformat import encode as rf
@@ -162,36 +175,39 @@ class _Extract:
         return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
 
+# a float's bits as the signed integer of its width
+_FLOAT_BITS = {torch.float64: torch.int64, torch.float32: torch.int32,
+               torch.float16: torch.int16}
+
+
 def _bits(v: torch.Tensor) -> torch.Tensor:
     """A plane as int64 words that K1 moves: integers widened, floats as
-    their bits (float32 sign-extended)."""
-    if v.dtype == torch.float64:
-        return v.view(torch.int64)
-    if v.dtype == torch.float32:
-        return v.view(torch.int32).to(torch.int64)
+    their bits (float32 and float16 sign-extended)."""
+    if v.dtype.is_floating_point:
+        return v.view(_FLOAT_BITS[v.dtype]).to(torch.int64)
     return v.to(torch.int64)
 
 
 def _from_bits(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    if dtype == torch.float64:
-        return w.view(torch.float64)
-    if dtype == torch.float32:
-        return w.to(torch.int32).view(torch.float32)
+    if dtype.is_floating_point:
+        return w.to(_FLOAT_BITS[dtype]).view(dtype)
     return w.to(dtype)
 
 
-def _order_key(v: torch.Tensor) -> torch.Tensor:
-    """int64 whose signed order is the values' order (floats: total)."""
-    return rf.float_key(v) if v.dtype.is_floating_point else v.to(torch.int64)
+def _order_key(v: torch.Tensor, unsigned: bool = False) -> torch.Tensor:
+    """int64 whose signed order is the values' order (floats: total;
+    uint64 bits: unsigned)."""
+    if v.dtype.is_floating_point:
+        return rf.float_key(v)
+    return u64.order_key(v) if unsigned else v.to(torch.int64)
 
 
-def _from_order_key(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The inverse of _order_key (float_key is its own inverse on the
-    bits; a float32 key is sign-extended, so bit 63 is its sign too)."""
+def _from_order_key(k: torch.Tensor, dtype: torch.dtype,
+                    unsigned: bool = False) -> torch.Tensor:
+    """The inverse of _order_key."""
     if dtype.is_floating_point:
-        low = 0x7FFFFFFFFFFFFFFF if dtype == torch.float64 else 0x7FFFFFFF
-        return _from_bits(k ^ ((k >> 63) & low), dtype)
-    return k.to(dtype)
+        return rf.float_from_key(k, dtype)
+    return u64.order_key(k) if unsigned else k.to(dtype)
 
 
 def _is_int(c) -> bool:
@@ -386,9 +402,13 @@ def _dense_group_by(batch, keys, aggs, kmin: torch.Tensor,
     kc = batch[keys[0]]
     off = _off(kc)
     names = sorted({name for name, _ in aggs})
+    # a uint64 value enters with its top bit flipped, so that the kernel's
+    # signed min and max are unsigned ones (flipped back below)
+    flipped = {n for n in names if st.is_u64(batch[n].dtype)}
     rows, stats = dk.dense_aggregate(
         kc.values, kc.validity, kmin, off, nb, batch.length,
-        [(batch[n].values, batch[n].validity) for n in names])
+        [(u64.order_key(batch[n].values) if n in flipped
+          else batch[n].values, batch[n].validity) for n in names])
     present = rows > 0
     groups = int(present.sum())
     out_cap = round_up(max(groups, 1))
@@ -415,12 +435,16 @@ def _dense_group_by(batch, keys, aggs, kmin: torch.Tensor,
     for name, agg in aggs:
         c = batch[name]
         cnt, total, lo, hi = stats[names.index(name)]
+        if name in flipped:
+            # each row added 2**63: an odd count flips the sum's top bit
+            total = total ^ ((cnt & 1) << 63)
+            lo, hi = u64.order_key(lo), u64.order_key(hi)
         has = cnt > 0
         if agg == "count":
             out = col.PrimitiveColumn(place(cnt, torch.int64), None, groups,
                                       st.int64)
         elif agg == "mean":
-            mean = total.to(torch.float64) / cnt.clamp(min=1).to(
+            mean = _sum_to_float(total, c) / cnt.clamp(min=1).to(
                 torch.float64)
             out = col.PrimitiveColumn(place(mean, torch.float64),
                                       place_valid(has), groups, st.float64)
@@ -460,6 +484,14 @@ def _value_rows(c) -> torch.Tensor:
     if isinstance(c, col.BooleanColumn):
         return c.values_bool().to(torch.int32)
     return c.values.to(torch.int64) if c.values.dtype in _WIDEN else c.values
+
+
+def _sum_to_float(total: torch.Tensor, c) -> torch.Tensor:
+    """A sum as float64 (a uint64 sum by `u64.to_float`, as the JAX
+    package's mean reads its limbs)."""
+    if st.is_u64(c.dtype):
+        return u64.to_float(total)
+    return total.to(torch.float64)
 
 
 def _sum_dtype(c) -> st.DataType:
@@ -652,13 +684,15 @@ def _native_agg(c, agg, cnt, ok, vals, boundary, out_cap, num_groups,
         if agg == "sum":
             return col.PrimitiveColumn(s.to(odt), has_v, num_groups,
                                        _sum_dtype(c))
-        mean = s.to(torch.float64) / cnt.clamp(min=1).to(torch.float64)
+        mean = _sum_to_float(s, c) / cnt.clamp(min=1).to(torch.float64)
         return col.PrimitiveColumn(mean, has_v, num_groups, st.float64)
     if vo_rows is not None:
         best = _from_bits(vo_rows, vdt)
     else:
+        unsigned = st.is_u64(c.dtype)
         best = _from_order_key(_segment_extreme(
-            boundary, ok, [_order_key(vals)], agg, out_cap)[0], vdt)
+            boundary, ok, [_order_key(vals, unsigned)], agg, out_cap)[0],
+            vdt, unsigned)
     best = torch.where(has, best, 0).to(odt)
     return col.PrimitiveColumn(best, has_v, num_groups, out_dt)
 

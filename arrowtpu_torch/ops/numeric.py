@@ -1,13 +1,16 @@
 """Numeric arithmetic with Arrow null semantics.
 
 Counterpart of `arrowtpu/ops/numeric.py` over int8 / 16 / 32 / 64, uint8 /
-16 / 32, float32 and float64 (uint64 and float16 have no column type in
-the port yet).  Operands are columns or Python scalars; the result's type
-is the JAX package's (`arity.result_dtype`), and the operands are cast to
-it before the op.
+16 / 32 / 64, float16, float32 and float64.  Operands are columns or
+Python scalars; the result's type is the JAX package's
+(`arity.result_dtype`: uint64 + int64 is int64, its limb rule), and the
+operands are cast to it before the op.
 
   * the plain ops wrap (they are also the `_wrapping` aliases); uint16 and
-    uint32 compute in int64 and keep the low bits;
+    uint32 compute in int64 and keep the low bits; uint64 computes on its
+    int64 bits (`core/u64.py`), so add, sub, mul and neg wrap mod 2**64,
+    and `div` and `rem` are unsigned and exact (a zero divisor gives 0);
+    float16 computes in float16;
   * integer `div` and `rem` truncate toward zero (C and Rust).  A zero
     divisor gives what the JAX package gives at that width: for `div` the
     dividend at 8, 16 and 32 bits and 0 at int64, for `rem` 0.  A divisor
@@ -27,7 +30,9 @@ it before the op.
     `raise_if` is their one read-back.  The flags are the JAX package's
     (signed add / sub by the operands' and the result's signs, unsigned
     by a wrap; mul by dividing back; div and rem by a zero divisor;
-    floats never), and INT_MIN * -1 and INT_MIN / -1 are flagged too.
+    floats never), and INT_MIN * -1 and INT_MIN / -1 are flagged too; a
+    uint64 add or sub is flagged by an unsigned wrap, a mul by dividing
+    back unsigned.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 
 from .. import schema as st
 from ..core import column as col
+from ..core import u64
 from . import arity
 
 
@@ -91,12 +97,16 @@ def _int_div(x, y, dt):
 def _div(x, y, dt):
     if dt.is_floating_point:
         return x / y
+    if dt == torch.uint64:
+        return u64.divmod_(x, y)[0]
     return _int_div(x, y, dt)
 
 
 def _rem(x, y, dt):
     if dt.is_floating_point:
         return x - torch.trunc(x / y) * y
+    if dt == torch.uint64:
+        return u64.divmod_(x, y)[1]
     bad = (y == 0) | _minus_one(y, dt)
     return torch.where(bad, 0, torch.fmod(x, torch.where(bad, 1, y)))
 
@@ -143,7 +153,7 @@ def _host_divisor(a, b):
         return None
     _check(a)
     dt = arity.result_dtype(a, b)
-    if dt.is_floating_point:
+    if dt.is_floating_point or dt == torch.uint64:
         return None
     w = arity._wrap_int(b, dt)
     return None if w in (0, -1) else w
@@ -192,7 +202,7 @@ def _checked(a, b, op, bad_rows):
         raise st.ComputeError(
             f"{op.__name__}_checked of a decimal is not supported")
     out = op(a, b)
-    dt = out.values.dtype
+    dt = arity._dtype_of(out)
     if dt.is_floating_point:
         return out, torch.zeros((), dtype=torch.bool, device=out.device)
     x, y, r = (arity.operand(v, dt, out.device) for v in (a, b, out))
@@ -200,16 +210,20 @@ def _checked(a, b, op, bad_rows):
     return out, (bad & out.valid_bool()).any()
 
 
+def _lt(x, y, dt):
+    return u64.lt(x, y) if dt == torch.uint64 else x < y
+
+
 def _add_bad(x, y, r, dt):
     if arity._int_info(dt)[1]:
         return ((x >= 0) == (y >= 0)) & ((r >= 0) != (x >= 0))
-    return r < x
+    return _lt(r, x, dt)
 
 
 def _sub_bad(x, y, r, dt):
     if arity._int_info(dt)[1]:
         return ((x >= 0) != (y >= 0)) & ((r >= 0) != (x >= 0))
-    return x < y
+    return _lt(x, y, dt)
 
 
 def _mul_bad(x, y, r, dt):
@@ -217,7 +231,10 @@ def _mul_bad(x, y, r, dt):
     INT_MIN * -1 (whose quotient wraps back to INT_MIN)."""
     minus_one = _minus_one(y, dt)
     skip = (y == 0) | minus_one
-    bad = ~skip & (_trunc_div(r, torch.where(skip, 1, y)) != x)
+    safe = torch.where(skip, 1, y)
+    back = (u64.divmod_(r, safe)[0] if dt == torch.uint64
+            else _trunc_div(r, safe))
+    bad = ~skip & (back != x)
     return bad | (minus_one & (x == torch.iinfo(dt).min))
 
 

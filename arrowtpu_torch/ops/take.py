@@ -68,6 +68,9 @@ def _out_of_bounds(valid_idx: torch.Tensor, in_bounds: torch.Tensor) -> bool:
 
 
 _ROW_ELEMENT = {8: torch.int64, 16: torch.complex128}
+# torch on the card neither indexes nor fills uint16 / uint32: their bits
+# move as the signed type of their width
+_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32}
 
 
 def gather_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -75,8 +78,11 @@ def gather_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     bytes (a Decimal64 or Decimal128, a string view) is gathered as one
     int64 or complex128 element a row: PyTorch indexes (n, 4) int32 rows
     far slower than 16-byte elements (TPC-H Q1's five 59M-row limb
-    gathers on an H100: `chip_smoke.py` phase 15 times both).  The copy
-    moves the bits unchanged."""
+    gathers on an H100: `chip_smoke.py` phase 15 times both).  uint16
+    and uint32 are gathered as their signed twins.  The copy moves the
+    bits unchanged."""
+    if t.dtype in _SIGNED:
+        return gather_rows(t.view(_SIGNED[t.dtype]), idx).view(t.dtype)
     if t.dim() != 2 or not t.is_contiguous():
         return t[idx]
     element = _ROW_ELEMENT.get(t.shape[1] * t.element_size())
@@ -88,7 +94,7 @@ def gather_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _zero_tail(t: torch.Tensor, n: int) -> torch.Tensor:
     if n < t.shape[0]:
-        t[n:] = 0
+        (t.view(_SIGNED[t.dtype]) if t.dtype in _SIGNED else t)[n:] = 0
     return t
 
 

@@ -57,6 +57,7 @@ from ..config import round_up
 from ..core import batch as bt
 from ..core import bitmap as bm
 from ..core import column as col
+from ..core import u64
 from ..ops import groupby as gb
 from ..ops import join as jn
 from ..ops.concat import concat_batches
@@ -380,8 +381,9 @@ def _mean(s: col.PrimitiveColumn, n: col.PrimitiveColumn
     """sum / max(count, 1) in float64, null where either input is null or
     the count is 0 (the JAX package's finalizer)."""
     live = bm.row_mask_bool(s.capacity, s.length, s.device)
-    values = s.values.to(torch.float64) / n.values.clamp(min=1).to(
-        torch.float64)
+    total = (u64.to_float(s.values) if st.is_u64(s.dtype)
+             else s.values.to(torch.float64))
+    values = total / n.values.clamp(min=1).to(torch.float64)
     ok = s.valid_bool() & n.valid_bool() & (n.values > 0)
     return col.PrimitiveColumn(torch.where(live, values, 0.0), bm.pack(ok),
                                s.length, st.float64)

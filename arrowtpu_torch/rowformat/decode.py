@@ -5,7 +5,8 @@ rowformat/encode.py has an exact inverse:
 
   * the sentinel plane -> validity (per `nulls_first`);
   * descending -> a NOT of the value planes (self-inverse on valid rows);
-  * integers, temporal types and booleans -> the value itself;
+  * integers, temporal types and booleans -> the value itself (uint64's
+    top bit flipped back);
   * floats -> `encode.float_key` inverted bit for bit (it is its own
     inverse on the bits), NaN payloads and -0 included;
   * decimals -> their limbs from the order planes (`limbs.from_order_planes`;
@@ -40,12 +41,14 @@ from ..config import SortOptions
 from ..core import bitmap as bm
 from ..core import column as col
 from ..core import limbs as lb
+from ..core import u64
 from . import encode as rf
 
 
 @dataclasses.dataclass
 class _Codec:
-    kind: str  # null | bool | int | float | decimal | fsb | string | dict
+    # null | bool | int | u64 | float | decimal | fsb | string | dict
+    kind: str
     dtype: st.DataType
     n_planes: int  # value planes (the sentinel aside)
     opts: SortOptions
@@ -74,7 +77,8 @@ def _codec_for(c: col.Column, opts: SortOptions) -> _Codec:
             w = c.values.shape[1]
             return _Codec("fsb", c.dtype, w, opts, width=w)
         if c.values.dim() == 1:
-            kind = "float" if c.values.dtype.is_floating_point else "int"
+            kind = ("float" if c.values.dtype.is_floating_point else
+                    "u64" if st.is_u64(c.dtype) else "int")
             return _Codec(kind, c.dtype, 1, opts, torch_dtype=c.values.dtype)
     raise st.ComputeError(
         f"row decode: unsupported column {type(c).__name__} {c.dtype}")
@@ -86,12 +90,6 @@ _SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32}
 def _n_planes(codec: _Codec) -> int:
     # a null column is one zero plane with no sentinel
     return 1 if codec.kind == "null" else 1 + codec.n_planes
-
-
-def _float_from_key(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    if dtype == torch.float64:
-        return (k ^ ((k >> 63) & 0x7FFFFFFFFFFFFFFF)).view(torch.float64)
-    return (k ^ ((k >> 63) & 0x7FFFFFFF)).to(torch.int32).view(torch.float32)
 
 
 def _string(vp: List[torch.Tensor], codec: _Codec, validity, length: int,
@@ -139,8 +137,12 @@ def _decode_one(codec: _Codec, planes: List[torch.Tensor],
         values = (vp[0].to(codec.torch_dtype) if signed is None
                   else vp[0].to(signed).view(codec.torch_dtype))
         return col.PrimitiveColumn(values, validity, length, codec.dtype)
+    if codec.kind == "u64":
+        return col.PrimitiveColumn(
+            torch.where(valid, u64.order_key(vp[0]), 0), validity, length,
+            codec.dtype)
     if codec.kind == "float":
-        f = _float_from_key(vp[0], codec.torch_dtype)
+        f = rf.float_from_key(vp[0], codec.torch_dtype)
         return col.PrimitiveColumn(torch.where(valid, f, 0.0), validity,
                                    length, codec.dtype)
     if codec.kind == "decimal":

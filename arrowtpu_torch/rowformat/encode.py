@@ -9,7 +9,14 @@ planes, so all nulls tie and keep their row order.
   * integers (temporal types included) and booleans: one plane, the
     value; native int64 values and the float total-order key
     (`float_key`) are one plane each (the JAX package splits them into two
-    u32 planes); the order and the ties are the same;
+    u32 planes); the order and the ties are the same.  A uint64 plane is
+    its bits with the top bit flipped (the JAX package's u32 planes flip
+    no bit for uint64 and the sign bit for int64: the port's signed
+    planes need the reverse); float16 takes its own 16-bit total-order key,
+    which orders and ties as the JAX package's float32 planes of it
+    (`_float_planes`) and keeps a NaN's payload through a decode on the
+    card (whose float32 -> float16 conversion makes NaNs canonical); its
+    hash plane is that float32 key;
   * a dictionary sorts by its values' ranks;
   * decimals: the JAX package's u32 planes of `core/limbs.sort_planes`
     (the top limb's sign bit flipped, then the limbs high to low);
@@ -58,6 +65,7 @@ from .. import schema as st
 from ..config import LIST_SORT_BOUND, SortOptions
 from ..core import column as col
 from ..core import limbs as lb
+from ..core import u64
 
 _U32 = 0xFFFFFFFF
 
@@ -71,14 +79,30 @@ def float_key(values: torch.Tensor) -> torch.Tensor:
     the order of magnitudes; the sign bit keeps negatives below positives.
     (The JAX package's total-order planes, `core/wide.py`
     f64_total_order_planes, are this key with the sign bit flipped, read
-    as unsigned.)"""
+    as unsigned.)  float32 and float16 keys are their width's key,
+    sign-extended."""
     if values.dtype == torch.float64:
         b = values.view(torch.int64)
         return b ^ ((b >> 63) & 0x7FFFFFFFFFFFFFFF)
-    if values.dtype == torch.float32:
-        b = values.view(torch.int32).to(torch.int64)
-        return b ^ ((b >> 31) & 0x7FFFFFFF)
-    raise st.ComputeError(f"float_key: {values.dtype} is not float32/64")
+    if values.dtype in _NARROW_FLOATS:
+        bits, low = _NARROW_FLOATS[values.dtype]
+        b = values.view(bits).to(torch.int64)
+        return b ^ ((b >> 63) & low)
+    raise st.ComputeError(f"float_key: {values.dtype} is not a float")
+
+
+# a narrow float's bits as a signed integer, and the mask below its sign
+_NARROW_FLOATS = {torch.float32: (torch.int32, 0x7FFFFFFF),
+                  torch.float16: (torch.int16, 0x7FFF)}
+
+
+def float_from_key(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The inverse of `float_key` (its own inverse on the bits; a narrow
+    key is sign-extended, so bit 63 is its sign)."""
+    if dtype == torch.float64:
+        return (k ^ ((k >> 63) & 0x7FFFFFFFFFFFFFFF)).view(torch.float64)
+    bits, low = _NARROW_FLOATS[dtype]
+    return (k ^ ((k >> 63) & low)).to(bits).view(dtype)
 
 
 def byteswap_words(words: torch.Tensor) -> torch.Tensor:
@@ -164,6 +188,8 @@ def _value_planes(c: col.Column, width: Optional[int] = None
                     for j in range(c.values.shape[1])]
         if c.values.dim() == 1 and c.values.dtype.is_floating_point:
             return [float_key(c.values)]
+        if st.is_u64(c.dtype):
+            return [u64.order_key(c.values)]
         if c.values.dim() == 1:
             return [c.values.to(torch.int64)]
     raise st.ComputeError(
@@ -227,16 +253,20 @@ def _hash_value_planes(c: col.Column, planes: List[torch.Tensor]
                        ) -> List[torch.Tensor]:
     """The JAX package's u32 value planes of `c` from its `_value_planes`
     (before null masking): a 64-bit integer, temporal value or float key
-    as `hi ^ 0x80000000, lo`; a narrower signed one (the float32 key
-    included) as `value - min`; every other plane (unsigned integers,
-    booleans, dictionary ranks, decimal, fixed-size binary and string
-    words, string lengths) already is one."""
+    as `hi ^ 0x80000000, lo` (a uint64 plane's flipped top bit comes back
+    unflipped: its `hi, lo`); a narrower signed one (the float32 key) as
+    `value - min`; a float16 column as its float32 key's, as the JAX
+    package converts it; every other plane (unsigned integers, booleans,
+    dictionary ranks, decimal, fixed-size binary and string words, string
+    lengths) already is one."""
     if not (isinstance(c, col.PrimitiveColumn) and c.values.dim() == 1):
         return planes
     (p,) = planes
     dt = c.values.dtype
     if dt in (torch.int64, torch.float64):
         return [((p >> 32) & _U32) ^ 0x80000000, p & _U32]
+    if dt == torch.float16:  # the JAX package hashes its float32 key
+        return [float_key(c.values.to(torch.float32)) + 2**31]
     if dt == torch.float32:
         return [p + 2**31]
     if dt.is_signed:

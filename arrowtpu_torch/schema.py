@@ -5,7 +5,10 @@ prints it (`dtype_parse.parse_datatype` reads it back).  Physical layouts:
 
   * integers, floats and the temporal types are one native torch dtype
     each (64-bit integers are native `torch.int64`; Date32 and Time32 are
-    int32, Timestamp, Date64, Time64 and Duration int64);
+    int32, Timestamp, Date64, Time64 and Duration int64; float16 is
+    `torch.float16`); uint64 is stored as its 64 bits in an int64 tensor
+    (`to_torch` gives int64, `is_u64` tells it apart), and every op that
+    reads it is unsigned;
   * Boolean is an LSB-packed bitmap (core/bitmap.py);
   * decimals, intervals and fixed-size binary are `(capacity, W)` int32
     words (`words_per_row`): a decimal's W = 1, 2, 4 or 8 little-endian
@@ -68,13 +71,14 @@ class Boolean(DataType):
 
 # torch's uint16 and uint32 store, copy, index and convert but lack
 # comparisons and reductions, so code that computes on them widens to
-# int64 first (a lossless widening).  uint64 has no such widening and waits
-# for a later slice.
+# int64 first (a lossless widening).  torch's uint64 lacks comparisons,
+# addition, division and reductions on the CPU and has no lossless
+# widening, so a uint64 column holds the same 64 bits in an int64 tensor.
 _INT_TORCH = {
     (8, True): torch.int8, (16, True): torch.int16,
     (32, True): torch.int32, (64, True): torch.int64,
     (8, False): torch.uint8, (16, False): torch.uint16,
-    (32, False): torch.uint32,
+    (32, False): torch.uint32, (64, False): torch.int64,
 }
 
 
@@ -99,11 +103,12 @@ class Float(DataType):
     bits: int = 64
 
     def __post_init__(self):
-        if self.bits not in (32, 64):
+        if self.bits not in (16, 32, 64):
             raise SchemaError(f"unsupported float width {self.bits}")
 
     def to_torch(self) -> torch.dtype:
-        return torch.float32 if self.bits == 32 else torch.float64
+        return {16: torch.float16, 32: torch.float32,
+                64: torch.float64}[self.bits]
 
     def __str__(self):
         return f"float{self.bits}"
@@ -355,6 +360,8 @@ int64 = Int(64)
 uint8 = Int(8, signed=False)
 uint16 = Int(16, signed=False)
 uint32 = Int(32, signed=False)
+uint64 = Int(64, signed=False)
+float16 = Float(16)
 float32 = Float(32)
 float64 = Float(64)
 utf8 = Utf8()
@@ -392,16 +399,24 @@ def words_per_row(dtype: DataType) -> Optional[int]:
     return None
 
 
+def is_u64(dtype: DataType) -> bool:
+    """uint64: int64 bits read as unsigned."""
+    return isinstance(dtype, Int) and dtype.bits == 64 and not dtype.signed
+
+
 def from_torch(dt: torch.dtype) -> DataType:
+    """The type of a torch dtype; torch.uint64 (which columns never hold)
+    names uint64 and int64 names int64."""
     if dt == torch.bool:
         return bool_
+    if dt == torch.uint64:
+        return uint64
     for (bits, signed), tdt in _INT_TORCH.items():
         if tdt == dt:
             return Int(bits, signed)
-    if dt == torch.float32:
-        return float32
-    if dt == torch.float64:
-        return float64
+    for f in (float16, float32, float64):
+        if f.to_torch() == dt:
+            return f
     raise SchemaError(f"no arrow type for torch dtype {dt}")
 
 

@@ -239,19 +239,38 @@ Phases (each raises on failure; the exit code is then non-zero):
      `entry.q3_oracle`, the launch counts set to 0 just before the step and
      read just after (K1 must launch in the filters), every K1 and K2 call
      held to plain; the step's time (median of 5), its stages, peak memory
-     and busy share.
+     and busy share;
+  22. ClickBench's queries 1-8 (`entry.clickbench_step`, each by its text
+     in ClickBench's queries.sql: COUNT with AdvEngineID <> 0; SUM of a
+     UInt8 cast to uint64, COUNT and AVG; AVG of the uint64 UserID cast
+     to float64; COUNT(DISTINCT UserID); MIN and MAX of a Date32; the
+     filtered GROUP BY AdvEngineID; COUNT(DISTINCT UserID) by RegionID,
+     top ten; the top ten UserIDs by rows) over `hits` drawn at its
+     published 99,997,497 rows (`entry.example_hits_arrays`: UserID
+     uint64, RegionID uint32, ResolutionWidth uint16, AdvEngineID uint8,
+     EventDate Date32, the five of 105 columns these queries read, about
+     1.9 GB on the card): the engine `plan_group_by` picks for each
+     group-by; per query the launch counts set to 0 just before the step
+     and read just after (K1 must launch at 8 bytes in queries 4, 7 and 8
+     and K2 at one byte in query 6's filter), every K1 and K2 call held to
+     plain and every dense_agg call to `dense_aggregate_plain`; every
+     query exact against `entry.clickbench_oracle` (numpy on a host
+     thread; AVG(UserID) within a relative 1e-12 of the exact mean); each
+     step's time (CUDA events, median of 5 with min and max), its stages,
+     peak memory and busy share.
 
 The line before the last lists the kernels as JSON (`launches` from the
 flagship step for K1 and K2, from K3's entry point for K3, from
 run_probes for the probe kernels, from config 4 at 100 keys for
 dense_agg and from the Q6 step for K1's 16-byte words; every path's counts under `launches_by_path`, the skewed
 step's filters as a path of their own, TPC-H Q1, the text join step, the
-lineitem exchange, the distributed Q1, Q14, Q19, the external sort and Q3
-too; the flagship, join
+lineitem exchange, the distributed Q1, Q14, Q19, the external sort, Q3
+and ClickBench's eight queries too; the flagship, join
 and skewed join steps, int64-keyed, must launch no dense_agg; K1's 16-byte
 row carries its Q1 calls), after the Q1 step's, the l_comment sort's,
-the LIKE lines', the Q14 and Q19 steps', the external sort's and the Q3
-step's JSON lines and the card's line; the last line is {"ok": true, "device":
+the LIKE lines', the Q14 and Q19 steps', the external sort's, the Q3
+step's and the eight ClickBench steps' JSON lines and the card's line; the
+last line is {"ok": true, "device":
 {...}}.
 Without a CUDA device the script exits with an error and prints no
 result.
@@ -1738,6 +1757,202 @@ def q3_phase(pe, ops, k1, k2, build, dev, arrays, batch):
     return {"TPC-H Q3": run}, line
 
 
+# ---------------------------------------------------------------------------
+# phase 22: ClickBench's queries 1-8 over `hits`
+# ---------------------------------------------------------------------------
+
+HITS_ROWS = 99_997_497  # the published table, nothing cut
+CLICKBENCH_REPS = 5
+
+
+def clickbench_plans(pe, ops, batch) -> dict:
+    """The engine `plan_group_by` picks for each group-by of queries 4 and
+    6-8 (query 6's on the filtered batch, query 7's second on the first's
+    output)."""
+    from arrowtpu_torch.core import batch as bt
+    from arrowtpu_torch.ops import groupby as gb
+
+    def plan(b, keys, aggs):
+        p = gb.plan_group_by(b, keys, aggs)
+        return f"{p.engine}" + (f" at {p.buckets} buckets" if p.buckets
+                                else "")
+
+    kept = ops.filter_record_batch(
+        bt.record_batch({"AdvEngineID": batch["AdvEngineID"]}),
+        ops.neq(batch["AdvEngineID"], 0))
+    pairs = gb.group_by(bt.record_batch({n: batch[n] for n in
+                                         ("RegionID", "UserID")}),
+                        ["RegionID", "UserID"], [])
+    return {"Q4 (UserID)": plan(batch, ["UserID"], []),
+            "Q6 (AdvEngineID, filtered)": plan(
+                kept, ["AdvEngineID"], [("AdvEngineID", "count")]),
+            "Q7 (RegionID, UserID)": plan(batch, ["RegionID", "UserID"], []),
+            "Q7 (RegionID) over the pairs": plan(
+                pairs, ["RegionID"], [("UserID", "count")]),
+            "Q8 (UserID)": plan(batch, ["UserID"], [("UserID", "count")])}
+
+
+def clickbench_stages(pe, ops, batch, q) -> dict:
+    """The stages of the group-by queries, each timed alone (CUDA events,
+    median of 3)."""
+    from arrowtpu_torch.config import SortOptions
+    from arrowtpu_torch.core import batch as bt
+    from arrowtpu_torch.ops import groupby as gb
+
+    reps = dict(reps=3, warmup=1)
+    desc = [SortOptions(descending=True), SortOptions()]
+
+    def pick(b, names):
+        return bt.record_batch({n: b[n] for n in names})
+
+    if q == 4:
+        return {"group_by_ms": median_ms(lambda: gb.group_by(
+            pick(batch, ["UserID"]), ["UserID"], []), **reps)}
+    if q == 6:
+        mask = ops.neq(batch["AdvEngineID"], 0)
+        kept = ops.filter_record_batch(pick(batch, ["AdvEngineID"]), mask)
+        grouped = gb.group_by(kept, ["AdvEngineID"],
+                              [("AdvEngineID", "count")])
+        return {"predicate_ms": median_ms(
+                    lambda: ops.neq(batch["AdvEngineID"], 0), **reps),
+                "filter_ms": median_ms(lambda: ops.filter_record_batch(
+                    pick(batch, ["AdvEngineID"]), mask), **reps),
+                "group_by_ms": median_ms(lambda: gb.group_by(
+                    kept, ["AdvEngineID"], [("AdvEngineID", "count")]),
+                    **reps),
+                "order_by_ms": median_ms(lambda: ops.sort_batch(
+                    grouped, ["count_AdvEngineID", "AdvEngineID"], desc),
+                    **reps),
+                "kept_rows": kept.length}
+    if q == 7:
+        two = pick(batch, ["RegionID", "UserID"])
+        pairs = gb.group_by(two, ["RegionID", "UserID"], [])
+        grouped = gb.group_by(pairs, ["RegionID"], [("UserID", "count")])
+        return {"pairs_group_by_ms": median_ms(lambda: gb.group_by(
+                    two, ["RegionID", "UserID"], []), **reps),
+                "region_group_by_ms": median_ms(lambda: gb.group_by(
+                    pairs, ["RegionID"], [("UserID", "count")]), **reps),
+                "top10_ms": median_ms(lambda: ops.sort_batch(
+                    grouped, ["count_UserID", "RegionID"], desc, limit=10),
+                    **reps),
+                "pairs": pairs.length, "regions": grouped.length}
+    if q == 8:
+        one = pick(batch, ["UserID"])
+        grouped = gb.group_by(one, ["UserID"], [("UserID", "count")])
+        return {"group_by_ms": median_ms(lambda: gb.group_by(
+                    one, ["UserID"], [("UserID", "count")]), **reps),
+                "top10_ms": median_ms(lambda: ops.sort_batch(
+                    grouped, ["count_UserID", "UserID"], desc, limit=10),
+                    **reps),
+                "groups": grouped.length}
+    return {}
+
+
+def clickbench_phase(pe, ops, k1, k2, build, dev):
+    """Phase 22: ClickBench queries 1-8 (`entry.clickbench_step`) over
+    `hits` drawn at 99,997,497 rows (`entry.example_hits_arrays`, five
+    columns in ClickHouse's types, built on the card by
+    `entry.hits_batch`), each exact against `entry.clickbench_oracle`
+    (computed on a host thread meanwhile); the engine `plan_group_by`
+    picks for each group-by; per query, the launch counts set to 0 just
+    before the step and read just after, K1 at 8 bytes in queries 4, 7 and
+    8 and K2 at one byte in query 6 (`_build.launch_words`), every K1 and
+    K2 call held to plain, every dense_agg call to `dense_aggregate_plain`;
+    then each step's time (CUDA events, median of 5 with min and max), its
+    stages, peak memory and busy share.  -> ({path: launches}, {query:
+    timing line})."""
+    import concurrent.futures
+    from arrowtpu_torch.kernels import dense_agg as dk
+
+    t0 = time.perf_counter()
+    arrays = pe.example_hits_arrays(HITS_ROWS)
+    t_draw = time.perf_counter() - t0
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    oracle_at = time.perf_counter()
+    want_f = pool.submit(pe.clickbench_oracle, arrays)
+    t0 = time.perf_counter()
+    batch = pe.hits_batch(arrays, dev)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    nbytes = sum(a.nbytes for a in arrays.values())
+    log(f"ClickBench hits: {batch.length} rows, {nbytes / 1e9:.3f} GB, "
+        f"drawn in {t_draw:.1f} s, on the card in {t_batch:.1f} s; "
+        f"columns {[(f.name, str(f.dtype)) for f in batch.schema.fields]}")
+    log(f"ClickBench group-by engines (plan_group_by): "
+        f"{clickbench_plans(pe, ops, batch)}")
+    launches, got, callers = {}, {}, {}
+    for q in sorted(pe.CLICKBENCH_QUERIES):
+        args = {}
+        with held_to_plain({"K1": k1, "K2": k2}, args) as calls, \
+                build.launch_words() as words, \
+                recorded(dk, "dense_aggregate") as dense_calls:
+            k1.launches = k2.launches = dk.launches = 0
+            build.count_launches = 0
+            got[q] = pe.clickbench_step(batch, q)
+            torch.cuda.synchronize()
+            run = {"K1": k1.launches, "K2": k2.launches,
+                   "dense_agg": dk.launches,
+                   "tile_counts": build.count_launches,
+                   **{f"{k}_{w}": words.count((k, w))
+                      for k, w in sorted(set(words))}}
+        for d_args, out in dense_calls:
+            plain = dk.dense_aggregate_plain(*d_args)
+            if not all(torch.equal(a, b) for a, b in zip(out, plain)):
+                raise AssertionError(f"ClickBench Q{q}: dense_agg differs "
+                                     "from its plain version")
+        if q in (4, 7, 8) and not run.get("K1_8"):
+            raise AssertionError(f"ClickBench Q{q}: K1 did not launch at 8 "
+                                 f"bytes ({run})")
+        if q == 6 and not run.get("K2_1"):
+            raise AssertionError(f"ClickBench Q6: K2 did not launch at one "
+                                 f"byte ({run})")
+        launches[f"ClickBench Q{q}"] = run
+        callers[q] = by_caller(args, build)
+        log(f"ClickBench Q{q} counted: launches {run}; K1 / K2 calls by "
+            f"module and word bytes {callers[q]}; every call held to plain "
+            f"(P, n, kept, out_rows): {calls}; {len(dense_calls)} dense_agg "
+            "call(s) equal to dense_aggregate_plain")
+        del args, dense_calls
+    want = want_f.result()
+    t_oracle = time.perf_counter() - oracle_at
+    pool.shutdown()
+    for q in sorted(pe.CLICKBENCH_QUERIES):
+        pe.check_clickbench(got[q], want[q], q)
+    log(f"ClickBench: all 8 queries exact against clickbench_oracle (numpy, "
+        f"{t_oracle:.1f} s on a host thread); AVG(UserID) {got[3]!r} "
+        f"against the exact {want[3]!r}")
+    del arrays, want
+    lines = {}
+    for q in sorted(pe.CLICKBENCH_QUERIES):
+        times = run_times_ms(lambda: pe.clickbench_step(batch, q),
+                             reps=CLICKBENCH_REPS, warmup=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        pe.clickbench_step(batch, q)
+        peak = torch.cuda.max_memory_allocated()
+        if q in (7, 8):
+            busy = profile(lambda: pe.clickbench_step(batch, q), reps=3)
+        else:
+            rows, wall = _profiled(lambda: pe.clickbench_step(batch, q), 3)
+            busy_us = _device_us(rows)
+            busy = {"wall_ms_per_run": wall / 3 * 1e3,
+                    "device_ms_per_run": busy_us / 3 / 1e3,
+                    "device_busy_share": busy_us / (wall * 1e6)}
+        result = got[q] if q not in (6, 7, 8) else got[q][:3]
+        lines[q] = {"query": pe.CLICKBENCH_QUERIES[q],
+                    "step_ms": statistics.median(times), "min_ms": times[0],
+                    "max_ms": times[-1], "reps": len(times),
+                    **clickbench_stages(pe, ops, batch, q),
+                    "rows": batch.length,
+                    "rows_per_s": batch.length / statistics.median(times)
+                    * 1e3, "result": result, "peak_gib": peak / 2**30,
+                    "held_before_gib": held / 2**30,
+                    "step_adds_gib": (peak - held) / 2**30, **busy}
+        log(f"ClickBench Q{q} timing: {lines[q]}")
+    return launches, lines
+
+
 def check_probes(kp, probes, dev) -> None:
     """Phase 9: every probe kernel and stage variant against its plain
     version on the same inputs, bit for bit."""
@@ -2930,6 +3145,14 @@ def main() -> int:
     del arrays, batch
     torch.cuda.empty_cache()
 
+    # phase 22: ClickBench's queries 1-8 over hits
+    t0 = time.perf_counter()
+    clickbench_launches, clickbench_timing = clickbench_phase(
+        pe, ops, k1, k2, _build, dev)
+    torch.cuda.empty_cache()
+    log(f"phase 22 (ClickBench, {HITS_ROWS} rows): "
+        f"{time.perf_counter() - t0:.1f} s")
+
     # phase 14
     t0 = time.perf_counter()
     nested_launches = nested_phase(ops, k1, k2, _build, dev)
@@ -3031,7 +3254,7 @@ def main() -> int:
                "nested batch filter": nested_launches,
                "text join step": text_launches, **lineitem_launches,
                **query_launches, "external sort": sort_launches,
-               **q3_launches}
+               **q3_launches, **clickbench_launches}
     kernels = []
     for key in ("K1", "K2", "K3", *shown, "dense_agg", "K1_16"):
         row = kernels_rows[key]
@@ -3061,6 +3284,8 @@ def main() -> int:
         log(f"TPC-H {name} step: {json.dumps(line)}")
     log(f"external sort of lineitem: {json.dumps(sort_timing)}")
     log(f"TPC-H Q3 step: {json.dumps(q3_timing)}")
+    for q, line in clickbench_timing.items():
+        log(f"ClickBench Q{q} step: {json.dumps(line)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

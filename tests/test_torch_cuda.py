@@ -1727,3 +1727,179 @@ def test_q3_on_card_against_oracle(cuda):
     assert ("K1", 8) in words and ("K1", 16) in words, words
     out = pentry.check_q3(got, pentry.q3_oracle(ca, oa, la))
     assert len(out["rows"]) == 10
+
+
+# ---------------------------------------------------------------------------
+# uint64, float16, cast, whole-column aggregates, ClickBench
+# ---------------------------------------------------------------------------
+
+CAST_NUMERIC = ["bool", "int8", "int16", "int32", "int64", "uint8", "uint16",
+                "uint32", "uint64", "float16", "float32", "float64"]
+
+
+def _u64_values(seed, n=ELEMENTWISE_N):
+    """uint64 values, half of them 2**63 or more, with the corners."""
+    v = np.random.default_rng(seed).integers(0, 2**64, n, dtype=np.uint64,
+                                             endpoint=False)
+    v[:8] = [0, 1, 7, 2**63 - 1, 2**63, 2**63 + 1, 2**64 - 2, 2**64 - 1]
+    return v
+
+
+def _f16_values(seed, n=ELEMENTWISE_N):
+    v = (np.random.default_rng(seed).standard_normal(n) * 100).astype(
+        np.float16)
+    v[:8] = [np.nan, -0.0, 0.0, np.inf, -np.inf, 1.5, -2.5, 65504.0]
+    return v
+
+
+def _cast_values(name, seed, n=ELEMENTWISE_N):
+    if name == "bool":
+        return np.random.default_rng(seed).random(n) < 0.5
+    if name == "uint64":
+        return _u64_values(seed, n)
+    if name == "float16":
+        return _f16_values(seed, n)
+    return _elementwise_values(name, seed)[:n]
+
+
+def test_uint64_and_float16_ops_on_card_match_cpu(cuda):
+    """uint64 above 2**63 and float16's -0.0, inf and NaN through add,
+    sub, mul, div, rem (column and scalar; uint64's exact unsigned
+    division), the checked flags, compares, shifts (logical, amounts
+    mod 64) and neg: bit for bit."""
+    def same(g, c):
+        _same_column(g, c, nan_payloads=False)
+    for name, values in (("uint64", _u64_values), ("float16", _f16_values)):
+        (ga, ca) = _both(values(1), _valid_bools(1), name, cuda)
+        (gb, cb) = _both(values(2), None, name, cuda)
+        scalars = (7, 2**63 + 5, 1) if name == "uint64" else (1.5, 3, 0.0)
+        for op in ("add", "sub", "mul", "div", "rem"):
+            f = getattr(pops, op)
+            same(f(ga, gb), f(ca, cb))
+            for s in scalars:
+                same(f(ga, s), f(ca, s))
+        for op in ("eq", "lt", "gt_eq", "distinct"):
+            f = getattr(pops, op)
+            same(f(ga, gb), f(ca, cb))
+            same(f(ga, scalars[1]), f(ca, scalars[1]))
+        same(pops.neg(ga), pops.neg(ca))
+        if name == "uint64":
+            for op in ("add_checked", "sub_checked", "mul_checked"):
+                g, gf = getattr(pops, op)(ga, gb)
+                c, cf = getattr(pops, op)(ca, cb)
+                same(g, c)
+                assert bool(gf) == bool(cf)
+            k = np.arange(ELEMENTWISE_N, dtype=np.uint64) % 70
+            (gk, ck) = _both(k, None, "uint64", cuda)
+            for op in ("shift_right", "shift_left"):
+                same(getattr(pops, op)(ga, gk), getattr(pops, op)(ca, ck))
+            assert pops.shift_right(ga, 1).to_pylist()[7] == 2**63 - 1
+            assert pops.rem(gb, 7).to_pylist()[7] == (2**64 - 1) % 7
+
+
+@pytest.mark.parametrize("source", CAST_NUMERIC)
+def test_cast_matrix_on_card_matches_cpu(cuda, source):
+    """ops.cast from `source` to every numeric type, safe (failures are
+    nulls, their values zero) and unsafe where no valid row fails: bit
+    for bit, uint64 -> float64 by hi * 2**32 + lo."""
+    (g, c) = _both(_cast_values(source, 3), _valid_bools(3), source, cuda)
+    for target in CAST_NUMERIC:
+        dt = st.bool_ if target == "bool" else getattr(st, target)
+        _same_column(pops.cast(g, dt), pops.cast(c, dt), nan_payloads=False)
+    if source in ("uint8", "uint16", "uint32"):
+        for target in ("uint64", "int64", "float64"):
+            dt = getattr(st, target)
+            opts = pops.castmod.CastOptions(safe=False)
+            _same_column(pops.cast(g, dt, opts), pops.cast(c, dt, opts))
+    if source == "uint64":
+        with pytest.raises(st.ComputeError):
+            pops.cast(g, st.int64, pops.castmod.CastOptions(safe=False))
+
+
+def _u64_f16_batch(device, n=100_000):
+    rng = np.random.default_rng(21)
+    ok = rng.random(n) > 0.1
+    uk = rng.integers(0, 2000, n).astype(np.uint64) * np.uint64(2**53 + 1)
+    hk = np.array([1.5, 2.5, -0.0, 0.0, np.inf, np.nan], np.float16)[
+        rng.integers(0, 6, n)]
+    return pbt.record_batch({
+        "uk": pcol.primitive(uk, st.uint64, device=device),
+        "hk": pcol.primitive(hk, st.float16, device=device),
+        "k": pcol.primitive(rng.integers(0, 50, n).astype(np.int32),
+                            st.int32, device=device),
+        "uv": pcol.primitive(_u64_values(22, n), st.uint64, validity=ok,
+                             device=device),
+        "hv": pcol.primitive(_f16_values(23, n), st.float16, validity=ok,
+                             device=device)})
+
+
+def test_uint64_float16_sort_group_by_and_aggregates_on_card_match_cpu(
+        cuda):
+    """sort_to_indices, the RowConverter round trip, group_by on (uint64,
+    float16) keys (sort pipeline, K1 at 8 and 2 bytes) and on an int32
+    key with uint64 values (the dense engine, values flipped), and the
+    whole-column aggregates, on the card against the CPU: bit for bit,
+    but float sums (a float64 cumsum in another order, then float16):
+    within 2**-10 x the sum of |v| over the column."""
+    got = {}
+    for d in (cuda, "cpu"):
+        b = _u64_f16_batch(d)
+        out = [pops.sortmod.sort_to_indices(b[c], SortOptions(*o))
+               for c in ("uk", "uv", "hv") for o in OPTION_PAIRS]
+        rc = RowConverter([SortOptions(True, False), SortOptions()] * 2)
+        cols = [b["uv"], b["hv"], b["uk"], b["hk"]]
+        back = rc.convert_rows(rc.convert_columns(cols), b.length)
+        for a, x in zip(cols, back):
+            assert bool(pops.equal_columns(a, x))
+        dk.launches = 0
+        grouped = group_by(b, ["uk", "hk"], [
+            ("uv", "sum"), ("uv", "min"), ("uv", "max"), ("uv", "mean"),
+            ("hv", "min"), ("hv", "max")])
+        sums = group_by(b, ["uk"], [("hv", "sum"), ("hv", "mean")])
+        dense = group_by(b, ["k"], [("uv", "sum"), ("uv", "min"),
+                                    ("uv", "max"), ("uv", "mean")])
+        aggs = [pops.finalize(getattr(pops, a)(b[c]), b[c].dtype)
+                for c in ("uv", "hv") for a in ("min_", "max_")]
+        aggs += [pops.finalize(pops.sum_(b["uv"]), st.uint64),
+                 pops.finalize(pops.product(b["uv"]), st.uint64)]
+        got[d] = (out, back, grouped, sums, dense, aggs, dk.launches,
+                  pops.finalize(pops.sum_(b["hv"])),
+                  _finite_magnitude(column_to_numpy(b["hv"])[0]))
+    g, c = got[cuda], got["cpu"]
+    assert g[6] == 1  # the dense engine's one launch on the card
+    for x, y in zip(g[0] + g[1] + list(g[2].columns) + list(g[4].columns),
+                    c[0] + c[1] + list(c[2].columns) + list(c[4].columns)):
+        _same_column(x, y)
+    _same_column(g[3]["uk"], c[3]["uk"])
+    for name in ("sum_hv", "mean_hv"):
+        x = g[3][name].values.cpu().to(torch.float64)
+        y = c[3][name].values.to(torch.float64)
+        finite = y.isfinite()
+        assert torch.equal(x[~finite].nan_to_num(), y[~finite].nan_to_num())
+        assert ((x - y)[finite].abs() <= 2**-10 * c[8]).all(), name
+    assert [repr(x) for x in g[5]] == [repr(x) for x in c[5]]
+    assert abs(g[7] - c[7]) <= 2**-10 * c[8] or (g[7] != g[7] and
+                                                 c[7] != c[7])
+
+
+def _finite_magnitude(v: np.ndarray) -> float:
+    """The sum of |v| over the finite values, in float64."""
+    v = v.astype(np.float64)
+    return float(np.abs(v[np.isfinite(v)]).sum())
+
+
+def test_clickbench_on_card_against_oracle(cuda):
+    """ClickBench queries 1-8 over 200,000 rows of `hits` on the card:
+    exact against clickbench_oracle (AVG(UserID) within 1e-12), K1 at 8
+    bytes in the uint64 group-bys and K2 in query 6's filter."""
+    arrays = pentry.example_hits_arrays(200_000)
+    batch = pentry.hits_batch(arrays, cuda)
+    want = pentry.clickbench_oracle(arrays)
+    for q in sorted(pentry.CLICKBENCH_QUERIES):
+        with _build.launch_words() as words:
+            got = pentry.clickbench_step(batch, q)
+        pentry.check_clickbench(got, want[q], q)
+        if q in (4, 7, 8):
+            assert ("K1", 8) in words, (q, words)
+        if q == 6:
+            assert ("K2", 1) in words, words

@@ -6,9 +6,11 @@ JAX sublane-major bitmaps and u32 limb pairs, the port's LSB bitmaps and
 native int64) enters a comparison.  Every comparison here is exact: the
 port has no floating-point arithmetic except the mean, whose int64 sum
 and count are exact and whose one division rounds the same way in both.
-Float64 columns cross as values (the JAX package's limb pairs joined by
-`wide.join_numpy`); a test that must tell -0.0 from +0.0, or one NaN
-payload from another, compares their bits.
+Float64 and uint64 columns cross as values (the JAX package's (capacity,
+2) u32 limb pairs joined by `wide.join_numpy`; the port's uint64 bits read
+as numpy uint64), float16 as numpy float16; a test that must tell -0.0
+from +0.0, or one NaN payload from another, compares their bits
+(`bits_of`).
 """
 
 import numpy as np
@@ -30,7 +32,8 @@ torch.set_num_threads(TORCH_THREADS)
 
 _NP = {"int8": np.int8, "int16": np.int16, "int32": np.int32,
        "int64": np.int64, "uint8": np.uint8, "uint16": np.uint16,
-       "uint32": np.uint32, "float32": np.float32, "float64": np.float64}
+       "uint32": np.uint32, "uint64": np.uint64, "float16": np.float16,
+       "float32": np.float32, "float64": np.float64}
 
 
 def jax_column(values, valid, dtype_name):
@@ -42,6 +45,15 @@ def jax_column(values, valid, dtype_name):
     dt = getattr(at.schema, dtype_name)
     return at.primitive(np.asarray(values, _NP[dtype_name]), dt,
                         validity=validity, length=n)
+
+
+def bits_of(values):
+    """A float array's bits as unsigned integers of its width (other
+    arrays as they are), for comparisons that tell -0.0 from +0.0."""
+    values = np.asarray(values)
+    if values.dtype.kind == "f":
+        return values.view(f"u{values.dtype.itemsize}")
+    return values
 
 
 def port_column(values, valid, dtype_name):
