@@ -1976,3 +1976,182 @@ def check_clickbench(got, want, q: int):
     elif got != want:
         raise AssertionError(f"ClickBench Q{q}: {got!r} != {want!r}")
     return got
+
+
+# ---------------------------------------------------------------------------
+# ClickBench's `hits` in primary-key order: run-end encoding, zoned time
+# ---------------------------------------------------------------------------
+
+HITS_PK_COLUMNS = ["CounterID", "EventDate", "EventTime", "IsRefresh",
+                   "DontCountHits"]
+HITS_TZ = "Europe/Moscow"  # ClickHouse's DateTime of the published table
+HITS_PK_TYPES = {"CounterID": st.uint32, "EventDate": st.Date32(),
+                 "EventTime": st.Timestamp("s", HITS_TZ),
+                 "IsRefresh": st.uint8, "DontCountHits": st.uint8}
+HITS_RUN_COLUMNS = ("CounterID", "EventDate")  # the primary key's lead
+# Moscow time was UTC+4 from 2011-03-27 to 2014-10-26 (Federal Law 107-FZ
+# of 2011-06-03 and 248-FZ of 2014-07-21), so all through July 2013
+MSK_2013_OFFSET_S = 4 * 3600
+HITS_COUNTERS = 4_000
+HITS_TOP_COUNTER = 62  # query 43's counter, the most frequent
+HITS_COUNTER_ZIPF = 1.0
+HITS_COUNTER_ID_RANGE = 200_000
+# the share of rows set, of 256: IsRefresh 6.25 %, DontCountHits 3.1 %
+HITS_REFRESH_OF_256 = 16
+HITS_DONT_COUNT_OF_256 = 8
+# the daily curve: relative hits per hour of Moscow time, 00 to 23
+HITS_HOUR_WEIGHTS = (3, 2, 1, 1, 1, 1, 2, 4, 7, 9, 10, 10, 10, 10, 10, 10,
+                     10, 9, 9, 9, 8, 7, 6, 4)
+Q43 = ("SELECT DATE_TRUNC('minute', EventTime) AS M, COUNT(*) AS PageViews "
+       "FROM hits WHERE CounterID = 62 AND EventDate >= '2013-07-14' AND "
+       "EventDate <= '2013-07-15' AND IsRefresh = 0 AND DontCountHits = 0 "
+       "GROUP BY DATE_TRUNC('minute', EventTime) ORDER BY "
+       "DATE_TRUNC('minute', EventTime) LIMIT 10 OFFSET 1000;")
+Q43_DAYS = ("2013-07-14", "2013-07-15")
+Q43_OFFSET = 1000
+Q43_LIMIT = 10
+
+
+def example_hits_pk_arrays(rows: int = HITS_ROWS, seed: int = 15) -> dict:
+    """The five columns ClickBench's query 43 reads, drawn from `seed` in
+    the table's primary-key order (CounterID, EventDate, ...) by
+    construction, never sorted: HITS_COUNTERS counter ids (62 and others
+    drawn below HITS_COUNTER_ID_RANGE), their rows Zipf(HITS_COUNTER_ZIPF)
+    by a rank (62 first, the others' ranks a permutation), each counter's
+    rows spread over the days of July 2013 uniformly; EventTime a second
+    of its row's Moscow day by HITS_HOUR_WEIGHTS and uniform within the
+    hour, in no order inside a (counter, day) run, as UTC seconds;
+    EventDate its Moscow date; IsRefresh and DontCountHits 1 on
+    HITS_REFRESH_OF_256 / HITS_DONT_COUNT_OF_256 of 256 rows.
+    -> {name: numpy array} (CounterID uint32, EventDate int32 days,
+    EventTime int64 seconds, the flags uint8)."""
+    rng = np.random.default_rng(seed)
+    others = rng.choice(np.arange(1, HITS_COUNTER_ID_RANGE - 1, dtype=np.uint32),
+                        HITS_COUNTERS - 1, replace=False)
+    others[others >= HITS_TOP_COUNTER] += 1  # never 62
+    ids = np.sort(np.append(others, np.uint32(HITS_TOP_COUNTER)))
+    rank = np.empty(HITS_COUNTERS, np.int64)
+    top = int(np.searchsorted(ids, HITS_TOP_COUNTER))
+    rank[top] = 1
+    rank[np.arange(HITS_COUNTERS) != top] = 2 + rng.permutation(
+        HITS_COUNTERS - 1)
+    weights = rank.astype(np.float64) ** -HITS_COUNTER_ZIPF
+    per_counter = rng.multinomial(rows, weights / weights.sum())
+    per_run = rng.multinomial(per_counter, np.full(HITS_DAYS, 1 / HITS_DAYS))
+    runs = per_run.reshape(-1)
+    counter = np.repeat(np.repeat(ids, HITS_DAYS), runs)
+    days = _days(HITS_FIRST_DAY) + np.arange(HITS_DAYS, dtype=np.int32)
+    date = np.repeat(np.tile(days, HITS_COUNTERS), runs).astype(np.int32)
+    w = np.asarray(HITS_HOUR_WEIGHTS, np.float64)
+    hour_of = np.minimum(np.searchsorted(
+        np.cumsum(w / w.sum()), (np.arange(2**16) + 0.5) / 2**16),
+        len(w) - 1).astype(np.int64)
+    local = date.astype(np.int64) * 86_400
+    local += hour_of[rng.integers(0, 2**16, rows, dtype=np.uint16)] * 3600
+    local += rng.integers(0, 3600, rows, dtype=np.int32)
+    local -= MSK_2013_OFFSET_S
+    refresh = (rng.integers(0, 256, rows, dtype=np.uint8)
+               < HITS_REFRESH_OF_256).view(np.uint8)
+    dont = (rng.integers(0, 256, rows, dtype=np.uint8)
+            < HITS_DONT_COUNT_OF_256).view(np.uint8)
+    return {"CounterID": counter, "EventDate": date, "EventTime": local,
+            "IsRefresh": refresh, "DontCountHits": dont}
+
+
+def hits_pk_batch(arrays: dict, device=None) -> bt.RecordBatch:
+    """The primary-key `hits` columns as a batch on `device` (the card by
+    default): CounterID and EventDate run-end encoded there by
+    `ops.run_end_encode`, the rest plain.  The batch's columns differ in
+    capacity (an encoded column's is its run count), so read the row
+    capacity from a plain column."""
+    device = resolve_device(device)
+    cols = []
+    for name in HITS_PK_COLUMNS:
+        c = column_from_numpy(arrays[name], None, dtype=HITS_PK_TYPES[name],
+                              device=device)
+        cols.append(ops.run_end_encode(c) if name in HITS_RUN_COLUMNS else c)
+    fields = tuple(st.Field(n, c.dtype, False)
+                   for n, c in zip(HITS_PK_COLUMNS, cols))
+    return bt.RecordBatch(st.Schema(fields), tuple(cols))
+
+
+def runs_predicate(c: col.RunEndColumn, on_runs: col.BooleanColumn,
+                   rows: int) -> col.BooleanColumn:
+    """A predicate computed on a run-end column's runs (one row a run),
+    decoded to a row mask of `rows` capacity."""
+    return ops.run_end_decode_to(
+        col.RunEndColumn(c.run_ends, on_runs, c.length,
+                         st.RunEndEncoded(st.int32, st.bool_)), rows)
+
+
+def q43_mask(batch: bt.RecordBatch) -> col.BooleanColumn:
+    """Query 43's WHERE: CounterID and EventDate compared on their runs and
+    decoded to rows, ANDed with IsRefresh = 0 and DontCountHits = 0."""
+    rows = batch["EventTime"].capacity
+    cid, date = batch["CounterID"], batch["EventDate"]
+    on_counter = runs_predicate(cid, ops.eq(cid.values, HITS_TOP_COUNTER),
+                                rows)
+    lo, hi = (_days(d) for d in Q43_DAYS)
+    in_days = runs_predicate(date, ops.and_(ops.gt_eq(date.values, lo),
+                                            ops.lt_eq(date.values, hi)), rows)
+    flags = ops.and_(ops.eq(batch["IsRefresh"], 0),
+                     ops.eq(batch["DontCountHits"], 0))
+    return ops.and_(ops.and_(on_counter, in_days), flags)
+
+
+def minute_trunc(t: col.PrimitiveColumn) -> col.PrimitiveColumn:
+    """DATE_TRUNC('minute', t) of a Timestamp("s") column in its zone:
+    t less its local second.  Exact where the zone's offsets are whole
+    minutes, which is checked on the offsets the rows' span meets."""
+    n = t.length
+    if n and t.dtype.tz:
+        lo, hi = t.values[:n].aminmax()
+        offsets = ops.temporal.offsets_between(t.dtype.tz, int(lo), int(hi))
+        if np.any(offsets % 60):
+            raise st.ComputeError(f"{t.dtype.tz}: an offset of the rows' "
+                                  "span is not a whole minute")
+    sec = ops.date_part(t, "second")
+    return col.PrimitiveColumn(t.values - sec.values.to(torch.int64),
+                               t.validity, n, t.dtype)
+
+
+def q43_result(batch: bt.RecordBatch, offset: int = Q43_OFFSET,
+               limit: int = Q43_LIMIT) -> bt.RecordBatch:
+    """Query 43 on a `hits_pk_batch`, ending in its rows on the device:
+    (M, PageViews), ascending M, rows [offset, offset + limit)."""
+    kept = ops.filter_(batch["EventTime"], q43_mask(batch))
+    grouped = gb.group_by(bt.record_batch({"M": minute_trunc(kept)}), ["M"],
+                          [("M", "count")])
+    top = ops.slice_batch(ops.sort_batch(grouped, ["M"],
+                                         limit=offset + limit), offset, limit)
+    return bt.RecordBatch(st.schema([("M", top["M"].dtype),
+                                     ("PageViews", st.int64)]), top.columns)
+
+
+def q43_step(batch: bt.RecordBatch, offset: int = Q43_OFFSET,
+             limit: int = Q43_LIMIT) -> list:
+    """Query 43's result on the host: [(M as UTC seconds, PageViews)]."""
+    out = q43_result(batch, offset, limit)
+    return list(zip(out["M"].to_pylist(), out["PageViews"].to_pylist()))
+
+
+def q43_oracle(arrays: dict, offset: int = Q43_OFFSET,
+               limit: int = Q43_LIMIT) -> list:
+    """Query 43 in numpy on the arrays, with MSK_2013_OFFSET_S for the
+    local minute."""
+    lo, hi = (_days(d) for d in Q43_DAYS)
+    date = arrays["EventDate"]
+    mask = ((arrays["CounterID"] == HITS_TOP_COUNTER) & (date >= lo)
+            & (date <= hi) & (arrays["IsRefresh"] == 0)
+            & (arrays["DontCountHits"] == 0))
+    t = arrays["EventTime"][mask]
+    minutes, counts = np.unique(t - (t + MSK_2013_OFFSET_S) % 60,
+                                return_counts=True)
+    return list(zip(minutes[offset:offset + limit].tolist(),
+                    counts[offset:offset + limit].tolist()))
+
+
+def check_q43(got: list, want: list) -> list:
+    if got != want:
+        raise AssertionError(f"ClickBench Q43: {got!r} != {want!r}")
+    return got

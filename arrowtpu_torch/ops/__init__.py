@@ -3,6 +3,7 @@
 from . import (aggregate, arity, bitwise, boolean, coalesce, equal, merge,
                numeric, strings, zip as zipmod)
 from . import cast as castmod, dictionary as dictmod, union as unionmod
+from . import ree, temporal
 from .aggregate import (bool_and, bool_or, count, finalize, max_, min_,
                         product, sum_)
 from .cast import can_cast_types, cast, dictionary_decode, dictionary_encode
@@ -20,6 +21,8 @@ from .filter import apply_plan, build_plan, filter_, filter_record_batch
 from .groupby import group_by
 from .join import hash_join
 from .merge import merge_batches, merge_indices, merge_n
+from .ree import run_end_decode, run_end_decode_to, run_end_encode, take_run
+from .temporal import date_part
 from .numeric import (add, add_checked, div, div_checked, mul, mul_checked,
                       neg, raise_if, rem, rem_checked, sub, sub_checked)
 from . import sort as sortmod
@@ -34,7 +37,9 @@ from .zip import nullif, shift, zip_
 
 __all__ = ["aggregate", "arity", "bitwise", "boolean", "coalesce", "equal",
            "merge", "numeric", "strings", "zipmod", "castmod", "dictmod",
-           "unionmod", "bool_and", "bool_or", "count", "finalize", "max_",
+           "unionmod", "ree", "temporal", "run_end_decode",
+           "run_end_decode_to", "run_end_encode", "take_run", "date_part",
+           "bool_and", "bool_or", "count", "finalize", "max_",
            "min_", "product", "sum_", "can_cast_types", "cast",
            "dictionary_decode", "dictionary_encode",
            "garbage_collect_dictionary", "merge_dictionary_values",

@@ -257,19 +257,43 @@ Phases (each raises on failure; the exit code is then non-zero):
      query exact against `entry.clickbench_oracle` (numpy on a host
      thread; AVG(UserID) within a relative 1e-12 of the exact mean); each
      step's time (CUDA events, median of 5 with min and max), its stages,
-     peak memory and busy share.
+     peak memory and busy share;
+  23. ClickBench's query 43 (`entry.q43_step`: CounterID = 62 and
+     EventDate in 2013-07-14..15 compared on the runs of their run-end
+     encodings and decoded to rows, IsRefresh = 0, DontCountHits = 0, the
+     filter of EventTime, DATE_TRUNC('minute') as EventTime less its
+     Europe/Moscow second, the group-by, ORDER BY, OFFSET 1000 LIMIT 10)
+     over `hits` in its primary-key order, drawn at 99,997,497 rows
+     (`entry.example_hits_pk_arrays`: CounterID uint32, EventDate Date32,
+     EventTime Timestamp("s", "Europe/Moscow"), IsRefresh and
+     DontCountHits uint8, the 5 of 105 columns it reads): the two
+     `run_end_encode`s of `entry.hits_pk_batch` against numpy's runs and
+     decoded back bit for bit (K1 must launch at 4 bytes), `take_run` of
+     1,000,000 ids (1 % null) against numpy's gather, year, month and day
+     of EventTime under Europe/Moscow equal to EventDate's on every row,
+     the query exact against `entry.q43_oracle` (K1 at 8 bytes; its run
+     predicates' mask once against the decoded columns'), then the host
+     boundary: `pretty_format_batches` of the result, `iter_rows`, and the
+     C Data round trip of the result and of 1,000,000-row slices of the
+     plain columns onto the card.  The launch counts are set to 0 just
+     before each step and read just after, every K1 / K2 call held to
+     plain, every dense_agg call to `dense_aggregate_plain`; the encodes,
+     decodes, take_run, the date_part passes, the query and the round
+     trip timed (CUDA events, median of 5 with min and max), the query's
+     stages, peak memory and busy share.
 
 The line before the last lists the kernels as JSON (`launches` from the
 flagship step for K1 and K2, from K3's entry point for K3, from
 run_probes for the probe kernels, from config 4 at 100 keys for
 dense_agg and from the Q6 step for K1's 16-byte words; every path's counts under `launches_by_path`, the skewed
 step's filters as a path of their own, TPC-H Q1, the text join step, the
-lineitem exchange, the distributed Q1, Q14, Q19, the external sort, Q3
-and ClickBench's eight queries too; the flagship, join
+lineitem exchange, the distributed Q1, Q14, Q19, the external sort, Q3,
+ClickBench's eight queries and phase 23's steps too; the flagship, join
 and skewed join steps, int64-keyed, must launch no dense_agg; K1's 16-byte
 row carries its Q1 calls), after the Q1 step's, the l_comment sort's,
 the LIKE lines', the Q14 and Q19 steps', the external sort's, the Q3
-step's and the eight ClickBench steps' JSON lines and the card's line; the
+step's, the eight ClickBench steps' and phase 23's JSON lines and the
+card's line; the
 last line is {"ok": true, "device":
 {...}}.
 Without a CUDA device the script exits with an error and prints no
@@ -278,6 +302,7 @@ result.
 
 import collections
 import contextlib
+import ctypes
 import json
 import statistics
 import subprocess
@@ -1953,6 +1978,306 @@ def clickbench_phase(pe, ops, k1, k2, build, dev):
     return launches, lines
 
 
+# ---------------------------------------------------------------------------
+# phase 23: ClickBench's query 43 over `hits` in primary-key order
+# ---------------------------------------------------------------------------
+
+HITS_PK_REPS = 5
+TAKE_RUN_IDS = 1_000_000
+CDATA_SLICE_ROWS = 1_000_000
+
+
+def hits_pk_oracle(pe, arrays) -> dict:
+    """numpy on the host: each run column's run ends and values, the
+    Moscow-date invariant by MSK's fixed +4 h of 2013 (no tzdb), and query
+    43's result."""
+    runs = {}
+    for name in pe.HITS_RUN_COLUMNS:
+        x = arrays[name]
+        starts = np.flatnonzero(np.diff(x)) + 1
+        runs[name] = (np.append(starts, len(x)).astype(np.int32),
+                      x[np.append(0, starts)])
+    days = (arrays["EventTime"] + pe.MSK_2013_OFFSET_S) // 86_400
+    return {"runs": runs,
+            "invariant": bool((days == arrays["EventDate"]).all()),
+            "q43": pe.q43_oracle(arrays)}
+
+
+@contextlib.contextmanager
+def counted(k1, k2, build, dk, args=None):
+    """The launch counts set to 0 on entry and read on exit (into the
+    yielded dict), every K1 / K2 call held to plain, every dense_agg call
+    recorded (under "dense_calls")."""
+    run = {}
+    with held_to_plain({"K1": k1, "K2": k2}, args) as calls, \
+            build.launch_words() as words, \
+            recorded(dk, "dense_aggregate") as dense_calls:
+        k1.launches = k2.launches = dk.launches = 0
+        build.count_launches = 0
+        yield run
+        torch.cuda.synchronize()
+        run.update({"K1": k1.launches, "K2": k2.launches,
+                    "dense_agg": dk.launches,
+                    "tile_counts": build.count_launches,
+                    **{f"{k}_{w}": words.count((k, w))
+                       for k, w in sorted(set(words))}})
+    for d_args, out in dense_calls:
+        plain = dk.dense_aggregate_plain(*d_args)
+        if not all(torch.equal(a, b) for a, b in zip(out, plain)):
+            raise AssertionError("dense_agg differs from its plain version")
+    run["calls_held_to_plain"] = {k: len(v) for k, v in calls.items()}
+    run["dense_calls_held_to_plain"] = len(dense_calls)
+
+
+_SIGNED_TWIN = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+
+
+def same_rows(a, b, n) -> bool:
+    """Two port columns' first n rows: values (uint16 / uint32 by their
+    bits: the card compares neither) and validity as bools."""
+    def bits(t):
+        return t.view(_SIGNED_TWIN.get(t.dtype, t.dtype))[:n]
+    return (a.dtype == b.dtype and torch.equal(bits(a.values), bits(b.values))
+            and torch.equal(a.valid_bool()[:n], b.valid_bool()[:n]))
+
+
+def timed(fn, reps=HITS_PK_REPS) -> dict:
+    times = run_times_ms(fn, reps=reps, warmup=1)
+    return {"ms": statistics.median(times), "min_ms": times[0],
+            "max_ms": times[-1], "reps": len(times)}
+
+
+def q43_stages(pe, ops, batch) -> dict:
+    """Query 43's stages, each timed alone (CUDA events, median of 3)."""
+    from arrowtpu_torch.core import batch as bt
+    from arrowtpu_torch.ops import groupby as gb
+
+    reps = dict(reps=3, warmup=1)
+    rows = batch["EventTime"].capacity
+    cid, date = batch["CounterID"], batch["EventDate"]
+    lo, hi = (pe._days(d) for d in pe.Q43_DAYS)
+
+    def runs():
+        return (pe.runs_predicate(cid, ops.eq(cid.values, pe.HITS_TOP_COUNTER),
+                                  rows),
+                pe.runs_predicate(date, ops.and_(
+                    ops.gt_eq(date.values, lo), ops.lt_eq(date.values, hi)),
+                    rows))
+    on_counter, in_days = runs()
+    mask = pe.q43_mask(batch)
+    kept = ops.filter_(batch["EventTime"], mask)
+    minute = pe.minute_trunc(kept)
+    keyed = bt.record_batch({"M": minute})
+    grouped = gb.group_by(keyed, ["M"], [("M", "count")])
+    plan = gb.plan_group_by(keyed, ["M"], [("M", "count")])
+    return {
+        "run_predicates_and_decode_ms": median_ms(runs, **reps),
+        "mask_ms": median_ms(lambda: ops.and_(
+            ops.and_(on_counter, in_days),
+            ops.and_(ops.eq(batch["IsRefresh"], 0),
+                     ops.eq(batch["DontCountHits"], 0))), **reps),
+        "filter_ms": median_ms(lambda: ops.filter_(batch["EventTime"], mask),
+                               **reps),
+        "trunc_ms": median_ms(lambda: pe.minute_trunc(kept), **reps),
+        "group_by_ms": median_ms(lambda: gb.group_by(
+            keyed, ["M"], [("M", "count")]), **reps),
+        "top_ms": median_ms(lambda: ops.slice_batch(ops.sort_batch(
+            grouped, ["M"], limit=pe.Q43_OFFSET + pe.Q43_LIMIT),
+            pe.Q43_OFFSET, pe.Q43_LIMIT), **reps),
+        "kept_rows": kept.length, "minutes": grouped.length,
+        "group_by_engine": plan.engine + (f" at {plan.buckets} buckets"
+                                          if plan.buckets else "")}
+
+
+def cdata_round_trip(cdata, c, dev) -> str:
+    """Export a column through the C Data Interface and import it onto the
+    card: it must come back row for row, its type (a zone included) too.
+    -> the format string."""
+    schema, array = cdata.export_column(c, "c")
+    fmt = schema.format.decode()
+    back, field = cdata.import_column(ctypes.addressof(array),
+                                      ctypes.addressof(schema), dev)
+    if field.dtype != c.dtype or back.length != c.length or not same_rows(
+            back, c, c.length) or back.device.type != dev.type:
+        raise AssertionError(f"C Data round trip of {c.dtype} differs")
+    return fmt
+
+
+def hits_pk_phase(pe, ops, k1, k2, build, dev):
+    """Phase 23: ClickBench's query 43 over `hits` in primary-key order,
+    drawn at 99,997,497 rows (`entry.example_hits_pk_arrays`): the two
+    run-end encodes of `entry.hits_pk_batch` against numpy's runs and
+    decoded back bit for bit, `take_run` of 1,000,000 ids (1 % null)
+    against numpy's gather, the Moscow-date invariant on every row,
+    `entry.q43_step` exact against `entry.q43_oracle` (its run predicates'
+    mask against the decoded columns' once), then the host boundary
+    (`pretty_format_batches`, `iter_rows`, the C Data round trip of the
+    result and of a 1,000,000-row slice of the plain columns onto the
+    card).  The launch counts are set to 0 just before each step and read
+    just after; every K1 / K2 call is held to plain and every dense_agg
+    call to `dense_aggregate_plain`.  -> ({path: launches}, {step: timing
+    line})."""
+    import concurrent.futures
+    from arrowtpu_torch.core import batch as bt
+    from arrowtpu_torch.core.accessor import iter_rows
+    from arrowtpu_torch.core import column as col
+    from arrowtpu_torch.interop import cdata
+    from arrowtpu_torch.interop.numpy_bridge import column_from_numpy
+    from arrowtpu_torch.kernels import dense_agg as dk
+    from arrowtpu_torch.utils import buffer_memory_size, pretty_format_batches
+
+    t0 = time.perf_counter()
+    arrays = pe.example_hits_pk_arrays(HITS_ROWS)
+    t_draw = time.perf_counter() - t0
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    want_f = pool.submit(hits_pk_oracle, pe, arrays)
+    launches, lines = {}, {}
+
+    # step 1: the batch, its two run-end encodes on the card
+    args = {}
+    with counted(k1, k2, build, dk, args) as run:
+        batch = pe.hits_pk_batch(arrays, dev)
+    if not run.get("K1_4"):
+        raise AssertionError(f"hits_pk_batch: no K1 launch at 4 bytes "
+                             f"({run})")
+    launches["hits_pk_batch (run_end_encode x2)"] = run
+    plain = {n: column_from_numpy(arrays[n], None,
+                                  dtype=pe.HITS_PK_TYPES[n], device=dev)
+             for n in pe.HITS_RUN_COLUMNS}
+    t = batch["EventTime"]
+    rows, cap = t.length, t.capacity
+    want = want_f.result()
+    sizes = {}
+    for name in pe.HITS_RUN_COLUMNS:
+        r = batch[name]
+        ends, values = want["runs"][name]
+        got_values = r.values.values[:r.n_runs].cpu().numpy()
+        if (r.n_runs != len(ends) or not np.array_equal(
+                r.run_ends[:r.n_runs].cpu().numpy(), ends)
+                or not np.array_equal(got_values.view(values.dtype), values)
+                or not bool((r.run_ends[r.n_runs:] == rows).all())):
+            raise AssertionError(f"{name}: runs differ from numpy's")
+        back = ops.run_end_decode_to(r, cap)
+        if not same_rows(back, plain[name], rows):
+            raise AssertionError(f"{name}: decode differs from the column")
+        sizes[name] = {"runs": r.n_runs,
+                       "plain_bytes": buffer_memory_size(plain[name]),
+                       "encoded_bytes": buffer_memory_size(r)}
+        lines[f"encode {name}"] = dict(timed(
+            lambda: ops.run_end_encode(plain[name])), runs=r.n_runs,
+            rows=rows)
+        lines[f"decode {name}"] = timed(
+            lambda: ops.run_end_decode_to(r, cap))
+    log(f"hits pk: {rows} rows, {sum(a.nbytes for a in arrays.values()) / 1e9:.3f} "
+        f"GB, drawn in {t_draw:.1f} s; runs equal numpy's and decode bit "
+        f"for bit: {sizes}; launches {run}; K1 / K2 calls by module and "
+        f"word bytes {by_caller(args, build)}")
+
+    # step 2: take_run of 1,000,000 ids, 1 % null
+    rng = np.random.default_rng(23)
+    ids = rng.integers(0, rows, TAKE_RUN_IDS)
+    ok = rng.random(TAKE_RUN_IDS) >= 0.01
+    idx = col.primitive(ids, pe.st.int64, validity=ok, device=dev)
+    for name in pe.HITS_RUN_COLUMNS:
+        with counted(k1, k2, build, dk) as run:
+            got = ops.take_run(batch[name], idx)
+        launches[f"take_run {name}"] = run
+        vals = got.values[:TAKE_RUN_IDS].cpu().numpy()
+        valid = got.valid_bool()[:TAKE_RUN_IDS].cpu().numpy()
+        x = arrays[name]
+        if not (np.array_equal(valid, ok) and np.array_equal(
+                vals[ok].view(x.dtype), x[ids[ok]])):
+            raise AssertionError(f"take_run {name} differs from numpy")
+        lines[f"take_run {name}"] = dict(timed(
+            lambda: ops.take_run(batch[name], idx)), ids=TAKE_RUN_IDS)
+    log(f"hits pk: take_run of {TAKE_RUN_IDS} ids (1 % null) exact against "
+        "numpy's gather, both columns")
+
+    # step 3: the Moscow dates of EventTime are EventDate, every row
+    with counted(k1, k2, build, dk) as run:
+        date = ops.run_end_decode_to(batch["EventDate"], cap)
+        for part in ("year", "month", "day"):
+            if not torch.equal(ops.date_part(t, part).values,
+                               ops.date_part(date, part).values):
+                raise AssertionError(f"invariant: {part} of EventTime in "
+                                     "Moscow differs from EventDate's")
+    if not want["invariant"]:
+        raise AssertionError("the draw's EventDate is not EventTime + 4 h")
+    launches["date_part invariant"] = run
+    lines["date_part day, Europe/Moscow"] = dict(timed(
+        lambda: ops.date_part(t, "day")), rows=rows)
+    lines["date_part year, month, day, Europe/Moscow"] = timed(
+        lambda: [ops.date_part(t, p) for p in ("year", "month", "day")])
+    log(f"hits pk: year, month and day of EventTime under {pe.HITS_TZ} "
+        f"equal EventDate's on all {rows} rows (host: EventDate is "
+        "EventTime + 4 h, MSK's fixed offset of 2013)")
+
+    # step 4: query 43
+    args = {}
+    with counted(k1, k2, build, dk, args) as run:
+        got = pe.q43_step(batch)
+    if not run.get("K1_8"):
+        raise AssertionError(f"Q43: no K1 launch at 8 bytes ({run})")
+    launches["ClickBench Q43"] = run
+    pe.check_q43(got, want["q43"])
+    mask = pe.q43_mask(batch)
+    lo, hi = (pe._days(d) for d in pe.Q43_DAYS)
+    direct = ops.and_(ops.and_(
+        ops.eq(plain["CounterID"], pe.HITS_TOP_COUNTER),
+        ops.and_(ops.gt_eq(plain["EventDate"], lo),
+                 ops.lt_eq(plain["EventDate"], hi))),
+        ops.and_(ops.eq(batch["IsRefresh"], 0),
+                 ops.eq(batch["DontCountHits"], 0)))
+    if not torch.equal(mask.values_bool() & mask.valid_bool(),
+                       direct.values_bool() & direct.valid_bool()):
+        raise AssertionError("Q43: the run predicates' mask differs from "
+                             "the decoded columns'")
+    del direct, mask, plain
+    stages = q43_stages(pe, ops, batch)
+    log(f"ClickBench Q43 exact against q43_oracle: {got}; launches {run}; "
+        f"K1 / K2 calls by module and word bytes {by_caller(args, build)}; "
+        f"stages {stages}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    pe.q43_step(batch)
+    peak = torch.cuda.max_memory_allocated()
+    lines["ClickBench Q43"] = dict(
+        timed(lambda: pe.q43_step(batch)), query=pe.Q43, **stages,
+        rows=rows, result=got, peak_gib=peak / 2**30,
+        held_before_gib=held / 2**30, step_adds_gib=(peak - held) / 2**30,
+        **profile(lambda: pe.q43_step(batch), reps=3))
+
+    # step 5: the host boundary
+    with counted(k1, k2, build, dk) as run:
+        result = pe.q43_result(batch)
+        text = pretty_format_batches(result)
+        rows_out = list(iter_rows(result, window=4))
+        if rows_out != [dict(zip(("M", "PageViews"), r)) for r in got]:
+            raise AssertionError("iter_rows differs from the result")
+        formats = [cdata_round_trip(cdata, c, dev) for c in result.columns]
+        for name in pe.HITS_PK_COLUMNS[2:]:
+            formats.append(cdata_round_trip(
+                cdata, ops.slice_(batch[name], 0, CDATA_SLICE_ROWS), dev))
+        for name in pe.HITS_RUN_COLUMNS:
+            formats.append(cdata_round_trip(cdata, ops.slice_(
+                ops.run_end_decode_to(batch[name], cap), 0,
+                CDATA_SLICE_ROWS), dev))
+    if "tss:Europe/Moscow" not in formats:
+        raise AssertionError(f"no zoned timestamp format in {formats}")
+    launches["host boundary"] = run
+    log("ClickBench Q43 result:\n" + text)
+    log(f"hits pk: iter_rows equal to the result; C Data round trips onto "
+        f"the card equal row for row, formats {formats}")
+    sliced = bt.record_batch({n: ops.slice_(batch[n], 0, CDATA_SLICE_ROWS)
+                              for n in pe.HITS_PK_COLUMNS[2:]})
+    lines["C Data export + import"] = dict(timed(
+        lambda: [cdata_round_trip(cdata, c, dev) for c in sliced.columns],
+        reps=3), rows=CDATA_SLICE_ROWS, columns=pe.HITS_PK_COLUMNS[2:])
+    pool.shutdown()
+    return launches, lines
+
+
 def check_probes(kp, probes, dev) -> None:
     """Phase 9: every probe kernel and stage variant against its plain
     version on the same inputs, bit for bit."""
@@ -3153,6 +3478,14 @@ def main() -> int:
     log(f"phase 22 (ClickBench, {HITS_ROWS} rows): "
         f"{time.perf_counter() - t0:.1f} s")
 
+    # phase 23: query 43 over hits in primary-key order
+    t0 = time.perf_counter()
+    hits_pk_launches, hits_pk_timing = hits_pk_phase(pe, ops, k1, k2, _build,
+                                                     dev)
+    torch.cuda.empty_cache()
+    log(f"phase 23 (ClickBench Q43, hits in primary-key order, {HITS_ROWS} "
+        f"rows): {time.perf_counter() - t0:.1f} s")
+
     # phase 14
     t0 = time.perf_counter()
     nested_launches = nested_phase(ops, k1, k2, _build, dev)
@@ -3254,7 +3587,8 @@ def main() -> int:
                "nested batch filter": nested_launches,
                "text join step": text_launches, **lineitem_launches,
                **query_launches, "external sort": sort_launches,
-               **q3_launches, **clickbench_launches}
+               **q3_launches, **clickbench_launches,
+               **{f"hits pk: {p}": c for p, c in hits_pk_launches.items()}}
     kernels = []
     for key in ("K1", "K2", "K3", *shown, "dense_agg", "K1_16"):
         row = kernels_rows[key]
@@ -3286,6 +3620,8 @@ def main() -> int:
     log(f"TPC-H Q3 step: {json.dumps(q3_timing)}")
     for q, line in clickbench_timing.items():
         log(f"ClickBench Q{q} step: {json.dumps(line)}")
+    for step, line in hits_pk_timing.items():
+        log(f"hits pk {step}: {json.dumps(line)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

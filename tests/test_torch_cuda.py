@@ -1903,3 +1903,143 @@ def test_clickbench_on_card_against_oracle(cuda):
             assert ("K1", 8) in words, (q, words)
         if q == 6:
             assert ("K2", 1) in words, words
+
+
+# ---------------------------------------------------------------------------
+# run-end encoding, date_part with zones, the C Data Interface
+# ---------------------------------------------------------------------------
+
+ZONES = ["Europe/Moscow", "America/New_York", "Australia/Lord_Howe",
+         "+05:45"]
+TEMPORAL = [st.Date32(), st.Date64(), st.Time32("s"), st.Time32("ms"),
+            st.Time64("us"), st.Time64("ns"), st.Duration("ms"),
+            *[st.Timestamp(u) for u in ("s", "ms", "us", "ns")],
+            *[st.Timestamp("s", z) for z in ZONES],
+            *[st.Timestamp("ms", z) for z in ZONES]]
+
+
+def _instants(dtype, n=3000, seed=0):
+    """n values of `dtype`: near every transition of its zone (one second
+    before, at, after), then random ones within 1700-2250."""
+    from arrowtpu_torch.ops import tzdb
+
+    rng = np.random.default_rng(seed)
+    if isinstance(dtype, st.Date32):
+        return rng.integers(-10**5, 10**5, n).astype(np.int32)
+    if isinstance(dtype, (st.Time32, st.Time64)):
+        per_s = {"s": 1, "ms": 10**3, "us": 10**6, "ns": 10**9}[dtype.unit]
+        v = rng.integers(0, 86_400 * per_s, n)
+        return v.astype(np.int32) if isinstance(dtype, st.Time32) else v
+    if isinstance(dtype, st.Date64):
+        return rng.integers(-8 * 10**12, 8 * 10**12, n)
+    per_s = {"s": 1, "ms": 10**3, "us": 10**6, "ns": 10**9}[dtype.unit]
+    v = rng.integers(-8_500_000_000, 8_800_000_000, n) * per_s
+    v += rng.integers(0, per_s, n)
+    if getattr(dtype, "tz", None):
+        t = tzdb.zone_table(dtype.tz)[0]
+        near = np.stack([t - 1, t, t + 1], 1).reshape(-1)[:n] * per_s
+        v[:len(near)] = near
+    return v
+
+
+@pytest.mark.parametrize("dtype", TEMPORAL, ids=str)
+def test_date_part_on_card_matches_cpu(cuda, dtype):
+    from arrowtpu_torch.ops import temporal
+
+    v = _instants(dtype)
+    valid = np.random.default_rng(1).random(len(v)) > 0.1
+    on = {d: pcol.primitive(v, dtype, validity=valid, device=d)
+          for d in ("cpu", cuda)}
+    for part in temporal.PARTS:
+        got = temporal.date_part(on[cuda], part)
+        want = temporal.date_part(on["cpu"], part)
+        assert torch.equal(got.values.cpu(), want.values), (dtype, part)
+        assert torch.equal(got.validity.cpu(), want.validity)
+
+
+def _ree_cases():
+    rng = np.random.default_rng(3)
+
+    def runs(pool, n=5000):
+        out = []
+        while len(out) < n:
+            out += [pool[int(rng.integers(len(pool)))]] * int(
+                rng.integers(1, 9))
+        return out[:n]
+    nan = float("nan")
+    return {"int32": (runs([1, 2, None, -7]), st.int32),
+            "uint32": (runs([62, 2**32 - 1, 0]), st.uint32),
+            "float64": (runs([nan, 0.5, None, -0.0, 0.0]), st.float64),
+            "utf8": (runs(["a", None, "a string past twelve bytes", ""]),
+                     st.utf8),
+            "date32": (runs([15900, None, 15901]), st.Date32())}
+
+
+@pytest.mark.parametrize("name", list(_ree_cases()))
+def test_run_end_on_card_matches_cpu(cuda, name):
+    from arrowtpu_torch import ops
+    from arrowtpu_torch.core import accessor
+
+    data, dtype = _ree_cases()[name]
+    idx = np.random.default_rng(4).integers(0, len(data), 2000)
+    ok = np.random.default_rng(5).random(2000) > 0.05
+    out = {}
+    for d in ("cpu", cuda):
+        c = pcol.from_pylist(data, dtype, device=d)
+        with _build.launch_words() as words:
+            r = ops.run_end_encode(c)
+        if d == cuda:  # the row numbers' word
+            assert ("K1", 4) in words, words
+        out[d] = (r, ops.run_end_decode(r), ops.take_run(
+            r, pcol.primitive(idx, st.int64, validity=ok, device=d)))
+    (rc, dc, tc), (rg, dg, tg) = out["cpu"], out[cuda]
+    assert rg.n_runs == rc.n_runs
+    assert torch.equal(rg.run_ends.cpu(), rc.run_ends)
+    for a, b in ((rg.values, rc.values), (dg, dc), (tg, tc)):
+        if name == "utf8":
+            assert list(accessor.iter_column(a)) == list(
+                accessor.iter_column(b))
+            continue
+        av, aok, _ = column_to_numpy(a)
+        bv, bok, _ = column_to_numpy(b)
+        assert np.array_equal(aok, bok)
+        if av.dtype.kind == "f":  # NaNs by their bits
+            av, bv = av.view(np.uint64), bv.view(np.uint64)
+        assert np.array_equal(av[aok], bv[bok])
+
+
+def test_q43_on_card_against_oracle(cuda):
+    """ClickBench query 43 over 300,000 rows of `hits` in primary-key
+    order on the card, at offsets that reach rows: exact against
+    q43_oracle, K1 at 4 bytes in the encodes and at 8 in the filter."""
+    arrays = pentry.example_hits_pk_arrays(300_000)
+    with _build.launch_words() as words:
+        batch = pentry.hits_pk_batch(arrays, cuda)
+    assert ("K1", 4) in words, words
+    for offset, limit in ((0, 10), (500, 10), (0, 10**6)):
+        with _build.launch_words() as words:
+            got = pentry.q43_step(batch, offset, limit)
+        pentry.check_q43(got, pentry.q43_oracle(arrays, offset, limit))
+        assert ("K1", 8) in words, words
+
+
+def test_cdata_round_trip_of_a_card_column(cuda):
+    import ctypes
+
+    from arrowtpu_torch.interop import cdata
+
+    v = _instants(st.Timestamp("s", "Europe/Moscow"), 5000)
+    valid = np.random.default_rng(6).random(len(v)) > 0.1
+    cols = [pcol.primitive(v, st.Timestamp("s", "Europe/Moscow"),
+                           validity=valid, device=cuda),
+            pcol.from_pylist(["x", None, "a longer string than twelve"] * 9,
+                             st.utf8, device=cuda),
+            pcol.primitive(np.arange(100, dtype=np.uint32), st.uint32,
+                           device=cuda)]
+    for c in cols:
+        schema, array = cdata.export_column(c, "c")
+        back, field = cdata.import_column(ctypes.addressof(array),
+                                          ctypes.addressof(schema), cuda)
+        assert back.device.type == "cuda" and field.dtype == c.dtype
+        assert back.to_pylist() == c.to_pylist()
+    assert cdata.export_column(cols[0])[0].format == b"tss:Europe/Moscow"
