@@ -94,6 +94,15 @@ published table's laws at its 99,997,497 rows, `hits_batch` builds them
 on the card, and `clickbench_oracle` / `check_clickbench` hold the steps
 to numpy.
 
+`lineitem_ipc` writes a lineitem batch as an Arrow IPC file (or stream)
+of `rows_per_batch`-row record batches (`slice_batch`), the way an engine
+hands a table to another; `read_lineitem_ipc` reads it back onto the card,
+by default with `validate=True` (the UTF-8 check over every l_comment, the
+key bounds of the two dictionaries), into one batch (`concat_batches`),
+on which `q6_step` runs as on any lineitem batch.  `check_same_rows(...,
+same_dictionary=False)` holds the round trip to the batch written, its
+dictionaries by their values.
+
 `lexsort_step` is BASELINE config 3 (`bench.py` config3_lexsort): the
 lexsort of (int32, float64, dictionary-utf8) columns.
 `example_lexsort_columns` draws them as the bench does, and
@@ -917,13 +926,15 @@ def lineitem_exchange(batch: bt.RecordBatch, group: Group) -> bt.RecordBatch:
     return exchange(batch, ["l_orderkey"], group)
 
 
-def check_same_rows(got: bt.RecordBatch, want: bt.RecordBatch) -> int:
+def check_same_rows(got: bt.RecordBatch, want: bt.RecordBatch, *,
+                    same_dictionary: bool = True) -> int:
     """Raise AssertionError unless `got` holds `want`'s rows in order,
     bit for bit, on the device: the length, every row's validity, values
     (a multi-word value's words, a float's bits), a dictionary's keys and
-    its dictionary (the same values object), a string view's bytes,
-    length and len_bound; and zero padding past the length.  -> the row
-    count."""
+    its dictionary (the same values object; with `same_dictionary=False`,
+    as after a round trip through a file, equal values), a string view's
+    bytes, length and len_bound; and zero padding past the length.  -> the
+    row count."""
     from .ops.strings import byte_matrix, max_byte_length
 
     n = want.length
@@ -938,7 +949,9 @@ def check_same_rows(got: bt.RecordBatch, want: bt.RecordBatch) -> int:
                 g.valid_bool()[n:].any()):
             raise AssertionError(f"{name}: validity differs")
         if isinstance(w, col.DictionaryColumn):
-            if g.values is not w.values:
+            if g.values is not w.values and (
+                    same_dictionary
+                    or g.values.to_pylist() != w.values.to_pylist()):
                 raise AssertionError(f"{name}: the dictionary was not kept")
             g, w = g.keys, w.keys
         if isinstance(w, col.StringViewColumn):
@@ -963,6 +976,38 @@ def check_same_rows(got: bt.RecordBatch, want: bt.RecordBatch) -> int:
         if tail.any():
             raise AssertionError(f"{name}: padding past the length not zero")
     return n
+
+
+# ---------------------------------------------------------------------------
+# lineitem through an Arrow IPC file: untrusted input, validated on the card
+# ---------------------------------------------------------------------------
+
+
+def lineitem_ipc(batch: bt.RecordBatch, rows_per_batch: int,
+                 compression: Optional[str] = None, stream: bool = False,
+                 sink=None) -> Optional[bytes]:
+    """`batch` as an IPC file (or stream) of `rows_per_batch`-row record
+    batches, the last one short: bytes, or written to `sink`."""
+    from .formats import ipc
+    from .ops.coalesce import slice_batch
+
+    parts = [slice_batch(batch, i, rows_per_batch)
+             for i in range(0, max(batch.length, 1), rows_per_batch)]
+    write = ipc.write_stream if stream else ipc.write_file
+    return write(parts, batch.schema, sink, compression=compression)
+
+
+def read_lineitem_ipc(data, validate: bool = True, device=None
+                      ) -> bt.RecordBatch:
+    """An IPC file or stream (told apart by the file's magic) read onto
+    `device`, every record batch checked by `core/validate.py` when
+    `validate`, then concatenated into one batch."""
+    from .formats import ipc
+    from .ops.concat import concat_batches
+
+    view = memoryview(data)
+    read = ipc.read_file if view[:6] == ipc.MAGIC else ipc.read_stream
+    return concat_batches(read(view, validate=validate, device=device))
 
 
 # ---------------------------------------------------------------------------

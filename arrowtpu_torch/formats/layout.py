@@ -72,24 +72,28 @@ def valid_bools(c: col.Column) -> np.ndarray:
 
 
 def string_offsets64(c: col.StringViewColumn):
-    """views + arena -> (int64 offsets, uint8 data), one vectorized gather
-    from two pools: the arena for strings of more than 12 bytes, the view
-    words themselves for inline ones."""
+    """views + arena -> (int64 offsets, uint8 data) on the host, the bytes
+    gathered on the column's device from two pools (the arena for strings
+    of more than 12 bytes, the view words themselves for inline ones), so
+    only the live strings' bytes cross to the host."""
     n = c.length
-    views = c.views[:n].cpu().numpy().view(np.uint32)
-    arena = c.arena.cpu().numpy()
-    lens = np.where(valid_bools(c), views[:, 0].astype(np.int64), 0)
-    offsets = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum(lens, out=offsets[1:])
+    dev = c.device
+    views = c.views[:n]
+    lens = torch.where(c.valid_bool()[:n], views[:, 0].to(torch.int64), 0)
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(lens, 0, out=offsets[1:])
     total = int(offsets[-1])
-    pool = np.concatenate([arena, np.ascontiguousarray(views).view(
-        np.uint8).reshape(-1)])
-    src = np.where(views[:, 0] <= 12,
-                   arena.shape[0] + np.arange(n) * 16 + 4,
-                   views[:, 3].astype(np.int64))
-    idx = (np.arange(total, dtype=np.int64) - np.repeat(offsets[:-1], lens)
-           + np.repeat(src, lens))
-    return offsets, (pool[idx] if total else np.zeros(0, np.uint8))
+    if not total:
+        return offsets.cpu().numpy(), np.zeros(0, np.uint8)
+    arena_len = c.arena.shape[0]
+    pool = torch.cat([c.arena, views.contiguous().view(torch.uint8).reshape(
+        -1)])
+    src = torch.where(views[:, 0] <= 12,
+                      arena_len + torch.arange(n, device=dev) * 16 + 4,
+                      views[:, 3].to(torch.int64) & 0xFFFFFFFF)
+    idx = torch.arange(total, device=dev) + torch.repeat_interleave(
+        src - offsets[:-1], lens, output_size=total)
+    return offsets.cpu().numpy(), pool[idx].cpu().numpy()
 
 
 def string_offsets_data(c: col.StringViewColumn):
@@ -173,7 +177,7 @@ def _validity(node: Node) -> Optional[np.ndarray]:
 
 def _values(buf: np.ndarray, npdt, count: int, ok) -> np.ndarray:
     """`count` values of `npdt` from a buffer, 0 under a null."""
-    vals = np.frombuffer(buf.tobytes(), dtype=npdt, count=count)
+    vals = np.frombuffer(buf, dtype=npdt, count=count)
     if ok is None:
         return vals.copy()
     shape = (-1,) + (1,) * (vals.ndim - 1)
@@ -207,11 +211,11 @@ def layout_to_column(node: Node, dt: st.DataType, device=None) -> col.Column:
         return col.primitive(_values(bufs[1], col.numpy_dtype(dt), n, ok),
                              dt, validity=ok, device=device)
     if isinstance(dt, (st.Utf8, st.Binary)):
-        offsets = np.frombuffer(bufs[1].tobytes(), np.int32,
+        offsets = np.frombuffer(bufs[1], np.int32,
                                 count=n + 1).astype(np.int64)
         return strings_from_offsets(offsets, bufs[2], ok, dt, device)
     if isinstance(dt, (st.List, st.Map)):
-        offsets = np.frombuffer(bufs[1].tobytes(), np.int32,
+        offsets = np.frombuffer(bufs[1], np.int32,
                                 count=n + 1).astype(np.int64)
         child_dt = dt.entry_struct if isinstance(dt, st.Map) else dt.value
         child = layout_to_column(node.children[0], child_dt, device)

@@ -96,13 +96,20 @@ def string_view_from_numpy(data: np.ndarray, starts: np.ndarray,
         ok = torch.from_numpy(np.asarray(valid, dtype=bool)).to(device)
         ln = torch.where(ok, ln, 0)
     raw = torch.zeros((cap, 16), dtype=torch.uint8, device=device)
-    raw[:n, :4] = ln.view(torch.uint8).reshape(n, 4)
-    long = ln > 12
-    for j in range(12):
-        keep = (ln > j) & (~long if j >= 4 else True)
-        raw[:n, 4 + j] = torch.where(keep, arena[st_ + j], 0)
     views = raw.view(torch.int32)
-    views[:n, 3] = torch.where(long, st_.to(torch.int32), views[:n, 3])
+    if n:  # an empty tensor has no byte view
+        raw[:n, :4] = ln.view(torch.uint8).reshape(n, 4)
+        long = ln > 12
+        # untrusted starts (an IPC file's offsets) read the zero byte at
+        # len(data) where they fall outside the data, as the JAX reader's
+        # clamp does; validation then flags the view, never the gather
+        end = len(data)
+        src = torch.where(st_ < 0, end, st_)
+        for j in range(12):
+            keep = (ln > j) & (~long if j >= 4 else True)
+            raw[:n, 4 + j] = torch.where(
+                keep, arena[(src + j).clamp_(max=end)], 0)
+        views[:n, 3] = torch.where(long, st_.to(torch.int32), views[:n, 3])
     validity = (None if valid is None or np.asarray(valid).all()
                 else bm.from_numpy_bools(np.asarray(valid, bool), cap,
                                          device))

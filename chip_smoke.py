@@ -280,7 +280,29 @@ Phases (each raises on failure; the exit code is then non-zero):
      plain, every dense_agg call to `dense_aggregate_plain`; the encodes,
      decodes, take_run, the date_part passes, the query and the round
      trip timed (CUDA events, median of 5 with min and max), the query's
-     stages, peak memory and busy share.
+     stages, peak memory and busy share;
+  24. (after phase 21, on phase 13's lineitem) the batch written by
+     `entry.lineitem_ipc` as an Arrow IPC file and as a stream of
+     1,048,576-row record batches (`slice_batch`, 58 of them) into host
+     memory, read back onto the card by `entry.read_lineitem_ipc` with
+     validate=True (core/validate.py: the UTF-8 check over all 60M
+     l_comment strings, the key bounds of both dictionaries) and
+     concatenated: held to the batch by `entry.check_same_rows`
+     (dictionaries by value); Q6 on it exact against `entry.q6_oracle`,
+     the launch counts set to 0 just before the step and read just after
+     (K1 at 16, 8 and 4 bytes), every K1 call held to plain; batches 1 and
+     57 by the file's footer against `slice_batch`; the stream read the
+     same; a 0xFF byte in an l_comment, then an l_shipmode key of 7, in the
+     stream's first batch must raise ValidationError naming
+     l_comment.invalid_utf8 / l_shipmode.dict_key_out_of_bounds (the bytes
+     read without validate must not raise); an lz4 round trip of the
+     first 65,536 rows.  Timed on the host's clock with the card
+     synchronized: both writes (the writer's pieces, then their join
+     into one buffer), the validated reads of the file and the
+     stream, the stream read without validate (parse, copies,
+     concatenation), `check_batch` over the read table and its UTF-8
+     check of l_comment alone, Q6 on the read batch (CUDA events, median
+     of 3), GB/s over the file's bytes and peak memory.
 
 The line before the last lists the kernels as JSON (`launches` from the
 flagship step for K1 and K2, from K3's entry point for K3, from
@@ -292,7 +314,8 @@ ClickBench's eight queries and phase 23's steps too; the flagship, join
 and skewed join steps, int64-keyed, must launch no dense_agg; K1's 16-byte
 row carries its Q1 calls), after the Q1 step's, the l_comment sort's,
 the LIKE lines', the Q14 and Q19 steps', the external sort's, the Q3
-step's, the eight ClickBench steps' and phase 23's JSON lines and the
+step's, phase 24's, the eight ClickBench steps' and phase 23's JSON lines
+and the
 card's line; the
 last line is {"ok": true, "device":
 {...}}.
@@ -1780,6 +1803,204 @@ def q3_phase(pe, ops, k1, k2, build, dev, arrays, batch):
             "step_adds_gib": (peak - held) / 2**30, **busy}
     log(f"Q3 timing: {line}")
     return {"TPC-H Q3": run}, line
+
+
+# ---------------------------------------------------------------------------
+# phase 24: lineitem through an Arrow IPC file, validated on the card
+# ---------------------------------------------------------------------------
+
+IPC_BATCH_ROWS = 1 << 20  # 1,048,576 rows a record batch: 58 at SF10
+IPC_LZ4_ROWS = 65_536  # the lz4 round trip: the frame decoder is Python
+IPC_REPS = 3
+
+
+def host_s(fn):
+    """-> (fn()'s result, its seconds on the host's clock, the card
+    synchronized before and after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _corrupted_read_raises(pe, ps, buf, flag):
+    """read_lineitem_ipc(validate=True) of the patched bytes must raise
+    ValidationError naming `flag`; -> its seconds."""
+    t0 = time.perf_counter()
+    try:
+        pe.read_lineitem_ipc(buf, validate=True)
+    except ps.ValidationError as e:
+        if flag not in str(e):
+            raise AssertionError(f"IPC: {flag} expected, got {e}") from e
+        return time.perf_counter() - t0
+    raise AssertionError(f"IPC: the corrupted bytes read with validate=True "
+                         f"raised nothing ({flag} expected)")
+
+
+def _ipc_spans():
+    """`tests/ipc_spans.py`, which finds each column's buffers in IPC
+    bytes (the corruptions below patch them)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "ipc_spans.py")
+    spec = importlib.util.spec_from_file_location("ipc_spans", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ipc_phase(pe, ops, k1, k2, build, dev, arrays, batch):
+    """Phase 24: phase 13's SF10 lineitem written as an IPC file and as a
+    stream of 1,048,576-row record batches into host memory, read back
+    onto the card with validate=True (the UTF-8 check over every
+    l_comment, the key bounds of both dictionaries) and concatenated:
+    held row for row to the batch written (dictionaries by value); Q6 on
+    it exact against `entry.q6_oracle`, the launch counts set to 0 just
+    before and read just after (K1 at 16, 8 and 4 bytes), every K1 call
+    held to plain; two batches by the file's footer against
+    `slice_batch`; the stream read the same; a 0xFF byte in an l_comment,
+    an l_shipmode key of 7 and an l_comment offset past the data must
+    raise ValidationError naming their flags (the first bytes read
+    without validate must not); an lz4 round trip
+    of the first 65,536 rows.  Times: writes, reads, validate (the UTF-8
+    check apart), Q6 on the read batch, GB/s over the file's bytes, peak
+    memory.  -> (launches, timing line)."""
+    from arrowtpu_torch import schema as ps
+    from arrowtpu_torch.core import validate
+    from arrowtpu_torch.formats import ipc
+    from arrowtpu_torch.ops.coalesce import slice_batch
+
+    n = batch.length
+    line = {"rows": n, "batch_rows": IPC_BATCH_ROWS}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    written = {}
+    for kind in ("file", "stream"):
+        # the writer's pieces (buffers read to the host, framing), then
+        # one copy into a writable buffer (the stream is patched below)
+        pieces = ipc.Pieces()
+        _, s = host_s(lambda: pe.lineitem_ipc(
+            batch, IPC_BATCH_ROWS, stream=kind == "stream", sink=pieces))
+        line[f"write_{kind}_ms"] = s * 1e3
+        written[kind], s = host_s(lambda: bytearray().join(pieces))
+        line[f"join_{kind}_ms"] = s * 1e3
+        del pieces
+    data, stream = written["file"], written["stream"]
+    del written
+    nbatches = -(-n // IPC_BATCH_ROWS)
+    line.update(file_bytes=len(data), stream_bytes=len(stream),
+                record_batches=nbatches)
+    log(f"IPC: lineitem written as a file of {len(data)} bytes and a "
+        f"stream of {len(stream)} bytes, {nbatches} record batches")
+
+    got, s = host_s(lambda: pe.read_lineitem_ipc(data, validate=True))
+    line["read_validated_ms"] = s * 1e3
+    line["read_validated_gb_per_s"] = len(data) / s / 1e9
+    pe.check_same_rows(got, batch, same_dictionary=False)
+    want = pe.q6_oracle(arrays)
+    args = {}
+    with held_to_plain({"K1": k1}, args) as calls, \
+            build.launch_words() as words:
+        k1.launches = k2.launches = 0
+        build.count_launches = 0
+        out = pe.q6_step(got)
+        torch.cuda.synchronize()
+        run = {"K1": k1.launches, "K2": k2.launches,
+               "tile_counts": build.count_launches,
+               **{f"{k}_{w}": words.count((k, w))
+                  for k, w in sorted(set(words))}}
+    if not all(run.get(f"K1_{w}", 0) >= 1 for w in (16, 8, 4)):
+        raise AssertionError(f"IPC Q6: K1 launches by word size {run}, "
+                             "expected 16-, 8- and 4-byte words")
+    kept = pe.check_q6(out, arrays, want)
+    del out, args
+    line["q6_ms"] = median_ms(lambda: pe.q6_step(got), reps=IPC_REPS,
+                              warmup=1)
+    line["q6_kept"] = kept
+    log(f"IPC: the file read with validate=True holds the batch's rows "
+        f"(check_same_rows, dictionaries by value); Q6 on it exact against "
+        f"q6_oracle, {kept} rows kept; launches {run}; every K1 call held "
+        f"to plain: {calls['K1']}")
+    # the checks alone, on the read table (its UTF-8 check in chunks),
+    # and the UTF-8 check of l_comment apart
+    _, s = host_s(lambda: validate.check_batch(got))
+    line["validate_ms"] = s * 1e3
+    c = got["l_comment"]
+    _, s = host_s(lambda: bool(validate.utf8_invalid_rows(
+        c, c.valid_bool()).any()))
+    line["utf8_check_ms"] = s * 1e3
+    del got, c
+    torch.cuda.empty_cache()
+
+    reader = ipc.FileReader(data)
+    for k in (1, nbatches - 1):
+        pe.check_same_rows(reader.get_batch(k), slice_batch(
+            batch, k * IPC_BATCH_ROWS, IPC_BATCH_ROWS),
+            same_dictionary=False)
+    del reader
+    got, s = host_s(lambda: pe.read_lineitem_ipc(stream, validate=True))
+    line["read_stream_validated_ms"] = s * 1e3
+    pe.check_same_rows(got, batch, same_dictionary=False)
+    del got
+    torch.cuda.empty_cache()
+    log(f"IPC: batches 1 and {nbatches - 1} by the footer equal slice_batch; "
+        f"the stream read with validate=True holds the same rows")
+
+    spans = _ipc_spans().batch_buffers(stream)
+    off = spans[0]["l_comment"][2][0] + 7
+    saved = stream[off]
+    stream[off] = 0xFF
+    line["bad_utf8_raise_ms"] = _corrupted_read_raises(
+        pe, ps, stream, "l_comment.invalid_utf8") * 1e3
+    # the same bytes without validate: the read alone (parse, host to
+    # card, concatenation)
+    unchecked, s = host_s(lambda: pe.read_lineitem_ipc(stream,
+                                                       validate=False))
+    line["read_stream_ms"] = s * 1e3
+    if unchecked.length != n:
+        raise AssertionError("IPC: the corrupted bytes did not read")
+    del unchecked
+    stream[off] = saved
+    off = spans[0]["l_shipmode"][1][0]
+    saved = bytes(stream[off:off + 4])
+    stream[off:off + 4] = np.int32(len(pe.SHIPMODE)).tobytes()
+    line["bad_key_raise_ms"] = _corrupted_read_raises(
+        pe, ps, stream, "l_shipmode.dict_key_out_of_bounds") * 1e3
+    stream[off:off + 4] = saved
+    # an l_comment offset past the data: the views it gives run past the
+    # arena and have a negative length, and no gather leaves the data
+    off = spans[0]["l_comment"][1][0] + 4 * 1000
+    saved = bytes(stream[off:off + 4])
+    stream[off:off + 4] = np.int32(1 << 30).tobytes()
+    line["bad_offset_raise_ms"] = _corrupted_read_raises(
+        pe, ps, stream,
+        "l_comment.view_out_of_bounds, l_comment.negative_length") * 1e3
+    stream[off:off + 4] = saved
+    torch.cuda.synchronize()
+    log("IPC: a 0xFF byte in an l_comment raised l_comment.invalid_utf8 "
+        "(and read without validate), an l_shipmode key of 7 raised "
+        "l_shipmode.dict_key_out_of_bounds, an l_comment offset of 2**30 "
+        "raised l_comment.view_out_of_bounds and negative_length")
+    torch.cuda.empty_cache()
+
+    head = slice_batch(batch, 0, IPC_LZ4_ROWS)
+    packed, s = host_s(lambda: pe.lineitem_ipc(head, IPC_LZ4_ROWS,
+                                               compression="lz4"))
+    line["lz4_write_ms"] = s * 1e3
+    back, s = host_s(lambda: pe.read_lineitem_ipc(packed))
+    line["lz4_read_ms"] = s * 1e3
+    pe.check_same_rows(back, head, same_dictionary=False)
+    line["lz4_bytes"] = len(packed)
+    line["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    line["held_before_gib"] = held / 2**30
+    log(f"IPC: lz4 round trip of {IPC_LZ4_ROWS} rows ({len(packed)} bytes) "
+        f"holds their rows")
+    del data, stream
+    return {"IPC Q6": run}, line
 
 
 # ---------------------------------------------------------------------------
@@ -3467,6 +3688,13 @@ def main() -> int:
     q3_launches, q3_timing = q3_phase(pe, ops, k1, k2, _build, dev, arrays,
                                       batch)
     log(f"phase 21 (TPC-H Q3, SF{Q3_SF}): {time.perf_counter() - t0:.1f} s")
+
+    # phase 24: lineitem through an IPC file and stream, validated, then Q6
+    t0 = time.perf_counter()
+    ipc_launches, ipc_timing = ipc_phase(pe, ops, k1, k2, _build, dev,
+                                         arrays, batch)
+    log(f"phase 24 (lineitem through Arrow IPC, validated; Q6): "
+        f"{time.perf_counter() - t0:.1f} s")
     del arrays, batch
     torch.cuda.empty_cache()
 
@@ -3587,7 +3815,7 @@ def main() -> int:
                "nested batch filter": nested_launches,
                "text join step": text_launches, **lineitem_launches,
                **query_launches, "external sort": sort_launches,
-               **q3_launches, **clickbench_launches,
+               **q3_launches, **ipc_launches, **clickbench_launches,
                **{f"hits pk: {p}": c for p, c in hits_pk_launches.items()}}
     kernels = []
     for key in ("K1", "K2", "K3", *shown, "dense_agg", "K1_16"):
@@ -3618,6 +3846,7 @@ def main() -> int:
         log(f"TPC-H {name} step: {json.dumps(line)}")
     log(f"external sort of lineitem: {json.dumps(sort_timing)}")
     log(f"TPC-H Q3 step: {json.dumps(q3_timing)}")
+    log(f"lineitem through Arrow IPC: {json.dumps(ipc_timing)}")
     for q, line in clickbench_timing.items():
         log(f"ClickBench Q{q} step: {json.dumps(line)}")
     for step, line in hits_pk_timing.items():

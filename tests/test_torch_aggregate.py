@@ -19,7 +19,6 @@ import decimal
 import math
 import struct
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -129,7 +128,7 @@ def jax_results():
     out = {}
     for aggs in (["sum_", "product"],
                  ["min_", "max_", "count", "bool_and", "bool_or"]):
-        got = jax.jit(lambda cs, aggs=aggs: {
+        got = tp.jit(lambda cs, aggs=aggs: {
             f"{k}/{a}": getattr(jag, a)(c) for k, c in cs.items()
             for a in aggs if wanted(k, a)})(cols)
         out.update({tuple(k.split("/")): v for k, v in got.items()})

@@ -28,7 +28,6 @@ float values stay clear of those bounds.
 
 import decimal
 
-import jax
 import numpy as np
 import pytest
 
@@ -91,7 +90,7 @@ def matrix():
     src = _sources()
     jcols = {n: tp.jax_column(v, ok, n) for n, (v, ok) in src.items()}
 
-    @jax.jit
+    @tp.jit
     def every_cast(cols):
         return {f"{s}>{d}": jcast.cast(cols[s], _jdt(d))
                 for s in NUMERIC for d in NUMERIC}
@@ -269,7 +268,7 @@ def jax_branches():
                 for i, j in device}
 
     out = {tuple(map(int, k.split("/"))): v
-           for k, v in jax.jit(run)(cols).items()}
+           for k, v in tp.jit(run)(cols).items()}
     for i, (_, src, ts) in enumerate(BRANCHES):
         for j, t in enumerate(ts):
             if _on_host(src, t):
@@ -318,7 +317,7 @@ def test_union_extract_take_and_cast_match_jax(mode):
     ju, pu = _union_pair(mode)
     idx = [3, 0, 2]
 
-    @jax.jit
+    @tp.jit
     def run(u, i):
         return ([jops.union_extract(u, f) for f in ("i", "s")],
                 jcast.cast(u, jst.int64), jops.take_union(u, i))
@@ -337,7 +336,7 @@ def test_dictionary_maintenance_matches_jax():
     values = ["b", "a", None, "b", "c", "a"]
     jd, pd = _pair(values, jst.Dictionary(jst.int32, jst.utf8))
     keep = np.array([1, 0, 1, 1, 0, 0], bool)
-    jg = jax.jit(lambda d, m: jops.garbage_collect_dictionary(
+    jg = tp.jit(lambda d, m: jops.garbage_collect_dictionary(
         jops.filter_(d, m)))(jd, jcol.boolean(keep))
     pg = pops.garbage_collect_dictionary(
         pops.filter_(pd, pt.boolean(keep, device="cpu")))

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import ipc_spans
 from arrowtpu_torch.config import TakeOptions
 from arrowtpu_torch.entry import (agg_oracle, agg_plan, agg_step, check_agg,
                                   check_join_output, check_lexsort, check_q6,
@@ -2043,3 +2044,107 @@ def test_cdata_round_trip_of_a_card_column(cuda):
         assert back.device.type == "cuda" and field.dtype == c.dtype
         assert back.to_pylist() == c.to_pylist()
     assert cdata.export_column(cols[0])[0].format == b"tss:Europe/Moscow"
+
+
+def _validate_columns(device):
+    """Malformed columns on `device` (test_torch_validate's), and good
+    ones: {name: column}."""
+    import dataclasses
+
+    d = pcol.dictionary_encode_host(["x", "y", "x", None], device=device)
+    s = pcol.string_view(["a-string-longer-than-twelve-bytes", "ok"],
+                         device=device)
+    views = s.views.clone()
+    views[0, 3] = 10**8
+    lv = pcol.list_view([[1, 2], [3]], device=device)
+    words = [b"ok", b"\xff\xfe-not-utf8", "日本語".encode(), b"\xed\xa0\x80",
+             b"\xf4\x90\x80\x80", "\U0010FFFF".encode()] * 700
+    return {
+        "strings": pcol.string_view(words[::3] + [None], device=device),
+        "bad_utf8": pcol.string_view(words, st.utf8, device=device),
+        "binary": pcol.string_view(words, st.binary, device=device),
+        "bad_keys": dataclasses.replace(d, keys=dataclasses.replace(
+            d.keys, values=torch.full_like(d.keys.values, 99))),
+        "bad_views": dataclasses.replace(s, views=views),
+        "bad_starts": dataclasses.replace(
+            lv, starts=torch.full_like(lv.starts, 10**6)),
+        "struct": pcol.struct_column(
+            [{"a": 1, "s": "x"}, None, {"a": 3, "s": "zz"}], device=device)}
+
+
+def test_validate_flags_on_card_match_cpu(cuda):
+    from arrowtpu_torch.core import validate
+
+    host, card = _validate_columns("cpu"), _validate_columns(cuda)
+    for name in host:
+        want = validate.validate_column(host[name])
+        got = validate.validate_column(card[name])
+        assert list(got) == list(want), name
+        assert all(v.device.type == "cuda" for v in got.values())
+        assert {k: bool(v) for k, v in got.items()} == {
+            k: bool(v) for k, v in want.items()}, name
+    rows = validate.utf8_invalid_rows(card["bad_utf8"],
+                                      card["bad_utf8"].valid_bool())
+    assert rows.cpu().tolist() == validate.utf8_invalid_rows(
+        host["bad_utf8"], host["bad_utf8"].valid_bool()).tolist()
+
+
+def test_lineitem_ipc_on_card_against_oracle(cuda):
+    """A 200,000-row lineitem written as an IPC file and a stream, read
+    onto the card with validate=True: the same rows, Q6 exact, any batch
+    by the file's footer, and both corruptions raise."""
+    import io
+
+    from arrowtpu_torch.formats import ipc
+    from arrowtpu_torch.ops.coalesce import slice_batch
+
+    arrays = example_lineitem_arrays(0.0333)
+    batch = lineitem_batch(arrays, cuda)
+    data = pentry.lineitem_ipc(batch, 65536)
+    got = pentry.read_lineitem_ipc(data, validate=True)
+    assert got.device.type == "cuda"
+    assert pentry.check_same_rows(got, batch, same_dictionary=False) == \
+        batch.length
+    check_q6(q6_step(got), arrays, q6_oracle(arrays))
+    r = ipc.FileReader(data)
+    pentry.check_same_rows(r.get_batch(2), slice_batch(batch, 131072, 65536),
+                           same_dictionary=False)
+    sink = io.BytesIO()
+    pentry.lineitem_ipc(batch, 65536, stream=True, sink=sink)
+    buf = sink.getbuffer()
+    spans = ipc_spans.batch_buffers(buf)
+    off, _ = spans[0]["l_comment"][2]
+    saved = buf[off + 1]
+    buf[off + 1] = 0xFF
+    with pytest.raises(st.ValidationError, match=r"l_comment\.invalid_utf8"):
+        pentry.read_lineitem_ipc(buf)
+    assert pentry.read_lineitem_ipc(buf, validate=False).length == \
+        batch.length
+    buf[off + 1] = saved
+    off, _ = spans[1]["l_shipmode"][1]
+    buf[off:off + 4] = np.int32(7).tobytes()
+    with pytest.raises(st.ValidationError,
+                       match=r"l_shipmode\.dict_key_out_of_bounds"):
+        pentry.read_lineitem_ipc(buf)
+
+
+@pytest.mark.parametrize("offset", [1 << 30, -(1 << 30)])
+def test_lineitem_ipc_bad_offset_raises_on_card(cuda, offset):
+    """An l_comment offset past the data or below zero, read onto the
+    card with validate=True: ValidationError names the bad views, and the
+    card still works after it (no gather left the data)."""
+    import io
+
+    arrays = example_lineitem_arrays(0.0333)
+    batch = lineitem_batch(arrays, cuda)
+    sink = io.BytesIO()
+    pentry.lineitem_ipc(batch, 65536, stream=True, sink=sink)
+    buf = sink.getbuffer()
+    off, _ = ipc_spans.batch_buffers(buf)[1]["l_comment"][1]
+    buf[off + 400:off + 404] = np.int32(offset).tobytes()
+    with pytest.raises(st.ValidationError,
+                       match=r"l_comment\.view_out_of_bounds, "
+                             r"l_comment\.negative_length$"):
+        pentry.read_lineitem_ipc(buf)
+    torch.cuda.synchronize()
+    check_q6(q6_step(batch), arrays, q6_oracle(arrays))

@@ -125,7 +125,7 @@ def test_key_dtypes(kdt, lo, span, nullable, engine, vdt):
     jb, pb = _pair(cols)
     aggs = [("v", "sum")]
     got = pgb.group_by(pb, ["k"], aggs)
-    tp.assert_batch_equal(jgb.group_by(jb, ["k"], aggs), got)
+    tp.assert_batch_equal(jgb.plan_group_by(jb, ["k"], aggs)(jb), got)
     assert pgb.plan_group_by(pb, ["k"], aggs).engine == engine
 
 

@@ -15,6 +15,9 @@ where every prefix is exact, and otherwise within 2**-40 x the sum of |v|
 over the column (a bound on any prefix's rounding at 2**-52 a step over a
 few thousand rows), the mean within that over the count."""
 
+import functools
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -52,8 +55,8 @@ def _batches(spec, n, seed, length=None, jax_bitmaps=False):
     return jbt.record_batch(jcols), pbt.record_batch(pcols)
 
 
-def _check(spec, keys, aggs, n=2000, seed=0, jax_bitmaps=False):
-    jb, pb = _batches(spec, n, seed, jax_bitmaps=jax_bitmaps)
+def _check(spec, keys, aggs, n=2000, seed=0):
+    jb, pb = _batches(spec, n, seed)
     tp.assert_batch_equal(jgb.group_by(jb, keys, aggs),
                           pgb.group_by(pb, keys, aggs))
 
@@ -79,18 +82,37 @@ def test_int64_high_cardinality_with_second_minmax_column():
                          ("v", "count"), ("w", "sum")], seed=1)
 
 
+@functools.partial(tp.jit, static_argnums=(1, 2))
+def _jax_dense_group_by(batch, keys, aggs):
+    """The JAX package's dense engine alone, the branch its `group_by`
+    takes for a key range below its bucket count: its dispatch compiles a
+    cond over both engines (about 20 s here)."""
+    kc = batch[keys[0]]
+    ok = kc.valid_bool() & jbm.row_mask_bool(batch.capacity, batch.length)
+    kmin = jnp.min(jnp.where(ok, kc.values, jnp.iinfo(kc.values.dtype).max))
+    return jbt.RecordBatch(jgb._dense_out_schema(batch, keys, aggs),
+                           jgb._dense_group_by(batch, keys, aggs, kmin))
+
+
 @pytest.mark.parametrize("value_nulls", [0.0, 0.2])
 def test_int32_key_dense_path(value_nulls):
     """The dense-range engine in both packages (key range below the
-    bucket count).  The JAX values carry bitmaps in both cases (all valid
-    at 0.0), so the two share one compiled JAX program; the port's have
-    none at 0.0."""
+    bucket count; the JAX package's rule checked on the host).  The JAX
+    values carry bitmaps in both cases (all valid at 0.0), so the two
+    share one compiled JAX program; the port's have none at 0.0."""
     spec = [("k", "int32", 0, 20, 0.0),
             ("v", "int32", -1000, 1000, value_nulls),
             ("w", "int64", -50, 50, value_nulls)]
-    _check(spec, ["k"], [("v", "sum"), ("v", "count"), ("v", "min"),
-                         ("w", "max"), ("w", "sum"), ("v", "mean")], seed=2,
-           jax_bitmaps=True)
+    aggs = (("v", "sum"), ("v", "count"), ("v", "min"), ("w", "max"),
+            ("w", "sum"), ("v", "mean"))
+    jb, pb = _batches(spec, 2000, 2, jax_bitmaps=True)
+    assert jgb._dense_eligible(jb, ("k",), aggs)
+    k = tp.jax_to_numpy(jb["k"])[0]
+    assert k.max() - k.min() < jgb.DENSE_BUCKETS - 1  # off 1: a bitmap
+    plan = pgb.plan_group_by(pb, ["k"], aggs)
+    assert plan.engine == "dense"
+    tp.assert_batch_equal(_jax_dense_group_by(jb, ("k",), aggs),
+                          pgb.group_by(pb, ["k"], aggs))
 
 
 def test_two_keys_with_bool():

@@ -19,7 +19,6 @@ numpy oracle does and raises on the second."""
 import dataclasses
 import decimal
 
-import jax
 import numpy as np
 import pytest
 
@@ -298,7 +297,7 @@ def jax_joins():
                                       out_capacity=cap)
                 for name, (_, on, how, cap) in cases.items()}
 
-    return jax.jit(body)({name: (l[0], r[0])
+    return tp.jit(body)({name: (l[0], r[0])
                           for name, ((l, r), *_) in cases.items()})
 
 

@@ -18,7 +18,6 @@ which the JAX package compares by value at 32 bits.
 
 import dataclasses
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -140,7 +139,7 @@ def _jax_merge(batches, by, options):
                                      options)
         return pairs, [jmerge.merge_n([b.columns[j] for b in batches], *pairs)
                        for j in range(len(SCHEMA))]
-    return jax.jit(merge)(batches)
+    return tp.jit(merge)(batches)
 
 
 def test_merge_matches_jax():

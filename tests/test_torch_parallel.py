@@ -27,7 +27,6 @@ length, validity as bools, length, zero padding).
 import numpy as np
 import pytest
 
-import jax
 
 import torch_parity as tp
 from arrowtpu import parallel
@@ -85,7 +84,7 @@ def _jax_step(n):
         ((grouped,), lambda gb: parallel.distributed_group_by(
             gb, ["g"], JAX_AGGS, num_partitions=n, axis_name="d"))]
     mesh = parallel.make_mesh(n)
-    return tuple(parallel.unstack_batches(jax.jit(
+    return tuple(parallel.unstack_batches(tp.jit(
         lambda *a, body=body: parallel.shard_map_batches(body, mesh, *a))(
             *args)) for args, body in parts)
 

@@ -19,6 +19,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from arrowtpu.ops import groupby as jgb
+import torch_parity as tp
 from arrowtpu_torch.kernels import probes
 from torch_parity import TORCH_THREADS
 
@@ -321,7 +322,7 @@ def test_deinterleave_reinterleave_match_prof_deint(route):
         back = probes.tile_gather(_t(x), "roundtrip")
     else:
         planes = probes.tile_gather(_t(x), "deinterleave")
-        lo, hi = jax.jit(_deint)(jnp.asarray(x))
+        lo, hi = tp.jit(_deint)(jnp.asarray(x))
         np.testing.assert_array_equal(planes[0].numpy(), np.asarray(lo))
         np.testing.assert_array_equal(planes[1].numpy(), np.asarray(hi))
         back = probes.tile_gather(planes, "reinterleave")

@@ -13,10 +13,10 @@ Tolerance: exact.
 import decimal
 import hashlib
 
-import jax
 import numpy as np
 import pytest
 
+import torch_parity as tp
 import arrowtpu.schema as js
 from arrowtpu import ops as jops
 from arrowtpu.config import SortOptions as JOpts
@@ -134,7 +134,7 @@ def _jax_decimal(cents):
                              for x in cents], js.Decimal128(15, 2))
 
 
-@jax.jit
+@tp.jit
 def _jax_q3(customer, segment, orders, lineitem, shipdate):
     """Q3 composed from `arrowtpu.ops`: the filters, two hash joins with
     the port's build sides, revenue, the Date32-keyed group-by and the top

@@ -23,7 +23,6 @@ Tolerance: exact.
 import functools
 import hashlib
 
-import jax
 import numpy as np
 import pytest
 
@@ -69,7 +68,7 @@ def _jax_runs():
     a, _ = _data()
     cols = (jcol.primitive(a["CounterID"], js.uint32),
             jcol.primitive(a["EventDate"], js.Date32()))
-    out = jax.jit(lambda cs: [jree.run_end_encode(c) for c in cs])(cols)
+    out = tp.jit(lambda cs: [jree.run_end_encode(c) for c in cs])(cols)
     return {name: (np.asarray(r.run_ends), np.asarray(r.values.values),
                    int(r.values.length))
             for name, r in zip(pe.HITS_RUN_COLUMNS, out)}

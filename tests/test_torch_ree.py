@@ -17,7 +17,6 @@ each package's padding run ends are held to max(length, 1).
 
 import functools
 
-import jax
 import numpy as np
 import pytest
 
@@ -69,7 +68,7 @@ def _jax_results():
     cols = {k: jcol.from_pylist(v, jdt) for k, (jdt, _, v) in CASES.items()}
     idx = tp.jax_column(IDX, IDX_VALID, "int64")
 
-    @jax.jit
+    @tp.jit
     def run(cols, idx):
         out = {}
         for k, c in cols.items():

@@ -18,7 +18,6 @@ so the JAX side compiles few shapes; its round trip runs under `jax.jit`
 (one compile in place of one a primitive).
 """
 
-import jax
 import numpy as np
 import pytest
 
@@ -114,7 +113,7 @@ def test_round_trip_matches_input_and_jax(k):
     planes = rc.convert_columns(pcols)
     back = rc.convert_rows(planes, N)
     jrc = JConverter(jopts)
-    jback = jax.jit(lambda cs: jrc.convert_rows(jrc.convert_columns(cs),
+    jback = tp.jit(lambda cs: jrc.convert_rows(jrc.convert_columns(cs),
                                                 N))(jcols)
     for name, src, got, jgot in zip(NUMERIC + CLASSES, pcols, back, jback):
         assert str(got.dtype) == str(src.dtype), name
@@ -134,14 +133,14 @@ def test_round_trip_matches_input_and_jax(k):
     sub = RowConverter([popts[i] for i in pick])
     perm = ppack.sort_permutation(sub.convert_columns(
         [pcols[i] for i in pick]), pcols[0].capacity, N)[:N]
-    want = jax.jit(lambda cs: jsort.lexsort_to_indices(
+    want = tp.jit(lambda cs: jsort.lexsort_to_indices(
         cs, [jopts[i] for i in pick]))([jcols[i] for i in pick])
     np.testing.assert_array_equal(perm.numpy(), np.asarray(want.values)[:N])
 
 
 @pytest.mark.parametrize("descending,nulls_first", ORDERS)
 def test_decimals_round_trip_to_their_input(descending, nulls_first):
-    """Fault 1 of ROADMAP C.3: the JAX decoder reads a decimal's limbs as
+    """Fault 9 of ROADMAP C.3: the JAX decoder reads a decimal's limbs as
     one int plane and raises; the port gives its input back."""
     rng = np.random.default_rng(7)
     kinds = ["decimal32", "decimal64", "decimal128", "decimal256"]
@@ -237,12 +236,21 @@ def test_struct_and_list_keys_sort_as_the_host(kind, descending,
         kind, pc.to_pylist(), descending, nulls_first))
 
 
-@pytest.mark.parametrize("kind,opts", [("list", (True, False)),
-                                       ("struct", (False, True))])
-def test_struct_and_list_keys_sort_as_jax(kind, opts):
-    jc, pc = _key(kind, 20)
-    _indices(jsort.sort_to_indices(jc, JOpts(*opts)),
-             psort.sort_to_indices(pc, POpts(*opts)))
+KEY_SORTS = {"list": (True, False), "struct": (False, True)}
+
+
+@pytest.fixture(scope="module")
+def jax_key_sorts():
+    """{kind: the JAX package's indices} of the struct and the list key,
+    a `jax.jit` each (about 11 s each eagerly)."""
+    return {kind: tp.jit(lambda c, o=JOpts(*opts): jsort.sort_to_indices(
+        c, o))(_key(kind, 20)[0]) for kind, opts in KEY_SORTS.items()}
+
+
+@pytest.mark.parametrize("kind,opts", list(KEY_SORTS.items()))
+def test_struct_and_list_keys_sort_as_jax(kind, opts, jax_key_sorts):
+    _, pc = _key(kind, 20)
+    _indices(jax_key_sorts[kind], psort.sort_to_indices(pc, POpts(*opts)))
 
 
 def test_list_rank_and_partition():

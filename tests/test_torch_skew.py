@@ -46,7 +46,6 @@ import dataclasses
 import numpy as np
 import pytest
 
-import jax
 
 import torch_parity as tp
 import torch_skew_cases as cases
@@ -97,9 +96,10 @@ def _jax_dictionary_batch(rank, proto, dtype):
 
 @pytest.fixture(scope="module")
 def jax_cases():
-    """{case: per-rank result} of the JAX mesh, one `jax.jit` a case: XLA's
-    compile time on the CPU grows faster than the program, so the cases
-    compile in 57 s as eleven programs and in 71 s as one."""
+    """{case: per-rank result} of the JAX mesh, one `jax.jit` a case
+    (`tp.jit`): XLA's compile time on the CPU grows faster than the
+    program, so the cases compile in 57 s as eleven programs in turn and
+    in 71 s as one."""
     inputs = {
         "lb": [_jax_batch(cases.probe_shard(r)) for r in range(N)],
         **{c: [_jax_batch(cases.build_shard(r, c)) for r in range(N)]
@@ -155,7 +155,7 @@ def jax_cases():
                        lambda lb, rb: join(lb, rb, "f")),
     }
     mesh = parallel.make_mesh(N)
-    return {name: parallel.unstack_batches(jax.jit(
+    return {name: parallel.unstack_batches(tp.jit(
         lambda *a, body=body: parallel.shard_map_batches(body, mesh, *a))(
             *(stacked[i] for i in names)))
         for name, (names, body) in bodies.items()}

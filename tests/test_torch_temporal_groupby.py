@@ -10,14 +10,13 @@ Tolerance: exact (keys, aggregates, group order, validity as bools, zero
 padding), with one difference by design: the JAX package types the min and
 max of a Date32 or Time32 column int32 (its physical dtype), the port
 keeps the column's type (ROADMAP C.3); their values are held equal.
-Interval keys raise in both (a shape error in the JAX package, fault 2 of
+Interval keys raise in both (a shape error in the JAX package, fault 10 of
 C.3), and an interval takes count alone.
 """
 
 import dataclasses
 import functools
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -83,7 +82,7 @@ def _assert_same(jout, pout):
     assert [f.name for f in jout.schema.fields] == pout.schema.names
 
 
-@functools.partial(jax.jit, static_argnums=(1, 2))
+@functools.partial(tp.jit, static_argnums=(1, 2))
 def _jax_dense_group_by(batch, key, aggs):
     """The JAX package's dense engine, as its plan runs it, at 16 buckets
     (its plan takes 128 for this key range, about 30 s of compile here;
@@ -137,7 +136,7 @@ def test_intervals_take_count_alone():
     jb, pb = _batches(3)
     with pytest.raises(ps.ComputeError):
         pgb.group_by(pb, ["iv"], [("v", "count")])
-    with pytest.raises(ValueError):  # fault 2 of ROADMAP C.3
+    with pytest.raises(ValueError):  # fault 10 of ROADMAP C.3
         jgb.group_by(jb, ["iv"], [("v", "count")])
     for agg in ("min", "max", "sum", "mean"):
         with pytest.raises(ps.ComputeError):

@@ -23,7 +23,6 @@ names the fault (ROADMAP C.3):
 
 import functools
 
-import jax
 import numpy as np
 import pytest
 
@@ -176,8 +175,8 @@ def jax_ops():
                 return cs[x] if isinstance(x, str) else x
             return {_key(c): getattr(jops, c[0])(arg(c[1]), arg(c[2]))
                     for c in cases}
-        out.update(jax.jit(run)(cols))
-    out["bit_not"] = jax.jit(jops.bit_not)(cols["d"])
+        out.update(tp.jit(run)(cols))
+    out["bit_not"] = tp.jit(jops.bit_not)(cols["d"])
     return out
 
 
@@ -254,7 +253,7 @@ def jax_sorts():
         return {f"{n}/{int(d)}": jsort.sort_to_indices(
             cols[n], JSO(descending=d)) for n, d in SORTS}
 
-    got = jax.jit(run)({n: _jax(n) for n in ("u", "h")})
+    got = tp.jit(run)({n: _jax(n) for n in ("u", "h")})
     return {(k[0], k[-1] == "1"): v for k, v in got.items()}
 
 
@@ -274,7 +273,7 @@ def test_row_converter_round_trips_like_jax():
 
     jopts = [JSO(o.descending, o.nulls_first) for o in opts]
 
-    @jax.jit
+    @tp.jit
     def round_trip(columns):
         jconv = jdec.RowConverter(jopts)
         return jconv.convert_rows(jconv.convert_columns(columns), N)
@@ -299,7 +298,7 @@ def test_hash_planes_match_jax(seed):
     float16's float32 key rebased), so a key hashes and partitions as
     there."""
     cols = ["u", "h", "g"]
-    want = np.asarray(jax.jit(lambda cs: jhash.hash_planes(
+    want = np.asarray(tp.jit(lambda cs: jhash.hash_planes(
         jenc.encode_columns(cs), seed=seed))([_jax(c) for c in cols]))[:N]
     got = phash.hash_planes(penc.hash_planes_of([_port(c) for c in cols]),
                             seed=seed)[:N].numpy()
@@ -369,7 +368,7 @@ def test_group_by_uint64_and_float16_keys_and_values():
     assert not np.array_equal(tp.bits_of(wrong), want_bits)  # fault 11
 
 
-@functools.partial(jax.jit, static_argnums=(1, 2))
+@functools.partial(tp.jit, static_argnums=(1, 2))
 def _jax_dense_group_by(batch, key, aggs):
     """The JAX package's dense engine, as its plan runs it, at 16 buckets
     (its dispatch compiles a cond over both engines, several times the
@@ -414,7 +413,7 @@ def test_filter_take_concat_exchange_carry_both_types():
     idx = np.random.default_rng(12).integers(-3, N + 3, N).astype(np.int64)
     ji = jcol.primitive(idx, jst.int64)
     pi = pt.column_from_numpy(idx, None, device="cpu")
-    jf, jt, jc = jax.jit(lambda b, m, i: (
+    jf, jt, jc = tp.jit(lambda b, m, i: (
         jops.filter_record_batch(b, m), jops.take_record_batch(b, i),
         [jconcat([b[n], b[n]]) for n in names]))(jb, jm, ji)
     tp.assert_batch_equal(jf, pops.filter_record_batch(pb, pm))
