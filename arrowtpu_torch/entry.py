@@ -2129,16 +2129,24 @@ def runs_predicate(c: col.RunEndColumn, on_runs: col.BooleanColumn,
                          st.RunEndEncoded(st.int32, st.bool_)), rows)
 
 
+def _on_rows(c: col.Column, predicate, rows: int) -> col.BooleanColumn:
+    """predicate(values) of a run-end column computed on its runs and
+    decoded to rows; of a plain column, on its rows."""
+    if isinstance(c, col.RunEndColumn):
+        return runs_predicate(c, predicate(c.values), rows)
+    return predicate(c)
+
+
 def q43_mask(batch: bt.RecordBatch) -> col.BooleanColumn:
     """Query 43's WHERE: CounterID and EventDate compared on their runs and
-    decoded to rows, ANDed with IsRefresh = 0 and DontCountHits = 0."""
+    decoded to rows (on their rows where they are plain), ANDed with
+    IsRefresh = 0 and DontCountHits = 0."""
     rows = batch["EventTime"].capacity
-    cid, date = batch["CounterID"], batch["EventDate"]
-    on_counter = runs_predicate(cid, ops.eq(cid.values, HITS_TOP_COUNTER),
-                                rows)
     lo, hi = (_days(d) for d in Q43_DAYS)
-    in_days = runs_predicate(date, ops.and_(ops.gt_eq(date.values, lo),
-                                            ops.lt_eq(date.values, hi)), rows)
+    on_counter = _on_rows(batch["CounterID"],
+                          lambda v: ops.eq(v, HITS_TOP_COUNTER), rows)
+    in_days = _on_rows(batch["EventDate"], lambda v: ops.and_(
+        ops.gt_eq(v, lo), ops.lt_eq(v, hi)), rows)
     flags = ops.and_(ops.eq(batch["IsRefresh"], 0),
                      ops.eq(batch["DontCountHits"], 0))
     return ops.and_(ops.and_(on_counter, in_days), flags)
@@ -2200,3 +2208,74 @@ def check_q43(got: list, want: list) -> list:
     if got != want:
         raise AssertionError(f"ClickBench Q43: {got!r} != {want!r}")
     return got
+
+
+# `hits` as a Parquet file: the reference writer's defaults for the row
+# group (max_row_group_size) and the data page (data_page_row_count_limit)
+HITS_PARQUET_ROW_GROUP = 1 << 20
+HITS_PARQUET_PAGE_ROWS = 20_000
+# the writer keeps no Arrow schema and labels a timestamp microseconds:
+# EventTime goes in as Timestamp("us") and comes back cast to its zone
+HITS_PARQUET_TIME = st.Timestamp("us")
+
+
+def hits_parquet_props(**kw):
+    """WriterProperties of `hits` in Parquet: statistics, the page index
+    and a bloom filter on CounterID, dictionaries on, uncompressed."""
+    from .formats.parquet import WriterProperties
+
+    return WriterProperties(**{
+        "data_page_row_limit": HITS_PARQUET_PAGE_ROWS,
+        "write_page_index": True, "bloom_filter_columns": ("CounterID",),
+        "dictionary_enabled": True, "statistics_enabled": True,
+        "compression": "none", **kw})
+
+
+def hits_pk_parquet(arrays: dict, rows: int = HITS_PARQUET_ROW_GROUP,
+                    device=None) -> bytes:
+    """The primary-key `hits` columns (`example_hits_pk_arrays`) as a
+    Parquet file in host memory, one row group of `rows` rows: the plain
+    columns built on `device` (NOT NULL, as in ClickHouse's create.sql),
+    EventTime cast there to HITS_PARQUET_TIME, then written a row group's
+    slice at a time, with `hits_parquet_props()`."""
+    from .formats.parquet import write_parquet
+    from .ops.coalesce import slice_batch
+
+    cols = []
+    for name in HITS_PK_COLUMNS:
+        c = column_from_numpy(arrays[name], None, dtype=HITS_PK_TYPES[name],
+                              device=device)
+        cols.append(ops.cast(c, HITS_PARQUET_TIME) if name == "EventTime"
+                    else c)
+    batch = bt.RecordBatch(st.Schema(tuple(
+        st.Field(n, c.dtype, False) for n, c in zip(HITS_PK_COLUMNS, cols))),
+        tuple(cols))
+    parts = [slice_batch(batch, r0, rows)
+             for r0 in range(0, max(batch.length, 1), rows)]
+    return write_parquet(parts, None, hits_parquet_props())
+
+
+def q43_predicates(all_four: bool = True) -> list:
+    """Query 43's WHERE as Parquet scan predicates (CounterID, the two
+    EventDate bounds, IsRefresh, DontCountHits); with all_four=False only
+    DontCountHits = 0."""
+    from .formats.parquet_scan import ColumnPredicate as P
+
+    lo, hi = (_days(d) for d in Q43_DAYS)
+    last = [P("DontCountHits", "eq", 0)]
+    if not all_four:
+        return last
+    return [P("CounterID", "eq", HITS_TOP_COUNTER),
+            P("EventDate", "gt_eq", lo), P("EventDate", "lt_eq", hi),
+            P("IsRefresh", "eq", 0)] + last
+
+
+def hits_from_parquet(batch: bt.RecordBatch) -> bt.RecordBatch:
+    """A batch scanned from `hits_pk_parquet`'s file with EventTime cast
+    back to Timestamp("s", HITS_TZ): the columns `q43_step` reads."""
+    t = HITS_PK_TYPES["EventTime"]
+    cols = tuple(ops.cast(c, t) if f.name == "EventTime" else c
+                 for f, c in zip(batch.schema.fields, batch.columns))
+    return bt.RecordBatch(st.Schema(tuple(
+        st.Field(f.name, t if f.name == "EventTime" else f.dtype, f.nullable)
+        for f in batch.schema.fields)), cols)

@@ -577,7 +577,8 @@ def _parse_message(buf, pos: int):
 
 
 def _read_batch_columns(header: fb.Table, body, schema: st.Schema,
-                        dictionaries, device) -> bt.RecordBatch:
+                        dictionaries, device,
+                        validate: bool = False) -> bt.RecordBatch:
     field_nodes = [struct.unpack("<qq", s)
                    for s in header.vector_structs(1, 16)]
     buffers = [struct.unpack("<qq", s) for s in header.vector_structs(2, 16)]
@@ -655,7 +656,8 @@ def _read_batch_columns(header: fb.Table, body, schema: st.Schema,
         bufs.append(take_buf())  # primitives
         return Node(length, null_count, bufs, [])
 
-    cols = [layout_to_column(read_node(f.dtype, f.name), f.dtype, device)
+    cols = [layout_to_column(read_node(f.dtype, f.name), f.dtype, device,
+                             validate, f.name)
             for f in schema.fields]
     cap = max((c.capacity for c in cols), default=0)
     return bt.RecordBatch(schema, tuple(grow(c, cap) for c in cols))
@@ -685,10 +687,11 @@ class _Dictionaries:
     """The dictionaries read so far, by path: a DictionaryBatch replaces
     its path's dictionary, or appends to it when it is a delta."""
 
-    def __init__(self, schema: st.Schema, device):
+    def __init__(self, schema: st.Schema, device, validate: bool = False):
         self.info = _dict_paths(schema)
         self.by_path: Dict[str, col.Column] = {}
         self.device = device
+        self.validate = validate
 
     def read(self, header: fb.Table, body) -> None:
         did = header.scalar(0, "q", 0)
@@ -696,7 +699,7 @@ class _Dictionaries:
         path, vdt = self.info[did]
         vschema = st.Schema((st.Field("values", vdt),))
         values = _read_batch_columns(header.table(1), body, vschema, {},
-                                     self.device).columns[0]
+                                     self.device, self.validate).columns[0]
         if is_delta and path in self.by_path:
             from ..ops.concat import concat
 
@@ -706,17 +709,19 @@ class _Dictionaries:
 
 class StreamReader:
     """arrow-rs StreamReader (reader.rs:1516): the batches of a stream, in
-    order, on `device`."""
+    order, on `device`; validate=True checks string offsets as each
+    column is built (`layout.check_offsets`)."""
 
-    def __init__(self, source, device=None):
+    def __init__(self, source, device=None, validate: bool = False):
         self.buf = _source_view(source)
         self.device = resolve_device(device)
+        self.validate = validate
         m = _parse_message(self.buf, 0)
         if m is None or m[0] != H_SCHEMA:
             raise st.ArrowTpuError("IPC stream: expected schema message")
         self.schema = _read_schema_fb(m[1])
         self.pos = m[4]
-        self._dicts = _Dictionaries(self.schema, self.device)
+        self._dicts = _Dictionaries(self.schema, self.device, validate)
 
     @property
     def dictionaries(self) -> Dict[str, col.Column]:
@@ -737,27 +742,30 @@ class StreamReader:
                 continue
             if header_type == H_BATCH:
                 return _read_batch_columns(header, body, self.schema,
-                                           self.dictionaries, self.device)
+                                           self.dictionaries, self.device,
+                                           self.validate)
             raise st.ArrowTpuError(
                 f"IPC: unexpected message type {header_type}")
 
 
 class FileReader:
     """arrow-rs FileReader (reader.rs:1339): the footer read first, every
-    dictionary at once, then any batch by its block (`get_batch`)."""
+    dictionary at once, then any batch by its block (`get_batch`);
+    `validate` as StreamReader's."""
 
-    def __init__(self, source, device=None):
+    def __init__(self, source, device=None, validate: bool = False):
         buf = _source_view(source)
         if buf[:6] != MAGIC or buf[-6:] != MAGIC:
             raise st.ArrowTpuError("not an Arrow IPC file (bad magic)")
         self.device = resolve_device(device)
+        self.validate = validate
         (footer_len,) = struct.unpack_from("<i", buf, len(buf) - 10)
         footer = fb.Table.root(buf[len(buf) - 10 - footer_len:len(buf) - 10])
         self.schema = _read_schema_fb(footer.table(1))
         self.buf = buf
         self._blocks = [struct.unpack("<qi4xq", s)
                         for s in footer.vector_structs(3, 24)]
-        self._dicts = _Dictionaries(self.schema, self.device)
+        self._dicts = _Dictionaries(self.schema, self.device, validate)
         for s in footer.vector_structs(2, 24):
             _, header, body_start, body_len, _ = _parse_message(
                 buf, struct.unpack("<qi4xq", s)[0])
@@ -776,7 +784,7 @@ class FileReader:
             self.buf, self._blocks[i][0])
         return _read_batch_columns(
             header, self.buf[body_start:body_start + body_len], self.schema,
-            self.dictionaries, self.device)
+            self.dictionaries, self.device, self.validate)
 
     def __iter__(self):
         return (self.get_batch(i) for i in range(self.num_batches))
@@ -842,13 +850,13 @@ def read_stream(source, *, validate: bool = False, device=None
                 ) -> List[bt.RecordBatch]:
     """Every batch of a stream on `device`; validate=True runs the checks
     of core/validate.py on each (ValidationError names the flags set)."""
-    return _validated(StreamReader(source, device), validate)
+    return _validated(StreamReader(source, device, validate), validate)
 
 
 def read_file(source, *, validate: bool = False, device=None
               ) -> List[bt.RecordBatch]:
     """Every batch of a file on `device`; `validate` as `read_stream`."""
-    return _validated(FileReader(source, device), validate)
+    return _validated(FileReader(source, device, validate), validate)
 
 
 # ---------------------------------------------------------------------------

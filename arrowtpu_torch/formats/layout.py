@@ -184,7 +184,27 @@ def _values(buf: np.ndarray, npdt, count: int, ok) -> np.ndarray:
     return np.where(ok.reshape(shape), vals, np.zeros(1, npdt))
 
 
-def layout_to_column(node: Node, dt: st.DataType, device=None) -> col.Column:
+def check_offsets(offsets: np.ndarray, data_len: int, name: str) -> None:
+    """Untrusted Utf8 / Binary offsets: the first and last lie within the
+    data and none decreases, so every string, whatever its length, reads
+    only bytes of the data (arrow-rs validate_offsets; ROADMAP C.3 fault
+    17: the JAX package's view build flags only strings of more than 12
+    bytes that run past it)."""
+    bad = []
+    if len(offsets) and (offsets[0] < 0 or offsets[-1] > data_len):
+        bad.append("offsets_out_of_bounds")
+    if np.any(np.diff(offsets) < 0):
+        bad.append("offsets_decreasing")
+    if bad:
+        raise st.ValidationError("invalid array data in batch: " + ", ".join(
+            f"{name}.{b}" for b in bad))
+
+
+def layout_to_column(node: Node, dt: st.DataType, device=None,
+                     validate: bool = False, name: str = "") -> col.Column:
+    """The column of `node` on `device`; validate=True checks a Utf8 or
+    Binary column's offsets on the host first (`check_offsets`), its
+    children's too, and ValidationError names the flags under `name`."""
     device = resolve_device(device)
     n = node.length
     cap = round_up(max(n, 1))
@@ -198,7 +218,7 @@ def layout_to_column(node: Node, dt: st.DataType, device=None) -> col.Column:
                            device=device)
     if isinstance(dt, st.Dictionary):
         keys = layout_to_column(dataclasses.replace(node, dictionary=None),
-                                dt.key, device)
+                                dt.key, device, validate, name)
         return col.DictionaryColumn(keys, node.dictionary, None, dt)
     nl = st.decimal_limbs(dt)
     if nl is not None:
@@ -213,12 +233,15 @@ def layout_to_column(node: Node, dt: st.DataType, device=None) -> col.Column:
     if isinstance(dt, (st.Utf8, st.Binary)):
         offsets = np.frombuffer(bufs[1], np.int32,
                                 count=n + 1).astype(np.int64)
+        if validate:
+            check_offsets(offsets, len(bufs[2]), name)
         return strings_from_offsets(offsets, bufs[2], ok, dt, device)
     if isinstance(dt, (st.List, st.Map)):
         offsets = np.frombuffer(bufs[1], np.int32,
                                 count=n + 1).astype(np.int64)
         child_dt = dt.entry_struct if isinstance(dt, st.Map) else dt.value
-        child = layout_to_column(node.children[0], child_dt, device)
+        child = layout_to_column(node.children[0], child_dt, device,
+                                 validate, name + ".child")
         starts = np.zeros(cap, np.int32)
         sizes = np.zeros(cap, np.int32)
         live = np.ones(n, bool) if ok is None else ok
@@ -229,19 +252,23 @@ def layout_to_column(node: Node, dt: st.DataType, device=None) -> col.Column:
             torch.from_numpy(sizes).to(device), child,
             bitmap(ok, cap, device), n, dt)
     if isinstance(dt, st.Struct):
-        children = tuple(grow(layout_to_column(ch, f.dtype, device), cap)
-                         for ch, f in zip(node.children, dt.fields))
+        children = tuple(grow(layout_to_column(
+            ch, f.dtype, device, validate, f"{name}.child{i}"), cap)
+            for i, (ch, f) in enumerate(zip(node.children, dt.fields)))
         return col.StructColumn(children, bitmap(ok, cap, device), n, dt)
     if isinstance(dt, st.FixedSizeList):
-        child = layout_to_column(node.children[0], dt.value, device)
+        child = layout_to_column(node.children[0], dt.value, device,
+                                 validate, name + ".child")
         return col.FixedSizeListColumn(grow(child, cap * dt.size),
                                        bitmap(ok, cap, device), n, dt)
     if isinstance(dt, st.Union):
         tids = np.frombuffer(bufs[0].tobytes(), np.int8, count=n)
         offs = (np.frombuffer(bufs[1].tobytes(), np.int32, count=n)
                 if dt.mode == "dense" else None)
-        children = [layout_to_column(ch, f.dtype, device)
-                    for ch, f in zip(node.children, dt.fields)]
+        children = [layout_to_column(ch, f.dtype, device, validate,
+                                     f"{name}.child{i}")
+                    for i, (ch, f) in enumerate(zip(node.children,
+                                                    dt.fields))]
         return col.union_column(tids, children, dt, offsets=offs, length=n,
                                 device=device)
     raise st.SchemaError(f"cannot rebuild column of type {dt}")

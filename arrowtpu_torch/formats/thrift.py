@@ -4,7 +4,9 @@ Counterpart of `arrowtpu/formats/thrift.py`, the same bytes.  arrow-rs
 hand-rolls exactly this instead of using a thrift library
 (parquet/src/parquet_thrift.rs:653 ReadThrift and the structs generated by
 parquet_macros.rs): the protocol subset Parquet needs is small, varint /
-zigzag scalars, binary, lists and nested structs.  Pure host code."""
+zigzag scalars, binary, lists and nested structs.  Pure host code.  The
+reader takes any buffer (bytes, bytearray, memoryview) and gives binary
+fields as bytes."""
 
 from __future__ import annotations
 
@@ -194,7 +196,7 @@ class Reader:
             return v
         if ctype == CT_BINARY:
             n = self._uvarint()
-            v = self.buf[self.pos : self.pos + n]
+            v = bytes(self.buf[self.pos : self.pos + n])
             self.pos += n
             return v
         if ctype in (CT_LIST, CT_SET):

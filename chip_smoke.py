@@ -303,6 +303,34 @@ Phases (each raises on failure; the exit code is then non-zero):
      concatenation), `check_batch` over the read table and its UTF-8
      check of l_comment alone, Q6 on the read batch (CUDA events, median
      of 3), GB/s over the file's bytes and peak memory.
+  25. (after phase 23, on its `hits` arrays; freed after it) the table
+     written to one Parquet file in host memory by `entry.hits_pk_parquet`
+     (formats/parquet.py: 96 row groups of 1,048,576 rows, data pages of
+     20,000 rows, statistics, the page index and a CounterID bloom filter,
+     dictionaries on, uncompressed; NOT NULL; EventTime cast on the card
+     from Timestamp("s", "Europe/Moscow") to Timestamp("us") first, since
+     the writer labels a timestamp microseconds and keeps no zone), then
+     scanned onto the card by `formats.parquet_scan.scan_parquet` with
+     query 43's predicates pushed down (`entry.q43_predicates`: row groups
+     pruned by statistics and the bloom filter, pages by the page index,
+     the predicates on the card, each mask read back once, the final
+     `filter_record_batch`): its rows equal, in order, those a numpy mask
+     of the same predicates selects from the arrays, and `entry.q43_step`
+     on them (EventTime cast back to its zone, `entry.hits_from_parquet`)
+     exact against phase 23's `q43_oracle`; the full scan with
+     DontCountHits = 0 alone (every row group and page decoded), its
+     count and its EventTime and CounterID exact against numpy; one row
+     group through `parquet_push.decode_with_reader` equal to
+     `ParquetFile.read_row_group`'s; a GZIP round trip of one row group.
+     K1 and K2 must launch in each scan's filters (K1 at 4 and 8 bytes, K2
+     at one byte), counted by calling module and word size, every call
+     held to plain.  Timed on the host's clock with the card synchronized:
+     the write, each scan end to end and by stage (footer, pruning, host
+     decode, upload, predicates with their read-backs, filter), Q43 on the
+     scanned batch (CUDA events, median of 5), GB/s over the bytes each
+     scan decoded, peak memory and busy share.  Cut: none of the table's
+     rows; the scans' stages are timed on their own run, with a
+     synchronization around each stage.
 
 The line before the last lists the kernels as JSON (`launches` from the
 flagship step for K1 and K2, from K3's entry point for K3, from
@@ -310,15 +338,14 @@ run_probes for the probe kernels, from config 4 at 100 keys for
 dense_agg and from the Q6 step for K1's 16-byte words; every path's counts under `launches_by_path`, the skewed
 step's filters as a path of their own, TPC-H Q1, the text join step, the
 lineitem exchange, the distributed Q1, Q14, Q19, the external sort, Q3,
-ClickBench's eight queries and phase 23's steps too; the flagship, join
+ClickBench's eight queries and phases 23's and 25's steps too; the
+flagship, join
 and skewed join steps, int64-keyed, must launch no dense_agg; K1's 16-byte
 row carries its Q1 calls), after the Q1 step's, the l_comment sort's,
 the LIKE lines', the Q14 and Q19 steps', the external sort's, the Q3
-step's, phase 24's, the eight ClickBench steps' and phase 23's JSON lines
-and the
-card's line; the
-last line is {"ok": true, "device":
-{...}}.
+step's, phase 24's, the eight ClickBench steps', phase 23's and phase
+25's JSON lines and the card's line; the last line is {"ok": true,
+"device": {...}}.
 Without a CUDA device the script exits with an error and prints no
 result.
 """
@@ -1864,7 +1891,8 @@ def ipc_phase(pe, ops, k1, k2, build, dev, arrays, batch):
     `slice_batch`; the stream read the same; a 0xFF byte in an l_comment,
     an l_shipmode key of 7 and an l_comment offset past the data must
     raise ValidationError naming their flags (the first bytes read
-    without validate must not); an lz4 round trip
+    without validate must not; the bad offset's batch read without
+    validate must fail the full check on its views); an lz4 round trip
     of the first 65,536 rows.  Times: writes, reads, validate (the UTF-8
     check apart), Q6 on the read batch, GB/s over the file's bytes, peak
     memory.  -> (launches, timing line)."""
@@ -1971,20 +1999,33 @@ def ipc_phase(pe, ops, k1, k2, build, dev, arrays, batch):
     line["bad_key_raise_ms"] = _corrupted_read_raises(
         pe, ps, stream, "l_shipmode.dict_key_out_of_bounds") * 1e3
     stream[off:off + 4] = saved
-    # an l_comment offset past the data: the views it gives run past the
-    # arena and have a negative length, and no gather leaves the data
+    # an l_comment offset past the data: the offsets decrease after it,
+    # flagged on the host before a view is built
     off = spans[0]["l_comment"][1][0] + 4 * 1000
     saved = bytes(stream[off:off + 4])
     stream[off:off + 4] = np.int32(1 << 30).tobytes()
     line["bad_offset_raise_ms"] = _corrupted_read_raises(
-        pe, ps, stream,
-        "l_comment.view_out_of_bounds, l_comment.negative_length") * 1e3
+        pe, ps, stream, "l_comment.offsets_decreasing") * 1e3
+    # its batch read without validate: the full check (UTF-8 included)
+    # flags the views those offsets give, and reads no byte past the data
+    first = next(ipc.StreamReader(stream, dev))
+    try:
+        validate.check_batch(first)
+    except ps.ValidationError as e:
+        if "l_comment.view_out_of_bounds, l_comment.negative_length" \
+                not in str(e):
+            raise AssertionError(f"IPC: bad views expected, got {e}") from e
+    else:
+        raise AssertionError("IPC: the views of a bad offset were not "
+                             "flagged")
+    del first
     stream[off:off + 4] = saved
     torch.cuda.synchronize()
     log("IPC: a 0xFF byte in an l_comment raised l_comment.invalid_utf8 "
         "(and read without validate), an l_shipmode key of 7 raised "
         "l_shipmode.dict_key_out_of_bounds, an l_comment offset of 2**30 "
-        "raised l_comment.view_out_of_bounds and negative_length")
+        "raised l_comment.offsets_decreasing (and, read without validate, "
+        "the full check flagged view_out_of_bounds and negative_length)")
     torch.cuda.empty_cache()
 
     head = slice_batch(batch, 0, IPC_LZ4_ROWS)
@@ -2496,6 +2537,209 @@ def hits_pk_phase(pe, ops, k1, k2, build, dev):
         lambda: [cdata_round_trip(cdata, c, dev) for c in sliced.columns],
         reps=3), rows=CDATA_SLICE_ROWS, columns=pe.HITS_PK_COLUMNS[2:])
     pool.shutdown()
+    return launches, lines, arrays, want["q43"]
+
+
+# phase 25: phase 23's hits through a Parquet file, scanned with pushdown
+PARQUET_SCAN_REPS = 3
+PARQUET_STAGES = {"prune_row_groups": "prune",
+                  "decode_row_group": "decode", "decode_column": "decode",
+                  "upload_columns": "upload",
+                  "evaluate_predicates": "predicates",
+                  "filter_row_group": "filter", "concat_batches": "concat"}
+
+
+@contextlib.contextmanager
+def scan_stages(ps):
+    """While active, the scan's stage functions (PARQUET_STAGES, patched in
+    `formats.parquet_scan` and `ops.concat`) run with the card
+    synchronized around each, and the outermost call of each adds its
+    seconds to its stage; yields {stage: seconds}."""
+    import importlib
+
+    oc = importlib.import_module("arrowtpu_torch.ops.concat")
+
+    spent = collections.defaultdict(float)
+    depth = [0]
+    saved = []
+
+    def wrap(mod, name, stage):
+        real = getattr(mod, name)
+
+        def staged(*args, **kw):
+            depth[0] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                depth[0] -= 1
+                if not depth[0]:
+                    spent[stage] += time.perf_counter() - t0
+
+        saved.append((mod, name, real))
+        setattr(mod, name, staged)
+
+    for name, stage in PARQUET_STAGES.items():
+        wrap(oc if name == "concat_batches" else ps, name, stage)
+    try:
+        yield spent
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def scan_line(pq, ps, data, preds, dev) -> dict:
+    """One scan of `data` on the card: end to end, then by stage (its own
+    run; the footer parsed first), peak memory and GB/s over the bytes it
+    decoded."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out, m = ps.scan_parquet(data, predicates=preds, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    rows = out.length
+    del out
+    with scan_stages(ps) as spent:
+        t0 = time.perf_counter()
+        pf = pq.ParquetFile(data, device=dev)
+        spent["footer"] = time.perf_counter() - t0
+        ps.scan_parquet(pf, predicates=preds)
+        staged = time.perf_counter() - t0
+    return {"ms": wall * 1e3, "rows": rows, "metrics": m.asdict(),
+            "GBps_decoded": m.bytes_decompressed / wall / 1e9,
+            "staged_ms": staged * 1e3,
+            "stages_ms": {k: v * 1e3 for k, v in spent.items()},
+            "peak_gib": peak / 2**30, "step_adds_gib": (peak - held) / 2**30}
+
+
+def parquet_phase(pe, ops, k1, k2, build, dev, arrays, q43_want):
+    """Phase 25: phase 23's `hits` arrays written to one Parquet file in
+    host memory and scanned back onto the card with query 43's predicates
+    pushed down, then in full; query 43 on the scanned rows.  The launch
+    counts are set to 0 just before each scan and read just after, every
+    K1 / K2 call held to plain.  -> ({path: launches}, {step: line})."""
+    from arrowtpu_torch.formats import parquet as pq
+    from arrowtpu_torch.formats import parquet_push as pp
+    from arrowtpu_torch.formats import parquet_scan as ps
+    from arrowtpu_torch.kernels import dense_agg as dk
+
+    launches, lines = {}, {}
+    names = pe.HITS_PK_COLUMNS
+
+    # step 1: the file
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = pe.hits_pk_parquet(arrays, device=dev)
+    write_s = time.perf_counter() - t0
+    pf = pq.ParquetFile(data, device=dev)
+    n_rg = len(pf.row_groups)
+    pages = sum(len(pf.offset_index(rg, n)) for rg in range(n_rg)
+                for n in names)
+    lines["write"] = {"s": write_s, "bytes": len(data), "row_groups": n_rg,
+                      "data_pages": pages,
+                      "GBps_written": len(data) / write_s / 1e9}
+    log(f"parquet: {len(arrays['EventTime'])} hits rows written in "
+        f"{write_s:.2f} s, {len(data)} bytes, {n_rg} row groups, {pages} "
+        "data pages")
+
+    # numpy's rows of each scan
+    lo, hi = (pe._days(d) for d in pe.Q43_DAYS)
+    want_q43 = ((arrays["CounterID"] == pe.HITS_TOP_COUNTER)
+                & (arrays["EventDate"] >= lo) & (arrays["EventDate"] <= hi)
+                & (arrays["IsRefresh"] == 0) & (arrays["DontCountHits"] == 0))
+    want_full = arrays["DontCountHits"] == 0
+
+    def same_as_numpy(batch, mask, cols, what):
+        got_rows = batch.length
+        if got_rows != int(mask.sum()):
+            raise AssertionError(f"{what}: {got_rows} rows, numpy "
+                                 f"{int(mask.sum())}")
+        for name in cols:
+            x = arrays[name]
+            got = batch[name].values[:got_rows].cpu().numpy()
+            if not np.array_equal(got.view(x.dtype), x[mask]):
+                raise AssertionError(f"{what}: {name} differs from numpy's")
+
+    # step 2: query 43's predicates pushed down
+    preds = pe.q43_predicates()
+    args = {}
+    with counted(k1, k2, build, dk, args) as run:
+        scanned, m = ps.scan_parquet(data, predicates=preds, device=dev)
+    if not (run.get("K1_4") and run.get("K1_8") and run.get("K2_1")):
+        raise AssertionError(f"pruned scan: K1 at 4 and 8 bytes and K2 at "
+                             f"one byte must launch ({run})")
+    launches["parquet scan, Q43 pushed down"] = run
+    back = pe.hits_from_parquet(scanned)
+    same_as_numpy(back, want_q43, names, "pruned scan")
+    log(f"parquet pruned scan: {m.asdict()}; rows equal numpy's in order; "
+        f"launches {run}; K1 / K2 calls by module and word bytes "
+        f"{by_caller(args, build)}")
+    with counted(k1, k2, build, dk) as run:
+        got = pe.q43_step(back)
+    launches["ClickBench Q43 on the scanned rows"] = run
+    pe.check_q43(got, q43_want)
+    lines["Q43 on the scanned rows"] = dict(
+        timed(lambda: pe.q43_step(back)), rows=back.length, result=got)
+    lines["scan, Q43 pushed down"] = dict(
+        scan_line(pq, ps, data, preds, dev),
+        **profile(lambda: ps.scan_parquet(data, predicates=preds,
+                                          device=dev),
+                  reps=PARQUET_SCAN_REPS))
+    log(f"ClickBench Q43 on the scanned rows exact against q43_oracle: {got}")
+    del scanned, back
+
+    # step 3: the full scan
+    preds = pe.q43_predicates(all_four=False)
+    args = {}
+    with counted(k1, k2, build, dk, args) as run:
+        full, m = ps.scan_parquet(data, predicates=preds, device=dev)
+    if not (run.get("K1_4") and run.get("K1_8") and run.get("K2_1")):
+        raise AssertionError(f"full scan: K1 at 4 and 8 bytes and K2 at "
+                             f"one byte must launch ({run})")
+    launches["parquet scan, DontCountHits = 0"] = run
+    same_as_numpy(pe.hits_from_parquet(full), want_full,
+                  ["CounterID", "EventTime"], "full scan")
+    log(f"parquet full scan: {m.asdict()}; {full.length} rows, count, "
+        f"CounterID and EventTime equal numpy's; launches {run}; K1 / K2 "
+        f"calls by module and word bytes {by_caller(args, build)}")
+    del full
+    torch.cuda.empty_cache()
+    lines["scan, DontCountHits = 0"] = dict(
+        scan_line(pq, ps, data, preds, dev),
+        **profile(lambda: ps.scan_parquet(data, predicates=preds,
+                                          device=dev), reps=1))
+
+    # step 4: the push decoder and a GZIP round trip, one row group each
+    def read_fn(off, ln):
+        return data[off:off + ln]
+    gen = pp.decode_with_reader(read_fn, len(data), device=dev)
+    first = next(gen)
+    gen.close()
+    want = pf.read_row_group(0)
+    if first.length != want.length or not all(
+            same_rows(first[n], want[n], want.length) for n in names):
+        raise AssertionError("decode_with_reader's first row group "
+                             "differs from read_row_group's")
+    t0 = time.perf_counter()
+    gz = pq.write_parquet(want, props=pe.hits_parquet_props(
+        compression="gzip"))
+    gz_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gz_back = pq.read_parquet(gz, device=dev)
+    gz_read = time.perf_counter() - t0
+    if not all(same_rows(gz_back[n], want[n], want.length) for n in names):
+        raise AssertionError("GZIP round trip of a row group differs")
+    lines["one row group, GZIP"] = {
+        "rows": want.length, "bytes": len(gz), "write_s": gz_write,
+        "read_s": gz_read}
+    log(f"parquet: decode_with_reader's first row group equals "
+        f"read_row_group's; a GZIP round trip of it ({want.length} rows, "
+        f"{len(gz)} bytes) exact")
     return launches, lines
 
 
@@ -3708,11 +3952,20 @@ def main() -> int:
 
     # phase 23: query 43 over hits in primary-key order
     t0 = time.perf_counter()
-    hits_pk_launches, hits_pk_timing = hits_pk_phase(pe, ops, k1, k2, _build,
-                                                     dev)
+    hits_pk_launches, hits_pk_timing, hits_arrays, q43_want = hits_pk_phase(
+        pe, ops, k1, k2, _build, dev)
     torch.cuda.empty_cache()
     log(f"phase 23 (ClickBench Q43, hits in primary-key order, {HITS_ROWS} "
         f"rows): {time.perf_counter() - t0:.1f} s")
+
+    # phase 25: those rows through a Parquet file, scanned with pushdown
+    t0 = time.perf_counter()
+    parquet_launches, parquet_timing = parquet_phase(
+        pe, ops, k1, k2, _build, dev, hits_arrays, q43_want)
+    del hits_arrays
+    torch.cuda.empty_cache()
+    log(f"phase 25 (hits through Parquet, scanned with pushdown; Q43): "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # phase 14
     t0 = time.perf_counter()
@@ -3816,7 +4069,8 @@ def main() -> int:
                "text join step": text_launches, **lineitem_launches,
                **query_launches, "external sort": sort_launches,
                **q3_launches, **ipc_launches, **clickbench_launches,
-               **{f"hits pk: {p}": c for p, c in hits_pk_launches.items()}}
+               **{f"hits pk: {p}": c for p, c in hits_pk_launches.items()},
+               **parquet_launches}
     kernels = []
     for key in ("K1", "K2", "K3", *shown, "dense_agg", "K1_16"):
         row = kernels_rows[key]
@@ -3851,6 +4105,8 @@ def main() -> int:
         log(f"ClickBench Q{q} step: {json.dumps(line)}")
     for step, line in hits_pk_timing.items():
         log(f"hits pk {step}: {json.dumps(line)}")
+    for step, line in parquet_timing.items():
+        log(f"hits through Parquet, {step}: {json.dumps(line)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -26,6 +26,7 @@ from arrowtpu_torch.core import accessor as pacc
 from arrowtpu_torch.core import batch as pbt
 from arrowtpu_torch.core import column as pcol
 from arrowtpu_torch import utils as putils
+from torch_parity import release_jax_caches  # noqa: F401
 
 
 def _port_column(name):

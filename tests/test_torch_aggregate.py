@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 from arrowtpu import schema as jst
 from arrowtpu.core import column as jcol
 from arrowtpu.ops import aggregate as jag

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 from arrowtpu import ops as jops
 from arrowtpu import schema as jst
 from arrowtpu.config import CastOptions as JCO

@@ -17,6 +17,7 @@ import pytest
 
 from arrowtpu_torch import entry as pe
 from arrowtpu_torch import schema as pst
+from torch_parity import release_jax_caches  # noqa: F401
 
 ROWS = 20_000
 DRAW_SHA256 = ("4e8352d6b5084097f2aa17020460319b"

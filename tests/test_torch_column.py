@@ -7,6 +7,7 @@ import pytest
 import torch
 
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 import arrowtpu_torch as pt
 from arrowtpu_torch.core import bitmap as bm
 

@@ -21,6 +21,7 @@ from arrowtpu_torch.kernels import _build
 from arrowtpu_torch.kernels import compact as k2
 from arrowtpu_torch.kernels import compact3 as k1
 from torch_parity import TORCH_THREADS
+from torch_parity import release_jax_caches  # noqa: F401
 
 torch.set_num_threads(TORCH_THREADS)
 

@@ -18,6 +18,7 @@ from arrowtpu.ops import groupby as jgb
 from arrowtpu_torch.kernels import compact2 as k3
 from arrowtpu_torch.kernels import compact3 as k1
 from torch_parity import TORCH_THREADS
+from torch_parity import release_jax_caches  # noqa: F401
 
 torch.set_num_threads(TORCH_THREADS)
 

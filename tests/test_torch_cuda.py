@@ -34,6 +34,8 @@ from arrowtpu_torch import schema as st
 from arrowtpu_torch.core import batch as pbt
 from arrowtpu_torch.core import bitmap as bm
 from arrowtpu_torch.core import column as pcol
+from arrowtpu_torch.core import validate as pval
+from arrowtpu_torch.formats import ipc as pipc
 from arrowtpu_torch.interop.numpy_bridge import (batch_from_numpy,
                                                  column_to_numpy)
 from arrowtpu_torch.kernels import _build
@@ -2131,8 +2133,10 @@ def test_lineitem_ipc_on_card_against_oracle(cuda):
 @pytest.mark.parametrize("offset", [1 << 30, -(1 << 30)])
 def test_lineitem_ipc_bad_offset_raises_on_card(cuda, offset):
     """An l_comment offset past the data or below zero, read onto the
-    card with validate=True: ValidationError names the bad views, and the
-    card still works after it (no gather left the data)."""
+    card with validate=True: ValidationError names the decreasing offsets
+    (checked on the host, ROADMAP C.3 fault 17); read without validate,
+    the full check on the card names the views they give; and the card
+    still works after it."""
     import io
 
     arrays = example_lineitem_arrays(0.0333)
@@ -2143,8 +2147,148 @@ def test_lineitem_ipc_bad_offset_raises_on_card(cuda, offset):
     off, _ = ipc_spans.batch_buffers(buf)[1]["l_comment"][1]
     buf[off + 400:off + 404] = np.int32(offset).tobytes()
     with pytest.raises(st.ValidationError,
-                       match=r"l_comment\.view_out_of_bounds, "
-                             r"l_comment\.negative_length$"):
+                       match=r"l_comment\.offsets_decreasing$"):
         pentry.read_lineitem_ipc(buf)
+    # read without validate, the full check on the card flags the views
+    got = pipc.read_stream(buf, device=cuda)
+    with pytest.raises(st.ValidationError,
+                       match=r"^invalid array data in batch: "
+                             r"l_comment\.view_out_of_bounds, "
+                             r"l_comment\.negative_length$"):
+        pval.check_batch(got[1])
     torch.cuda.synchronize()
     check_q6(q6_step(batch), arrays, q6_oracle(arrays))
+
+
+def _flat(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for y in x for t in _flat(y)]
+
+
+def _held_to_plain(monkeypatch):
+    """Every K1 / K2 wrapper call is computed again by the kernel's plain
+    version on the same inputs and must equal it; -> [(kernel, word
+    bytes)] of the calls."""
+    calls = []
+    for name, mod, attr, plain in (("K1", k1, "compact_planes",
+                                    "compact_planes_plain"),
+                                   ("K2", k2, "compact_planes_info",
+                                    "compact_planes_info_plain")):
+        def held(planes, keep, pre=None, out_rows=None, name=name,
+                 real=getattr(mod, attr), plain=getattr(mod, plain)):
+            got = real(planes, keep, pre, out_rows)
+            a, b = _flat(got), _flat(plain(planes, keep, out_rows))
+            assert len(a) == len(b) and all(
+                torch.equal(x, y) for x, y in zip(a, b)), name
+            calls.append((name, _build.word_bytes(planes[0])))
+            return got
+        monkeypatch.setattr(mod, attr, held)
+    return calls
+
+
+def test_parquet_scan_on_card_matches_cpu(cuda, monkeypatch):
+    """`hits` in primary-key order, 300,000 rows, through the Parquet file
+    of chip_smoke's phase 25 (row groups of 100,000 rows, 20,000-row
+    pages): the same bytes written from the card, and each scan (query
+    43's predicates pushed down; DontCountHits = 0 alone) gives on the
+    card the CPU scan's columns and metrics, K1 at 4 and 8 bytes and K2 at
+    one byte in its filters, every call held to plain; query 43 on the
+    pruned scan exact against its oracle."""
+    from arrowtpu_torch.entry import (check_q43, example_hits_pk_arrays,
+                                      hits_from_parquet, hits_pk_parquet,
+                                      q43_oracle, q43_predicates, q43_step)
+    from arrowtpu_torch.formats import parquet_scan as ps
+
+    arrays = example_hits_pk_arrays(300_000)
+    data = hits_pk_parquet(arrays, rows=100_000, device=cuda)
+    assert data == hits_pk_parquet(arrays, rows=100_000, device="cpu")
+    calls = _held_to_plain(monkeypatch)
+    for preds in (q43_predicates(), q43_predicates(all_four=False)):
+        want, wm = ps.scan_parquet(data, predicates=preds, device="cpu")
+        del calls[:]
+        k1.launches = k2.launches = 0
+        got, gm = ps.scan_parquet(data, predicates=preds, device=cuda)
+        torch.cuda.synchronize()
+        assert {("K1", 4), ("K1", 8), ("K2", 1)} <= set(calls), calls
+        assert k1.launches >= 2 and k2.launches >= 1
+        assert gm.asdict() == wm.asdict()
+        for g, w in zip(got.columns, want.columns):
+            _same_column(g, w)
+    got, _ = ps.scan_parquet(data, predicates=q43_predicates(), device=cuda)
+    check_q43(q43_step(hits_from_parquet(got), 10, 10),
+              q43_oracle(arrays, 10, 10))
+
+
+def test_parquet_scan_of_pages_cut_by_content_on_card(cuda, monkeypatch):
+    """Pages cut by content, so their row ranges differ between columns:
+    the pages of `b` and `s` kept for `a`'s selection hold rows it does
+    not select, and the upload drops them with the filter on the card (K1
+    at 8 bytes, held to plain); the scan gives the CPU scan's columns and
+    metrics."""
+    from arrowtpu_torch.formats import parquet as pq
+    from arrowtpu_torch.formats import parquet_scan as ps
+    from arrowtpu_torch.formats.parquet_cdc import CdcOptions
+
+    rng = np.random.default_rng(5)
+    n = 20_000
+    a = np.arange(n, dtype=np.int64)
+    b = rng.integers(-10**6, 10**6, n) * 2
+    s = [f"r{v}" * (1 + v % 4) for v in rng.integers(0, 999, n).tolist()]
+    batch = pbt.record_batch({
+        "a": pcol.from_pylist(a.tolist(), st.int64, device="cpu"),
+        "b": pcol.from_pylist(b.tolist(), st.int64, device="cpu"),
+        "s": pcol.from_pylist(s, st.utf8, device="cpu")})
+    data = pq.write_parquet([batch], props=pq.WriterProperties(
+        write_page_index=True, dictionary_enabled=False,
+        cdc_options=CdcOptions(1024, 4096)))
+    preds = [ps.ColumnPredicate("a", "gt_eq", 3001),
+             ps.ColumnPredicate("a", "lt", 7777)]
+    want, wm = ps.scan_parquet(data, predicates=preds, device="cpu")
+    calls = _held_to_plain(monkeypatch)
+    in_upload = []
+    real = ps.upload_columns
+
+    def upload(pf, h, names):
+        before = k1.launches
+        out = real(pf, h, names)
+        in_upload.append(k1.launches - before)
+        return out
+    monkeypatch.setattr(ps, "upload_columns", upload)
+    k1.launches = k2.launches = 0
+    got, gm = ps.scan_parquet(data, predicates=preds, device=cuda)
+    torch.cuda.synchronize()
+    assert sum(in_upload) >= 1 and ("K1", 8) in calls, (in_upload, calls)
+    assert gm.asdict() == wm.asdict() and gm.pages_skipped > 0
+    for g, w in zip(got.columns, want.columns):
+        _same_column(g, w)
+    keep = (a >= 3001) & (a < 7777)
+    assert got["b"].to_pylist() == b[keep].tolist()
+    assert got["s"].to_pylist() == [v for v, k in zip(s, keep) if k]
+
+
+def test_short_string_past_the_data_raises_on_card(cuda):
+    """ROADMAP C.3 fault 17 on the card: an IPC stream whose last utf8
+    string of 5 bytes runs 3 bytes past the data raises ValidationError
+    when read with validate=True; without it the column builds on the
+    card from the data alone."""
+    from arrowtpu_torch.formats import ipc
+    from arrowtpu_torch.formats.layout import Node, layout_to_column
+
+    bufs = [np.zeros(0, np.uint8), np.array([0, 3, 8], np.int32).view(
+        np.uint8), np.frombuffer(b"abcde", np.uint8)]
+    node = Node(2, 0, bufs, [])
+    with pytest.raises(st.ValidationError, match=r"s\.offsets_out_of_bounds"):
+        layout_to_column(node, st.utf8, cuda, validate=True, name="s")
+    c = layout_to_column(node, st.utf8, cuda)
+    assert c.device.type == "cuda" and c.to_pylist()[0] == "abc"
+    batch = pbt.record_batch({"s": pcol.from_pylist(
+        ["abc", "de"], st.utf8, device=cuda)})
+    sink = bytearray(ipc.write_stream(batch))
+    data_off = sink.rfind(b"abcde")
+    off_at = sink.rfind(np.array([0, 3, 5], np.int32).tobytes(), 0,
+                        data_off)
+    sink[off_at + 8:off_at + 12] = np.int32(8).tobytes()
+    with pytest.raises(st.ValidationError, match=r"s\.offsets_out_of_bounds"):
+        ipc.read_stream(bytes(sink), validate=True, device=cuda)
+    assert ipc.read_stream(bytes(sink), device=cuda)[0].length == 2

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 from arrowtpu.core import batch as jbt
 from arrowtpu.ops import groupby as jgb
 from arrowtpu_torch import config as pconfig

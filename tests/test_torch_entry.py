@@ -11,6 +11,7 @@ import pytest
 import __graft_entry__ as ge
 import arrowtpu as at
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 from arrowtpu_torch import column_to_numpy
 from arrowtpu_torch import entry as pe
 

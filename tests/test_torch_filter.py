@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 from arrowtpu import ops as jops
 from arrowtpu.core import batch as jbt
 from arrowtpu_torch import ops as pops

@@ -23,6 +23,7 @@ import pytest
 
 import arrowtpu as at
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 from arrowtpu import schema as jst
 from arrowtpu.core import batch as jbt
 from arrowtpu.core import bitmap as jbm

@@ -7,6 +7,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from torch_parity import release_jax_caches  # noqa: F401
+
 ROOT = Path(__file__).resolve().parent.parent
 
 _PROBE = r"""
@@ -17,7 +19,10 @@ for m in pkgutil.walk_packages(arrowtpu_torch.__path__, "arrowtpu_torch."):
 for name in ("kernels.compact2", "ops.join", "ops.take", "rowformat.hashing",
              "parallel.mesh", "parallel.shuffle", "parallel.distributed",
              "kernels.probes", "probes", "ops.sort", "kernels.dense_agg",
-             "ops.groupby"):
+             "ops.groupby", "formats.parquet", "formats.parquet_ext",
+             "formats.parquet_scan", "formats.parquet_push",
+             "formats.parquet_record", "formats.parquet_nested",
+             "formats.parquet_cdc", "formats.parquet_crypto"):
     assert "arrowtpu_torch." + name in sys.modules, name
 import torch
 assert not torch.cuda.is_available()
@@ -52,5 +57,40 @@ def test_port_imports_no_jax_and_needs_cuda_by_default():
     env.pop("PYTHONPATH", None)
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+_OPTIONAL_PROBE = r"""
+import importlib, pkgutil, sys
+for name in ("zstandard", "cryptography", "pyarrow"):
+    sys.modules[name] = None  # an import of it raises ImportError
+import arrowtpu_torch
+for m in pkgutil.walk_packages(arrowtpu_torch.__path__, "arrowtpu_torch."):
+    importlib.import_module(m.name)
+from arrowtpu_torch.formats import parquet, parquet_scan
+import numpy as np
+b = arrowtpu_torch.record_batch({"x": arrowtpu_torch.column_from_numpy(
+    np.arange(100), None, device="cpu")})
+out, m = parquet_scan.scan_parquet(parquet.write_parquet(b), predicates=[
+    parquet_scan.ColumnPredicate("x", "lt", 10)], device="cpu")
+assert out["x"].to_pylist() == list(range(10))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "arrowtpu") or sys.modules[m] is not None and
+    m.split(".")[0] in ("zstandard", "cryptography", "pyarrow"))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_parquet_needs_no_optional_package_at_import():
+    """The Parquet modules import, and an uncompressed file writes and
+    scans, with zstandard, cryptography and pyarrow missing: each is
+    imported inside the calls that need it."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", _OPTIONAL_PROBE], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")

@@ -34,6 +34,7 @@ from arrowtpu.interop import pyarrow_bridge as jpb
 from arrowtpu.utils import datagen as jgen
 
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 import arrowtpu_torch.schema as ps
 from arrowtpu_torch.core import batch as pbt
 from arrowtpu_torch.core import column as pcol

@@ -39,6 +39,7 @@ from arrowtpu_torch.formats import lz4 as plz4
 from arrowtpu_torch.formats import snappy as psnappy
 from arrowtpu_torch.formats import thrift as pthrift
 from arrowtpu_torch.interop import pyarrow_bridge as ppb
+from torch_parity import release_jax_caches  # noqa: F401
 
 TABLES = {
     "mixed": lambda: pa.table({

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 from arrowtpu.core import batch as jbt
 from arrowtpu.core import bitmap as jbm
 from arrowtpu.core import column as jcol

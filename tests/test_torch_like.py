@@ -17,6 +17,7 @@ import pytest
 
 import test_torch_q14 as q14
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 from arrowtpu import ops as jops
 from arrowtpu import schema as jst
 from arrowtpu.core import column as jcol

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 import arrowtpu as at
 import arrowtpu.schema as js
 from arrowtpu import ops as jops

@@ -29,6 +29,7 @@ import pytest
 
 
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 from arrowtpu import parallel
 from arrowtpu.core import batch as jbt
 from arrowtpu_torch import column_to_numpy

@@ -20,6 +20,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from arrowtpu.ops import groupby as jgb
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 from arrowtpu_torch.kernels import probes
 from torch_parity import TORCH_THREADS
 

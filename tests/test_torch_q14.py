@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 from arrowtpu_torch import entry as pe
+from torch_parity import release_jax_caches  # noqa: F401
 
 SF = 0.005  # 1,000 parts, about 30,000 lineitem rows
 

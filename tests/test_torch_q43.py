@@ -32,6 +32,7 @@ from arrowtpu.ops import ree as jree
 from arrowtpu.ops import temporal as jt
 
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 from arrowtpu_torch import entry as pe
 from arrowtpu_torch import ops as pops
 from arrowtpu_torch.core import column as pcol

@@ -25,6 +25,7 @@ from arrowtpu.core import column as jcol
 from arrowtpu.ops import ree as jree
 
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 import arrowtpu_torch.schema as ps
 from arrowtpu_torch import ops as pops
 from arrowtpu_torch.core import column as pcol

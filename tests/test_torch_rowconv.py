@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 import arrowtpu.schema as js
 from arrowtpu.config import SortOptions as JOpts
 from arrowtpu.core import column as jcol

@@ -10,6 +10,7 @@ import torch
 import jax.numpy as jnp
 
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 from arrowtpu import config as jconfig
 from arrowtpu.rowformat import encode as jrf
 from arrowtpu.rowformat import pack as jrp

@@ -48,6 +48,7 @@ import pytest
 
 
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 import torch_skew_cases as cases
 from arrowtpu import parallel
 from arrowtpu.core import batch as jbt

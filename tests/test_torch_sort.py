@@ -23,6 +23,7 @@ from arrowtpu.core import column as jcol
 from arrowtpu.ops import sortmod as jsort
 
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 import arrowtpu_torch as pt
 from arrowtpu_torch import config as pconfig
 from arrowtpu_torch import entry as pe

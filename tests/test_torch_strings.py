@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 import arrowtpu as at
 from arrowtpu import config as jconfig
 from arrowtpu import schema as jst

@@ -35,6 +35,7 @@ from arrowtpu.ops import temporal as jt
 from arrowtpu.ops import tzdb as jtz
 
 import torch_parity  # noqa: F401  (one torch thread a worker)
+from torch_parity import release_jax_caches  # noqa: F401
 import arrowtpu_torch.schema as ps
 from arrowtpu_torch.core import column as pcol
 from arrowtpu_torch.ops import temporal as pt_

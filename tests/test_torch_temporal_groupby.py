@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 import arrowtpu.schema as js
 from arrowtpu.core import batch as jbt
 from arrowtpu.core import bitmap as jbm

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 import arrowtpu.schema as js
 from arrowtpu import dtype_parse as jparse
 from arrowtpu.core import builders as jbuild

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 from arrowtpu import ops as jops
 from arrowtpu import schema as jst
 from arrowtpu.core import column as jcol

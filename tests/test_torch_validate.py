@@ -25,6 +25,7 @@ import torch
 
 import ipc_spans
 import torch_parity as tp
+from torch_parity import release_jax_caches  # noqa: F401
 import arrowtpu as at
 from arrowtpu import schema as js
 from arrowtpu.core import column as jcol
@@ -298,10 +299,12 @@ def test_lineitem_corruptions_raise(lineitem):
 
 @pytest.mark.parametrize("offset", [1 << 30, -(1 << 30)])
 def test_lineitem_bad_offset_raises(lineitem, offset):
-    """An l_comment offset past the data or below zero: the views it
-    gives are flagged (a string running past the arena, a negative
-    length), and building the column reads no byte outside the data, with
-    or without validate."""
+    """An l_comment offset past the data or below zero: the offsets
+    decrease there, which the read with validate=True flags on the host
+    before the views are built (ROADMAP C.3, fault 17); building the
+    column without validate reads no byte outside the data, and the full
+    check of that column flags the views it gives (a string running past
+    the arena, a negative length)."""
     _, batch = lineitem
     sink = io.BytesIO()
     pe.lineitem_ipc(batch, 4096, stream=True, sink=sink)
@@ -310,12 +313,17 @@ def test_lineitem_bad_offset_raises(lineitem, offset):
     buf[off + 4 * 100:off + 4 * 101] = np.int32(offset).tobytes()
     with pytest.raises(ps.ValidationError,
                        match=r"^invalid array data in batch: "
-                             r"l_comment\.view_out_of_bounds, "
-                             r"l_comment\.negative_length$"):
+                             r"l_comment\.offsets_decreasing$"):
         pe.read_lineitem_ipc(buf, validate=True, device="cpu")
     got = pipc.read_stream(buf, device="cpu")
     assert [b.length for b in got] == [
         min(4096, batch.length - i) for i in range(0, batch.length, 4096)]
+    # the full check over the views that read gives, UTF-8 included
+    with pytest.raises(ps.ValidationError,
+                       match=r"^invalid array data in batch: "
+                             r"l_comment\.view_out_of_bounds, "
+                             r"l_comment\.negative_length$"):
+        pval.check_batch(got[1])
 
 
 def test_negative_view_length_is_fault_16_of_the_jax_package(both):

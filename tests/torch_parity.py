@@ -13,7 +13,10 @@ from +0.0, or one NaN payload from another, compares their bits
 (`bits_of`).
 """
 
+import gc
+
 import numpy as np
+import pytest
 import torch
 
 import arrowtpu as at
@@ -39,6 +42,22 @@ _NP = {"int8": np.int8, "int16": np.int16, "int32": np.int32,
        "int64": np.int64, "uint8": np.uint8, "uint16": np.uint16,
        "uint32": np.uint32, "uint64": np.uint64, "float16": np.float16,
        "float32": np.float32, "float64": np.float64}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def release_jax_caches():
+    """At the end of each port test file that takes it in by name, drop
+    JAX's in-memory caches of compiled programs and collect what they held.
+    Tier-1 runs each worker's files one after another in one process, and
+    the programs earlier files leave compiled there slow the emulated-mesh
+    programs of tests/test_parallel.py, which runs late on its worker;
+    jax.clear_caches() is process-wide, so it releases what earlier JAX
+    files left too.  No case's inputs or checks change."""
+    import jax
+
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 def jit(fn=None, **kw):
