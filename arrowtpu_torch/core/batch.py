@@ -42,6 +42,11 @@ class RecordBatch:
     def __getitem__(self, key):
         return self.column(key)
 
+    def project(self, names) -> "RecordBatch":
+        """The named columns, in that order."""
+        return RecordBatch(self.schema.project(names),
+                           tuple(self.column(n) for n in names))
+
     def to_pydict(self):
         return {f.name: c.to_pylist()
                 for f, c in zip(self.schema.fields, self.columns)}

@@ -29,9 +29,10 @@ values become one column with one host-to-device copy per buffer
 The JAX package's timestamps are kept as they are: a Timestamp that is
 not in ms is labelled TIMESTAMP_MICROS and its values are written
 unconverted (callers cast s / ns first), and no Arrow schema is stored,
-so a zone does not round-trip.  Columns annotated as geospatial need
-`formats/geospatial.py`, which the port does not have yet: writing one
-raises.
+so a zone does not round-trip.  A column annotated as geospatial
+(`formats/geospatial.geometry_field`) is written with the GEOMETRY or
+GEOGRAPHY logical type and its chunks' WKB bounding box and type set
+(ColumnMetaData field 17) in place of min / max.
 """
 
 from __future__ import annotations
@@ -681,17 +682,13 @@ def write_parquet(batches, sink=None,
     """One row group a batch (reference ArrowWriter,
     arrow/arrow_writer/mod.rs:182; callers slice the batches to the row
     group size).  -> the file's bytes, or None when written to `sink`."""
-    from .parquet_nested import geo_annotation, is_nested, shred_column
+    from .geospatial import compute_statistics, geo_annotation
+    from .parquet_nested import is_nested, shred_column
 
     props = props or WriterProperties()
     if isinstance(batches, bt.RecordBatch):
         batches = [batches]
     schema = batches[0].schema
-    for f in schema.fields:
-        if geo_annotation(f) is not None:
-            raise st.SchemaError(
-                f"parquet: geospatial column {f.name!r}: its statistics need "
-                "formats/geospatial.py, which the port does not have yet")
     own = sink is None
     if own:
         sink = _Pieces()
@@ -730,6 +727,11 @@ def write_parquet(batches, sink=None,
                                          f.name, crypt, rg_idx, col_ord)
                     meta["file_offset"] = (meta["dictionary_page_offset"]
                                            or meta["data_page_offset"])
+                    if geo_annotation(f) is not None:
+                        # a WKB bounding box and type set replace min / max
+                        # (unordered, by the spec)
+                        meta["geo_stats"] = compute_statistics(c.to_pylist())
+                        meta["statistics"] = None
                 meta["path"] = path
                 meta["crypto"] = (encryptor.column_crypto_fields(path_str)
                                   if key is not None else None)
@@ -853,12 +855,18 @@ def _column_meta_thrift(m) -> bytes:
     if m.get("bloom_filter_offset") is not None:
         w.field_i64(14, m["bloom_filter_offset"])
         w.field_i32(15, m["bloom_filter_length"])
+    if m.get("geo_stats") is not None:
+        from .geospatial import write_geo_stats_thrift
+
+        w.field_struct(17)  # GeospatialStatistics
+        write_geo_stats_thrift(w, m["geo_stats"])
     w.struct_end()
     return w.bytes()
 
 
 def _file_metadata(schema: st.Schema, row_groups, props: WriterProperties,
                    encryptor=None) -> bytes:
+    from .geospatial import geo_annotation
     from .parquet_nested import (EXTENSION_NAME_KEY, count_schema_elements,
                                  leaf_count, write_schema_elements)
 
@@ -875,9 +883,10 @@ def _file_metadata(schema: st.Schema, row_groups, props: WriterProperties,
     w.struct_end()
     for f in schema.fields:
         ext = dict(f.metadata).get(EXTENSION_NAME_KEY)
-        write_schema_elements(
-            w, f.name, f.dtype, f.nullable,
-            logical="variant" if ext == "arrow.parquet.variant" else None)
+        logical = ("variant" if ext == "arrow.parquet.variant"
+                   else geo_annotation(f))
+        write_schema_elements(w, f.name, f.dtype, f.nullable,
+                              logical=logical)
     w.field_i64(3, sum(rg["num_rows"] for rg in row_groups))
     w.field_list(4, thrift.CT_STRUCT, len(row_groups))
     for rg_idx, rg in enumerate(row_groups):
@@ -1067,6 +1076,16 @@ class ParquetFile:
         arrow_reader/statistics.rs)."""
         cm = self._chunk_meta(rg, column)
         return _field_stats(cm, cm[1])
+
+    def geo_statistics(self, rg: int, column: str):
+        """A GEOMETRY / GEOGRAPHY chunk's GeospatialStatistics
+        (ColumnMetaData field 17), or None."""
+        d = self._chunk_meta(rg, column).get(17)
+        if d is None:
+            return None
+        from .geospatial import parse_geo_stats
+
+        return parse_geo_stats(d)
 
     def bloom_filter(self, rg: int, column: str):
         """The column chunk's SBBF, or None (reference bloom_filter/mod.rs

@@ -39,20 +39,12 @@ from .. import schema as st
 from ..config import round_up
 from ..core import bitmap as bm
 from ..core import column as col
+from .geospatial import GEO_CRS_KEY, GEO_KEY
 
 I32 = np.int32
 
-# field metadata keys of the JAX package's extension and geospatial modules
+# the field metadata key of the JAX package's extension module
 EXTENSION_NAME_KEY = "ARROW:extension:name"
-GEO_KEY = "parquet.geospatial"     # "geometry" | "geography"
-GEO_CRS_KEY = "parquet.geospatial.crs"
-
-
-def geo_annotation(field: st.Field) -> Optional[Tuple[str, Optional[str]]]:
-    """(kind, crs) of a field annotated as geospatial, else None."""
-    md = dict(field.metadata)
-    kind = md.get(GEO_KEY)
-    return None if kind is None else (kind, md.get(GEO_CRS_KEY))
 
 
 @dataclasses.dataclass
@@ -369,12 +361,14 @@ def count_schema_elements(dt: st.DataType) -> int:
 
 
 def write_schema_elements(w, name: str, dt: st.DataType, nullable: bool,
-                          logical: str = None):
+                          logical=None):
     """Emit this field's SchemaElement subtree (thrift writer `w`).
 
     `logical="variant"` annotates a struct group with the VARIANT
     logicalType (SchemaElement field 10, union member 16 VariantType with
-    specification_version=1; reference parquet/src/basic.rs)."""
+    specification_version=1; reference parquet/src/basic.rs); a
+    (kind, crs) pair of `geospatial.geo_annotation` annotates a leaf as
+    GEOMETRY or GEOGRAPHY."""
     from .parquet import _physical
 
     rep = REP_OPTIONAL if nullable else REP_REQUIRED
@@ -429,6 +423,18 @@ def write_schema_elements(w, name: str, dt: st.DataType, nullable: bool,
     if nl is not None:
         w.field_i32(7, dt.scale)
         w.field_i32(8, dt.precision)
+    if isinstance(logical, tuple):
+        # GEOMETRY (union id 17) / GEOGRAPHY (18) with an optional crs
+        # (reference parquet/src/basic.rs:289-297)
+        kind, crs = logical
+        w.field_struct(10)
+        w.struct_begin()
+        w.field_struct(17 if kind == "geometry" else 18)
+        w.struct_begin()
+        if crs:
+            w.field_string(1, crs)
+        w.struct_end()
+        w.struct_end()
     w.struct_end()
 
 

@@ -18,6 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
+
 from .. import schema as st
 
 SRC = Path(__file__).resolve().parent / "src"
@@ -79,3 +81,90 @@ def lz4_compress_block(data: bytes):
     if rc < 0:
         return None
     return bytes(dst[:rc])
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def avro_decode_block(body: bytes, nrows: int, fdesc, arena_cap: int):
+    """One flat-record Avro block by `src/avroblock.cpp`.
+
+    fdesc: int32 (nfields, 4) [type, nullable, null_branch, fixed_size].
+    -> (vals int64 (nrows, nf), lens int64, valid uint8, arena bytes,
+    consumed, views uint32 (nrows, nf, 4)); raises ValueError on a
+    malformed block.  An arena that would overflow retries larger."""
+    fn = load("avroblock").arrowtpu_avro_decode_block
+    fn.restype = ctypes.c_int64
+    nf = fdesc.shape[0]
+    fd = np.ascontiguousarray(fdesc, np.int32)
+    while True:
+        vals = np.zeros((nrows, nf), np.int64)
+        lens = np.zeros((nrows, nf), np.int64)
+        valid = np.zeros((nrows, nf), np.uint8)
+        views = np.zeros((nrows, nf, 4), np.uint32)
+        arena = np.zeros(max(arena_cap, 1), np.uint8)
+        used = ctypes.c_int64(0)
+        rc = fn(body, ctypes.c_int64(len(body)), ctypes.c_int64(nrows),
+                _ptr(fd, ctypes.c_int32), ctypes.c_int32(nf),
+                _ptr(vals, ctypes.c_int64), _ptr(lens, ctypes.c_int64),
+                _ptr(valid, ctypes.c_uint8), _ptr(arena, ctypes.c_uint8),
+                ctypes.c_int64(arena.size), ctypes.byref(used),
+                _ptr(views, ctypes.c_uint32))
+        if rc != -2:
+            break
+        arena_cap = arena_cap * 2 + 1024
+    if rc < 0:
+        raise ValueError("avro: malformed block (native decoder)")
+    return vals, lens, valid, arena[:used.value], rc, views
+
+
+def avro_decode_nested(body: bytes, nrows: int, desc, child_idx,
+                       arena_cap: int, cap_mult: int = 2):
+    """One nested-record Avro block by `src/avronest.cpp`.
+
+    desc: int32 (nnodes, 7) node table; child_idx: the flat int32 child
+    index table (the source's header).  -> (a dict a node with 'vals',
+    'views', 'valid', 'lens', 'count'; arena bytes; consumed); raises
+    ValueError on a malformed block.  Buffers that would overflow retry
+    at twice their size."""
+    fn = load("avronest").arrowtpu_avro_decode_nested
+    fn.restype = ctypes.c_int64
+    nn = desc.shape[0]
+    d = np.ascontiguousarray(desc, np.int32)
+    ci = np.ascontiguousarray(child_idx, np.int32)
+    caps = np.full(nn, max(nrows, 1) * cap_mult // 2 + 16, np.int64)
+    caps[0] = max(nrows, 1)
+    arena_sz = max(arena_cap, 1) * cap_mult // 2 + 1024
+
+    def pointers(arrs):
+        return (ctypes.c_void_p * nn)(*[a.ctypes.data for a in arrs])
+
+    while True:
+        vals = [np.zeros(int(c), np.int64) for c in caps]
+        views = [np.zeros((int(c), 4), np.uint32) for c in caps]
+        valid = [np.zeros(int(c), np.uint8) for c in caps]
+        lens = [np.zeros(int(c), np.int32) for c in caps]
+        counts = np.zeros(nn, np.int64)
+        arena = np.zeros(arena_sz, np.uint8)
+        used = ctypes.c_int64(0)
+        rc = fn(body, ctypes.c_int64(len(body)), ctypes.c_int64(nrows),
+                _ptr(d, ctypes.c_int32), ctypes.c_int32(nn),
+                _ptr(ci, ctypes.c_int32), pointers(vals), pointers(views),
+                pointers(valid), pointers(lens),
+                _ptr(counts, ctypes.c_int64), _ptr(caps, ctypes.c_int64),
+                _ptr(arena, ctypes.c_uint8), ctypes.c_int64(arena.size),
+                ctypes.byref(used))
+        if rc != -2:
+            break
+        caps = caps * 2
+        arena_sz *= 2
+    if rc < 0:
+        raise ValueError("avro: malformed block (native nested decoder)")
+    out = []
+    for i in range(nn):
+        c = int(counts[i])
+        out.append({"vals": vals[i][:c], "views": views[i][:c],
+                    "valid": valid[i][:c].astype(bool),
+                    "lens": lens[i][:c], "count": c})
+    return out, arena[:used.value], rc

@@ -4,11 +4,11 @@ Counterpart of `arrowtpu/ops/cmp.py`: `eq`, `neq`, `lt`, `lt_eq`, `gt`,
 `gt_eq`, `distinct` and `not_distinct` on integer, float, boolean,
 temporal and decimal columns, either side a column or a Python scalar.
 Native dtypes compare natively (float `neq` is true on NaN, as IEEE and
-the JAX package's limb compare have it); uint64 compares its bits with
-the top bit flipped (`core/u64.order_key`) at the operands' result type
-(`arity.result_dtype`), float16 natively.  A decimal goes through
-`ops/decimal.cmp`, with the operands' order flipped when the decimal is
-on the right.  The result's validity is the operands' AND; rows past the
+the JAX package's limb compare have it); uint16 and uint32 compare in
+int64 and uint64 its bits with the top bit flipped (`core/u64.order_key`),
+at the operands' result type (`arity.result_dtype`); float16 natively.
+A decimal goes through `ops/decimal.cmp`, with the operands' order
+flipped when the decimal is on the right.  The result's validity is the operands' AND; rows past the
 length are zero.
 
 `distinct` (IS DISTINCT FROM) is never null: true where exactly one side
@@ -51,7 +51,7 @@ def _cmp(a, b, op: str) -> col.BooleanColumn:
         if isinstance(x, col.DictionaryColumn):
             raise st.ComputeError(
                 "cmp on dictionary: decode or compare keys explicitly")
-    if _has_u64(a, b):
+    if _has_unsigned_wide(a, b):
         dt = arity.result_dtype(a, b)
         dev = (a if isinstance(a, col.Column) else b).device
         x, y = arity.operand(a, dt, dev), arity.operand(b, dt, dev)
@@ -61,9 +61,13 @@ def _cmp(a, b, op: str) -> col.BooleanColumn:
     return arity.binary_boolean_out(a, b, _OPS[op])
 
 
-def _has_u64(*xs) -> bool:
-    return any(isinstance(x, col.PrimitiveColumn) and st.is_u64(x.dtype)
-               for x in xs)
+def _has_unsigned_wide(*xs) -> bool:
+    """A uint16, uint32 or uint64 column: torch compares none of them
+    natively, so they compare at the operands' compute type (uint64 by
+    its order key)."""
+    return any(isinstance(x, col.PrimitiveColumn) and isinstance(
+        x.dtype, st.Int) and not x.dtype.signed and x.dtype.bits >= 16
+        for x in xs)
 
 
 def eq(a, b):

@@ -331,6 +331,34 @@ Phases (each raises on failure; the exit code is then non-zero):
      scan decoded, peak memory and busy share.  Cut: none of the table's
      rows; the scans' stages are timed on their own run, with a
      synchronization around each stage.
+  26. (right after phase 22, on its `hits` arrays; freed after it) the
+     row formats.  (a) The first 16,777,216 rows as one Avro OCF (null
+     codec, 65,536-row blocks, every field a ["null", T] union as the
+     port's `write_avro` writes a batch's nullable fields), built by a
+     numpy encoder of the zigzag varints (`hits_avro_ocf`) whose header
+     and first block must equal `write_avro`'s bytes with the sync marker
+     in place; read back by `formats.avro.read_avro`'s halves (the native
+     flat decoder on the host, `decode_flat`, then one upload a column,
+     `upload_flat`, timed apart) and given back ClickHouse's types
+     (UserID from the long's int64 bits, ROADMAP C.3 fault 19; the narrow
+     ones by `ops.cast`), equal to the arrays; queries 1-8 exact against
+     `clickbench_oracle` over those rows (numpy on a host thread), K1 at 8
+     bytes in queries 4, 7, 8, K2 at one byte and dense_agg in query 6,
+     every call held to plain.  (c) `flightsql.execute_select` of
+     FLIGHTSQL over that batch on the card (K1 at 4 and 8 bytes and K2 at
+     one byte in its filter, held to plain), framed as DoGet frames it
+     (`flight.encode_batches`) and decoded onto the card
+     (`flight.decode_batches`), equal to numpy's selection; the card's
+     machine has no grpc, so this is all of Flight that runs there.  (b)
+     The first 1,048,576 rows as TSV (hits.tsv's layout) and as NDJSON,
+     written by the port's writers and read back under the hits schema
+     in 65,536-row batches (the parse and the column building timed
+     apart), equal to the arrays, then queries 1-8 as in (a).  For each
+     format: write and read s, MB/s over the file's bytes, the card's busy
+     share of the read, peak memory, each query's ms (CUDA events, median
+     of 3) and the K1 / K2 / dense_agg calls by calling module.  Cuts:
+     16,777,216 and 1,048,576 rows of the 99,997,497, for the host's
+     decode and parse times.
 
 The line before the last lists the kernels as JSON (`launches` from the
 flagship step for K1 and K2, from K3's entry point for K3, from
@@ -338,14 +366,15 @@ run_probes for the probe kernels, from config 4 at 100 keys for
 dense_agg and from the Q6 step for K1's 16-byte words; every path's counts under `launches_by_path`, the skewed
 step's filters as a path of their own, TPC-H Q1, the text join step, the
 lineitem exchange, the distributed Q1, Q14, Q19, the external sort, Q3,
-ClickBench's eight queries and phases 23's and 25's steps too; the
+ClickBench's eight queries, phases 23's and 25's steps and phase 26's
+queries and FlightSQL statement too; the
 flagship, join
 and skewed join steps, int64-keyed, must launch no dense_agg; K1's 16-byte
 row carries its Q1 calls), after the Q1 step's, the l_comment sort's,
 the LIKE lines', the Q14 and Q19 steps', the external sort's, the Q3
-step's, phase 24's, the eight ClickBench steps', phase 23's and phase
-25's JSON lines and the card's line; the last line is {"ok": true,
-"device": {...}}.
+step's, phase 24's, the eight ClickBench steps', phase 23's, phase
+25's and phase 26's JSON lines and the card's line; the last line is
+{"ok": true, "device": {...}}.
 Without a CUDA device the script exits with an error and prints no
 result.
 """
@@ -2147,7 +2176,7 @@ def clickbench_phase(pe, ops, k1, k2, build, dev):
     K2 call held to plain, every dense_agg call to `dense_aggregate_plain`;
     then each step's time (CUDA events, median of 5 with min and max), its
     stages, peak memory and busy share.  -> ({path: launches}, {query:
-    timing line})."""
+    timing line}, the arrays, for phase 26)."""
     import concurrent.futures
     from arrowtpu_torch.kernels import dense_agg as dk
 
@@ -2208,7 +2237,7 @@ def clickbench_phase(pe, ops, k1, k2, build, dev):
     log(f"ClickBench: all 8 queries exact against clickbench_oracle (numpy, "
         f"{t_oracle:.1f} s on a host thread); AVG(UserID) {got[3]!r} "
         f"against the exact {want[3]!r}")
-    del arrays, want
+    del want
     lines = {}
     for q in sorted(pe.CLICKBENCH_QUERIES):
         times = run_times_ms(lambda: pe.clickbench_step(batch, q),
@@ -2237,6 +2266,328 @@ def clickbench_phase(pe, ops, k1, k2, build, dev):
                     "held_before_gib": held / 2**30,
                     "step_adds_gib": (peak - held) / 2**30, **busy}
         log(f"ClickBench Q{q} timing: {lines[q]}")
+    return launches, lines, arrays
+
+
+# ---------------------------------------------------------------------------
+# phase 26: phase 22's `hits` through the row formats (Avro, TSV, NDJSON),
+# then queries 1-8 on each, and a FlightSQL statement framed for DoGet
+# ---------------------------------------------------------------------------
+
+AVRO_ROWS = 1 << 24  # 16,777,216 of the 99,997,497 rows: the host decode
+TEXT_ROWS = 1 << 20  # 1,048,576 rows through TSV and NDJSON: the parse
+ROW_BATCH = 65_536  # rows an Avro block (write_avro's default), a batch
+ENCODE_CHUNK = 1 << 20  # rows the numpy Avro encoder takes at a time
+ROW_QUERY_REPS = 3
+FLIGHTSQL = ("SELECT UserID, RegionID FROM hits WHERE AdvEngineID <> 0 "
+             "AND RegionID < 300 LIMIT 100000")
+
+
+def _zigzag_varints(v: np.ndarray):
+    """int64 values -> ((n, 10) uint8 bytes of each zigzag varint, (n, 10)
+    bools of the bytes it uses), every row at once."""
+    u = ((v << 1) ^ (v >> 63)).view(np.uint64)
+    shifts = np.arange(10, dtype=np.uint64) * np.uint64(7)
+    groups = ((u[:, None] >> shifts) & np.uint64(0x7F)).astype(np.uint8)
+    more = np.zeros(groups.shape, bool)
+    more[:, :9] = (u[:, None] >> (shifts[:9] + np.uint64(7))) != 0
+    used = np.ones(groups.shape, bool)
+    used[:, 1:] = more[:, :9]
+    return groups | (more.astype(np.uint8) << 7), used
+
+
+def hits_avro_ocf(avro, arrays, names, schema_json, sync) -> bytes:
+    """`hits` as one OCF with the null codec and ROW_BATCH-row blocks,
+    encoded in numpy: each row is, for every field of `schema_json`, the
+    union's branch 1 (its fields are ["null", T]) and the value's zigzag
+    varint, uint64 as its int64 bits (write_avro's encoding, row by row in
+    Python there)."""
+    n = len(arrays[names[0]])
+    bodies, lengths = [], []
+    for lo in range(0, n, ENCODE_CHUNK):
+        parts, masks = [], []
+        for name in names:
+            x = arrays[name][lo:lo + ENCODE_CHUNK]
+            v = x.view(np.int64) if x.dtype == np.uint64 else \
+                x.astype(np.int64)
+            groups, used = _zigzag_varints(v)
+            parts += [np.full((len(v), 1), 2, np.uint8), groups]
+            masks += [np.ones((len(v), 1), bool), used]
+        mat, mask = np.hstack(parts), np.hstack(masks)
+        bodies.append(mat[mask])
+        lengths.append(mask.sum(1))
+    body = np.concatenate(bodies)
+    ends = np.concatenate([[0], np.cumsum(np.concatenate(lengths))])
+    out = [avro.ocf_header(schema_json, "null", sync)]
+    for start in range(0, n, ROW_BATCH):
+        stop = min(start + ROW_BATCH, n)
+        head = bytearray()
+        avro.write_long(head, stop - start)
+        avro.write_long(head, int(ends[stop] - ends[start]))
+        out += [bytes(head), body[ends[start]:ends[stop]].tobytes(), sync]
+    return b"".join(out)
+
+
+def hits_from_avro(pe, ops, batch):
+    """The read's longs and ints in ClickHouse's types, NOT NULL: UserID
+    as the uint64 its int64 bits are, the narrow ones by `ops.cast` (whose
+    range check leaves a bitmap, dropped where every row is valid)."""
+    import dataclasses
+
+    from arrowtpu_torch.core import batch as bt
+
+    cols = {"UserID": dataclasses.replace(batch["UserID"],
+                                          dtype=pe.HITS_TYPES["UserID"]),
+            "EventDate": batch["EventDate"]}
+    for name in ("RegionID", "ResolutionWidth", "AdvEngineID"):
+        c = ops.cast(batch[name], pe.HITS_TYPES[name])
+        cols[name] = (dataclasses.replace(c, validity=None)
+                      if c.null_count() == 0 else c)
+    return bt.record_batch({n: cols[n] for n in pe.HITS_COLUMNS})
+
+
+def same_as_arrays(pe, batch, arrays, what):
+    n = len(arrays["UserID"])
+    if batch.length != n:
+        raise AssertionError(f"{what}: {batch.length} rows, {n} written")
+    for name in pe.HITS_COLUMNS:
+        x = arrays[name]
+        c = batch[name]
+        got = c.values[:n].cpu().numpy().view(x.dtype)
+        if c.dtype != pe.HITS_TYPES[name] or c.validity is not None \
+                or not np.array_equal(got, x):
+            raise AssertionError(f"{what}: {name} differs from the arrays")
+
+
+def profiled_once(fn):
+    """fn() once under torch.profiler, the card synchronized around it ->
+    (its result, wall seconds, the card's busy share of them)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, wall, _device_us(prof.key_averages()) / (wall * 1e6)
+
+
+@contextlib.contextmanager
+def stage_seconds(mod, attr):
+    """Yields a dict whose "s" adds up the seconds spent in mod.<attr>
+    (the card synchronized after each call)."""
+    fn, total = getattr(mod, attr), {"s": 0.0, "calls": 0}
+
+    def timed_call(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        total["s"] += time.perf_counter() - t0
+        total["calls"] += 1
+        return out
+
+    setattr(mod, attr, timed_call)
+    try:
+        yield total
+    finally:
+        setattr(mod, attr, fn)
+
+
+def row_format_queries(pe, k1, k2, build, dk, batch, want, label):
+    """Queries 1-8 on a batch read from a row format, each exact against
+    `want` (clickbench_oracle over the same rows), the launch counts set
+    to 0 just before each step and read just after, every K1 / K2 call
+    held to plain, every dense_agg call to its plain version; then each
+    step's time (CUDA events, median of ROW_QUERY_REPS).  -> ({path:
+    launches}, {query: ms}, {query: calls by module and word bytes})."""
+    launches, ms, callers = {}, {}, {}
+    for q in sorted(pe.CLICKBENCH_QUERIES):
+        args = {}
+        with counted(k1, k2, build, dk, args) as run:
+            got = pe.clickbench_step(batch, q)
+        pe.check_clickbench(got, want[q], q)
+        if q in (4, 7, 8) and not run.get("K1_8"):
+            raise AssertionError(f"{label} Q{q}: K1 did not launch at 8 "
+                                 f"bytes ({run})")
+        if q == 6 and not (run.get("K2_1") and run["dense_agg"]):
+            raise AssertionError(f"{label} Q6: K2 at one byte and dense_agg "
+                                 f"must launch ({run})")
+        launches[f"{label} Q{q}"] = run
+        callers[q] = {f"{k}.{m}.{w}B": c for (k, m, w), c in
+                      by_caller(args, build).items()}
+        if run["dense_agg"]:
+            callers[q]["dense_agg"] = run["dense_agg"]
+        ms[q] = timed(lambda: pe.clickbench_step(batch, q),
+                      reps=ROW_QUERY_REPS)["ms"]
+    return launches, ms, callers
+
+
+def row_formats_phase(pe, ops, k1, k2, build, dev, arrays):
+    """Phase 26: phase 22's `hits` arrays through the row formats onto
+    the card.  (a) The first AVRO_ROWS rows as one OCF (the null codec,
+    ROW_BATCH-row blocks) built by the numpy encoder `hits_avro_ocf`,
+    its header and first block held to the port's `write_avro` (the sync
+    marker put in place), read back by `read_avro` (the native flat
+    decoder on the host, then one upload a column, timed apart), the
+    columns given back ClickHouse's types (`hits_from_avro`) and held to
+    the arrays.  (b) The first TEXT_ROWS rows as TSV (hits.tsv's layout:
+    tab-delimited, no header) and as NDJSON, written by the port's
+    writers and read back under the hits schema in ROW_BATCH-row batches
+    (the parse and the column building timed apart), held to the arrays.
+    After each read, queries 1-8 exact against `clickbench_oracle` over
+    the same rows (numpy, on a host thread).  (c) The FlightSQL statement
+    FLIGHTSQL by `execute_select` over (a)'s batch on the card, framed as
+    DoGet frames it (`flight.encode_batches`) and decoded onto the card
+    (`flight.decode_batches`): equal to numpy's selection of the rows.
+    -> ({path: launches}, {format: line})."""
+    import concurrent.futures
+
+    from arrowtpu_torch import flight, flightsql
+    from arrowtpu_torch import schema as st
+    from arrowtpu_torch.formats import avro, csv
+    from arrowtpu_torch.formats import json as ndjson
+    from arrowtpu_torch.kernels import dense_agg as dk
+
+    names = pe.HITS_COLUMNS
+    avro_arrays = {n: arrays[n][:AVRO_ROWS] for n in names}
+    text_arrays = {n: arrays[n][:TEXT_ROWS] for n in names}
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    want_f = {"avro": pool.submit(pe.clickbench_oracle, avro_arrays),
+              "text": pool.submit(pe.clickbench_oracle, text_arrays)}
+    launches, lines = {}, {}
+
+    # (a) Avro
+    first = pe.hits_batch({n: avro_arrays[n][:ROW_BATCH] for n in names},
+                          dev)
+    t0 = time.perf_counter()
+    by_writer = avro.write_avro(first)
+    writer_s = time.perf_counter() - t0
+    sync = avro.AvroFile(by_writer, device=dev).sync
+    schema_json = avro.schema_to_avro_json(first.schema)
+    t0 = time.perf_counter()
+    data = hits_avro_ocf(avro, avro_arrays, names, schema_json, sync)
+    write_s = time.perf_counter() - t0
+    if data[:len(by_writer)] != by_writer:
+        raise AssertionError("avro: the numpy encoder's header and first "
+                             "block differ from write_avro's")
+    del first
+    log(f"avro: {AVRO_ROWS} hits rows as {len(data)} bytes in "
+        f"{write_s:.2f} s (numpy encoder; write_avro took {writer_s:.2f} s "
+        f"for the first {ROW_BATCH} rows, whose bytes the encoder's equal)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    f = avro.AvroFile(data, device=dev)
+
+    def read():
+        blocks, decode_s = host_s(lambda: avro.decode_flat(f))
+        out, upload_s = host_s(lambda: avro.upload_flat(f, blocks, dev))
+        return out, decode_s, upload_s
+
+    (read_batch, decode_s, upload_s), read_s, busy = profiled_once(read)
+    batch = hits_from_avro(pe, ops, read_batch)
+    del read_batch
+    same_as_arrays(pe, batch, avro_arrays, "avro")
+    peak = torch.cuda.max_memory_allocated()
+    run_l, ms, callers = row_format_queries(
+        pe, k1, k2, build, dk, batch, want_f["avro"].result(), "avro")
+    launches.update(run_l)
+    lines["avro"] = {
+        "rows": AVRO_ROWS, "bytes": len(data), "blocks": AVRO_ROWS //
+        ROW_BATCH, "write_s": write_s, "write_avro_first_block_s": writer_s,
+        "read_s": read_s, "host_decode_s": decode_s, "upload_s": upload_s,
+        "MBps_read": len(data) / read_s / 1e6,
+        "MBps_written": len(data) / write_s / 1e6,
+        "read_busy_share": busy, "peak_gib": peak / 2**30,
+        "held_before_gib": held / 2**30, "query_ms": ms,
+        "launches_by_caller": callers}
+    log(f"avro: read {read_s:.2f} s (decode {decode_s:.2f}, upload "
+        f"{upload_s:.2f}); columns equal the arrays; queries 1-8 exact "
+        f"against clickbench_oracle; {json.dumps(lines['avro'])}")
+
+    # (c) the FlightSQL statement on (a)'s batch, framed for DoGet
+    args = {}
+    with counted(k1, k2, build, dk, args) as run:
+        result = flightsql.execute_select({"hits": batch}, FLIGHTSQL)
+    if not (run.get("K1_4") and run.get("K1_8") and run.get("K2_1")):
+        raise AssertionError(f"FlightSQL: K1 at 4 and 8 bytes and K2 at one "
+                             f"byte must launch in the filter ({run})")
+    launches["FlightSQL statement"] = run
+    messages, frame_s = host_s(
+        lambda: list(flight.encode_batches(result.schema, [result])))
+    (_, back), decode_s = host_s(
+        lambda: flight.decode_batches(messages, device=dev))
+    keep = ((avro_arrays["AdvEngineID"] != 0)
+            & (avro_arrays["RegionID"] < 300))
+    want = {n: avro_arrays[n][keep][:100_000] for n in ("UserID",
+                                                        "RegionID")}
+    got = back[0]
+    if got.device != dev or got.length != len(want["UserID"]) or \
+            any(not np.array_equal(got[n].values[:got.length].cpu().numpy()
+                                   .view(w.dtype), w)
+                for n, w in want.items()):
+        raise AssertionError("FlightSQL: the decoded batch differs from "
+                             "numpy's selection")
+    lines["FlightSQL"] = {
+        "sql": FLIGHTSQL, "rows_in": AVRO_ROWS, "rows_out": got.length,
+        "statement_ms": timed(lambda: flightsql.execute_select(
+            {"hits": batch}, FLIGHTSQL), reps=ROW_QUERY_REPS)["ms"],
+        "frame_s": frame_s, "decode_s": decode_s,
+        "flight_data_bytes": sum(len(m) for m in messages),
+        "launches_by_caller": {f"{k}.{m}.{w}B": c for (k, m, w), c in
+                               by_caller(args, build).items()}}
+    log(f"FlightSQL statement on the card, framed and decoded onto the "
+        f"card: equal to numpy's selection; launches {run}; "
+        f"{json.dumps(lines['FlightSQL'])}")
+    del batch, result, back, got, f, data
+    torch.cuda.empty_cache()
+
+    # (b) TSV and NDJSON
+    schema = st.Schema(tuple(st.Field(n, pe.HITS_TYPES[n], False)
+                             for n in names))
+    source = pe.hits_batch(text_arrays, dev)
+    want = want_f["text"].result()
+    pool.shutdown()
+    formats = {
+        "tsv": (csv, "upload_columns",
+                lambda: csv.write_csv(source, delimiter="\t",
+                                      has_header=False),
+                lambda text: csv.read_csv(
+                    text, schema=schema, delimiter="\t", has_header=False,
+                    batch_size=ROW_BATCH, device=dev)),
+        "ndjson": (ndjson, "upload_columns",
+                   lambda: ndjson.write_json(source),
+                   lambda text: ndjson.read_json(
+                       text, schema=schema, batch_size=ROW_BATCH,
+                       device=dev))}
+    for label, (mod, stage, write, read_text) in formats.items():
+        text, write_s = host_s(write)
+        nbytes = len(text.encode())
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        with stage_seconds(mod, stage) as up:
+            batch, read_s, busy = profiled_once(lambda: read_text(text))
+        same_as_arrays(pe, batch, text_arrays, label)
+        peak = torch.cuda.max_memory_allocated()
+        run_l, ms, callers = row_format_queries(
+            pe, k1, k2, build, dk, batch, want, label)
+        launches.update(run_l)
+        lines[label] = {
+            "rows": TEXT_ROWS, "bytes": nbytes, "batches": up["calls"],
+            "write_s": write_s, "read_s": read_s,
+            "host_decode_s": read_s - up["s"], "upload_s": up["s"],
+            "MBps_read": nbytes / read_s / 1e6,
+            "MBps_written": nbytes / write_s / 1e6,
+            "read_busy_share": busy, "peak_gib": peak / 2**30,
+            "held_before_gib": held / 2**30, "query_ms": ms,
+            "launches_by_caller": callers}
+        log(f"{label}: columns equal the arrays; queries 1-8 exact against "
+            f"clickbench_oracle; {json.dumps(lines[label])}")
+        del batch, text
+    del source
+    torch.cuda.empty_cache()
     return launches, lines
 
 
@@ -3944,10 +4295,20 @@ def main() -> int:
 
     # phase 22: ClickBench's queries 1-8 over hits
     t0 = time.perf_counter()
-    clickbench_launches, clickbench_timing = clickbench_phase(
+    clickbench_launches, clickbench_timing, hits = clickbench_phase(
         pe, ops, k1, k2, _build, dev)
     torch.cuda.empty_cache()
     log(f"phase 22 (ClickBench, {HITS_ROWS} rows): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # phase 26: those rows through Avro, TSV and NDJSON, then queries 1-8
+    # on each, and a FlightSQL statement framed for DoGet
+    t0 = time.perf_counter()
+    row_launches, row_timing = row_formats_phase(pe, ops, k1, k2, _build,
+                                                 dev, hits)
+    del hits
+    torch.cuda.empty_cache()
+    log(f"phase 26 (hits through Avro, TSV and NDJSON; FlightSQL): "
         f"{time.perf_counter() - t0:.1f} s")
 
     # phase 23: query 43 over hits in primary-key order
@@ -4070,7 +4431,7 @@ def main() -> int:
                **query_launches, "external sort": sort_launches,
                **q3_launches, **ipc_launches, **clickbench_launches,
                **{f"hits pk: {p}": c for p, c in hits_pk_launches.items()},
-               **parquet_launches}
+               **parquet_launches, **row_launches}
     kernels = []
     for key in ("K1", "K2", "K3", *shown, "dense_agg", "K1_16"):
         row = kernels_rows[key]
@@ -4107,6 +4468,8 @@ def main() -> int:
         log(f"hits pk {step}: {json.dumps(line)}")
     for step, line in parquet_timing.items():
         log(f"hits through Parquet, {step}: {json.dumps(line)}")
+    for fmt, line in row_timing.items():
+        log(f"hits through {fmt}: {json.dumps(line)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

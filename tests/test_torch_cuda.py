@@ -2292,3 +2292,100 @@ def test_short_string_past_the_data_raises_on_card(cuda):
     with pytest.raises(st.ValidationError, match=r"s\.offsets_out_of_bounds"):
         ipc.read_stream(bytes(sink), validate=True, device=cuda)
     assert ipc.read_stream(bytes(sink), device=cuda)[0].length == 2
+
+
+def _avro_files():
+    """A flat OCF (hits' five columns in ClickHouse's types, 70,000 rows
+    in two blocks) and a nested one (records, arrays, maps, an enum)."""
+    import json
+
+    from arrowtpu_torch.entry import HITS_COLUMNS, example_hits_arrays, \
+        hits_batch
+    from arrowtpu_torch.formats import avro
+
+    flat = avro.write_avro(hits_batch(example_hits_arrays(70_000),
+                                      device="cpu"))
+    schema = {"type": "record", "name": "R", "fields": [
+        {"name": "id", "type": "long"},
+        {"name": "tags", "type": {"type": "array", "items": "string"}},
+        {"name": "attrs", "type": {"type": "map",
+                                   "values": ["null", "int"]}},
+        {"name": "sub", "type": ["null", {
+            "type": "record", "name": "S", "fields": [
+                {"name": "x", "type": "int"},
+                {"name": "y", "type": ["null", "string"]}]}]},
+        {"name": "color", "type": {"type": "enum", "name": "C",
+                                   "symbols": ["RED", "GREEN", "BLUE"]}}]}
+    rows = [{"id": i, "tags": [f"t{j}" * (1 + i % 7) for j in range(i % 4)],
+             "attrs": {f"k{j}": None if j == 1 else i * j
+                       for j in range(i % 3)},
+             "sub": None if i % 5 == 0 else {"x": i, "y": f"y{i % 17}"},
+             "color": ["RED", "GREEN", "BLUE"][i % 3]} for i in range(3000)]
+    body = bytearray()
+    for row in rows:
+        avro._encode_row(body, schema, row)
+    blk = bytearray()
+    avro.write_long(blk, len(rows))
+    avro.write_long(blk, len(body))
+    nested = (avro.ocf_header(json.dumps(schema), "null", b"S" * 16)
+              + bytes(blk) + bytes(body) + b"S" * 16)
+    return flat, nested, HITS_COLUMNS
+
+
+def test_avro_on_card_matches_cpu(cuda):
+    """An OCF read onto the card equals the same file read onto the CPU,
+    through the flat native decoder and through the nested one."""
+    from arrowtpu_torch.formats import avro
+
+    flat, nested, names = _avro_files()
+    for data in (flat, nested):
+        got = avro.read_avro(data, device=cuda)
+        want = avro.read_avro(data, device="cpu")
+        assert got.device.type == cuda.type
+        for g, w in zip(got.columns, want.columns):
+            _same_column(g, w)
+    assert avro.read_avro(flat, device=cuda).schema.names == names
+
+
+def test_csv_on_card_matches_cpu(cuda):
+    """`hits` as TSV (hits.tsv's layout) read under the hits schema in
+    batches onto the card equals the same text read onto the CPU."""
+    from arrowtpu_torch.entry import HITS_COLUMNS, HITS_TYPES, \
+        example_hits_arrays, hits_batch
+    from arrowtpu_torch.formats import csv
+
+    text = csv.write_csv(hits_batch(example_hits_arrays(20_000), cuda),
+                         delimiter="\t", has_header=False)
+    schema = st.Schema(tuple(st.Field(n, HITS_TYPES[n], False)
+                             for n in HITS_COLUMNS))
+    opts = dict(schema=schema, delimiter="\t", has_header=False,
+                batch_size=4096)
+    got = csv.read_csv(text, device=cuda, **opts)
+    want = csv.read_csv(text, device="cpu", **opts)
+    for g, w in zip(got.columns, want.columns):
+        _same_column(g, w)
+
+
+def test_execute_select_on_card_matches_cpu(cuda):
+    """A FlightSQL statement over `hits` on the card (cmp, and_kleene,
+    filter_record_batch with K1 at 4 and 8 bytes, slice_batch), framed as
+    DoGet frames it and decoded onto the card, equals the same on the
+    CPU."""
+    from arrowtpu_torch import flight, flightsql
+    from arrowtpu_torch.entry import example_hits_arrays, hits_batch
+
+    arrays = example_hits_arrays(200_000)
+    sql = ("SELECT UserID, RegionID FROM hits WHERE AdvEngineID <> 0 "
+           "AND RegionID < 300 LIMIT 100000")
+    k1.launches = 0
+    got = flightsql.execute_select({"hits": hits_batch(arrays, cuda)}, sql)
+    torch.cuda.synchronize()
+    assert k1.launches >= 1
+    want = flightsql.execute_select({"hits": hits_batch(arrays, "cpu")}, sql)
+    _, (back,) = flight.decode_batches(
+        flight.encode_batches(got.schema, [got]), device=cuda)
+    for g, b, w in zip(got.columns, back.columns, want.columns):
+        _same_column(g, w)
+        _same_column(b, w)
+    keep = (arrays["AdvEngineID"] != 0) & (arrays["RegionID"] < 300)
+    assert want["UserID"].to_pylist() == arrays["UserID"][keep].tolist()
