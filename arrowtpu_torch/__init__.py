@@ -9,6 +9,10 @@ or `arrowtpu`.  Entry points run on the card unless given `device="cpu"`.
 """
 
 from . import config, entry, ops, parallel, schema
+from . import dtype_parse, extension, integration, tensor, variant
+from .dtype_parse import parse_datatype
+from .tensor import Tensor
+from .tensor import tensor as make_tensor
 from .core import bitmap
 from .core.batch import RecordBatch, record_batch
 from .core.column import (BooleanColumn, Column, DictionaryColumn,
@@ -20,6 +24,8 @@ from .interop.numpy_bridge import (batch_from_numpy, column_from_numpy,
                                    column_to_numpy)
 
 __all__ = ["config", "entry", "ops", "parallel", "schema", "bitmap",
+           "dtype_parse", "extension", "integration", "tensor", "variant",
+           "parse_datatype", "Tensor", "make_tensor",
            "RecordBatch", "record_batch", "BooleanColumn", "Column", "NullColumn",
            "PrimitiveColumn", "boolean", "null_column", "primitive",
            "DictionaryColumn", "FixedSizeListColumn", "ListViewColumn",

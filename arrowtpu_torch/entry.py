@@ -103,6 +103,17 @@ on which `q6_step` runs as on any lineitem batch.  `check_same_rows(...,
 same_dictionary=False)` holds the round trip to the batch written, its
 dictionaries by their values.
 
+`jsonbench_step(batch, q)` runs JSONBench's query q (1-5, by its text
+for ClickHouse, `JSONBENCH_QUERIES`) over Bluesky events read from a
+shredded Variant column: `example_bluesky_docs` draws the events as JSON
+texts in Jetstream's shape, `bluesky_variant` parses, encodes and shreds
+them to JSONBENCH_SHRED (host work, as in the JAX package), and
+`bluesky_batch` takes the five columns the queries read by
+`variant_get`'s columnar path; the queries are `like` compares, Kleene
+ANDs, filters, group-bys (Q2's distinct users as two), `date_part` and
+`sort_batch`, each ending in its rows on the host.  `jsonbench_oracle` /
+`check_jsonbench` hold them to the texts parsed by Python's `json`.
+
 `lexsort_step` is BASELINE config 3 (`bench.py` config3_lexsort): the
 lexsort of (int32, float64, dictionary-utf8) columns.
 `example_lexsort_columns` draws them as the bench does, and
@@ -112,6 +123,7 @@ host sort.
 
 from __future__ import annotations
 
+import dataclasses
 import decimal as _pydec
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -2279,3 +2291,331 @@ def hits_from_parquet(batch: bt.RecordBatch) -> bt.RecordBatch:
     return bt.RecordBatch(st.Schema(tuple(
         st.Field(f.name, t if f.name == "EventTime" else f.dtype, f.nullable)
         for f in batch.schema.fields)), cols)
+
+
+# ---------------------------------------------------------------------------
+# JSONBench: Bluesky events as a shredded Variant column
+# ---------------------------------------------------------------------------
+
+JSONBENCH_DOCS = 1_000_000  # JSONBench's 1m size
+JSONBENCH_USERS = 300_000  # distinct dids at JSONBENCH_DOCS documents
+JSONBENCH_USER_POWER = 2.5  # a document's user floor(users * u**2.5)
+JSONBENCH_KINDS = (("commit", 0.95), ("identity", 0.03), ("account", 0.02))
+JSONBENCH_OPERATIONS = (("create", 0.88), ("delete", 0.10), ("update", 0.02))
+# about ten app.bsky collections, a share by rank**-1.5 in this order
+JSONBENCH_COLLECTIONS = (
+    "app.bsky.feed.like", "app.bsky.graph.follow", "app.bsky.feed.post",
+    "app.bsky.feed.repost", "app.bsky.graph.block", "app.bsky.actor.profile",
+    "app.bsky.graph.listitem", "app.bsky.feed.threadgate",
+    "app.bsky.graph.list", "app.bsky.feed.postgate")
+JSONBENCH_COLLECTION_POWER = 1.5
+JSONBENCH_FIRST_US = 1_732_147_200_000_000  # 2024-11-21T00:00:00Z
+JSONBENCH_DAY_US = 86_400_000_000
+JSONBENCH_WORDS = (
+    "the", "a", "bluesky", "post", "today", "new", "just", "love", "this",
+    "good", "morning", "art", "photo", "music", "game", "news", "read",
+    "thread", "world", "people", "time", "first", "open", "web", "feed")
+# the typed_value that JSONBench's five queries read; every other field
+# (rev, rkey, record, cid, identity, account) stays in the residual
+JSONBENCH_SHRED = st.Struct((
+    st.Field("kind", st.utf8), st.Field("did", st.utf8),
+    st.Field("time_us", st.int64),
+    st.Field("commit", st.Struct((st.Field("operation", st.utf8),
+                                  st.Field("collection", st.utf8))))))
+JSONBENCH_COLUMNS = {"kind": (("kind",), st.utf8),
+                     "did": (("did",), st.utf8),
+                     "time_us": (("time_us",), st.int64),
+                     "operation": (("commit", "operation"), st.utf8),
+                     "collection": (("commit", "collection"), st.utf8)}
+JSONBENCH_QUERIES = {
+    1: "SELECT data.commit.collection AS event, count() AS count FROM "
+       "bluesky GROUP BY event ORDER BY count DESC;",
+    2: "SELECT data.commit.collection AS event, count() AS count, "
+       "uniqExact(data.did) AS users FROM bluesky WHERE data.kind = "
+       "'commit' AND data.commit.operation = 'create' GROUP BY event ORDER "
+       "BY count DESC;",
+    3: "SELECT data.commit.collection AS event, toHour(fromUnixTimestamp64"
+       "Micro(data.time_us)) as hour_of_day, count() AS count FROM bluesky "
+       "WHERE data.kind = 'commit' AND data.commit.operation = 'create' AND "
+       "data.commit.collection in ['app.bsky.feed.post', "
+       "'app.bsky.feed.repost', 'app.bsky.feed.like'] GROUP BY event, "
+       "hour_of_day ORDER BY hour_of_day, event;",
+    4: "SELECT data.did::String as user_id, min(fromUnixTimestamp64Micro("
+       "data.time_us)) as first_post_ts FROM bluesky WHERE data.kind = "
+       "'commit' AND data.commit.operation = 'create' AND "
+       "data.commit.collection = 'app.bsky.feed.post' GROUP BY user_id "
+       "ORDER BY first_post_ts ASC LIMIT 3;",
+    5: "SELECT data.did::String as user_id, date_diff('milliseconds', "
+       "min(fromUnixTimestamp64Micro(data.time_us)), max(fromUnixTimestamp64"
+       "Micro(data.time_us))) AS activity_span FROM bluesky WHERE data.kind "
+       "= 'commit' AND data.commit.operation = 'create' AND "
+       "data.commit.collection = 'app.bsky.feed.post' GROUP BY user_id "
+       "ORDER BY activity_span DESC LIMIT 3;",
+}
+JSONBENCH_Q3_COLLECTIONS = ("app.bsky.feed.post", "app.bsky.feed.repost",
+                            "app.bsky.feed.like")
+JSONBENCH_POST = "app.bsky.feed.post"
+JSONBENCH_LIMIT = 3
+_B32 = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz234567", np.uint8)
+
+
+def _b32_strings(rng, n: int, k: int) -> List[str]:
+    """n random strings of k base32 letters (atproto's alphabet)."""
+    raw = _B32[rng.integers(0, 32, (n, k), dtype=np.uint8)]
+    return np.ascontiguousarray(raw).view(f"S{k}").ravel().astype(
+        f"U{k}").tolist()
+
+
+def _draw(rng, n: int, shares) -> np.ndarray:
+    """n indices into `shares` ((name, share) pairs) by their shares."""
+    p = np.asarray([s for _, s in shares], np.float64)
+    return rng.choice(len(p), n, p=p / p.sum())
+
+
+def example_bluesky_docs(docs: int = JSONBENCH_DOCS, seed: int = 19
+                         ) -> List[str]:
+    """JSONBench's Bluesky events (Jetstream's published JSON shape) drawn
+    from `seed` by this repository's laws, in time order, one JSON text a
+    document: `did` one of users (JSONBENCH_USERS scaled to the documents,
+    each "did:plc:" and 24 base32 letters) heavy-tailed (floor(users *
+    u**JSONBENCH_USER_POWER)); `time_us` uniform over one day from
+    JSONBENCH_FIRST_US, sorted; `kind` by JSONBENCH_KINDS; a commit's
+    `operation` by JSONBENCH_OPERATIONS and `collection` by rank**-1.5
+    over JSONBENCH_COLLECTIONS, with `rev`, `rkey` (13-letter TIDs) and,
+    unless deleted, `record` (its fields by collection: a like's or
+    repost's subject {cid, uri}, a post's langs and 3-12 words of text, a
+    follow's or block's subject did) and `cid`; identity and account
+    events carry their own objects."""
+    rng = np.random.default_rng(seed)
+    users = max(1, round(docs * JSONBENCH_USERS / JSONBENCH_DOCS))
+    dids = ["did:plc:" + s for s in _b32_strings(rng, users, 24)]
+    who = (rng.random(docs) ** JSONBENCH_USER_POWER * users).astype(np.int64)
+    other = rng.integers(0, users, docs)
+    time_us = np.sort(JSONBENCH_FIRST_US + rng.integers(
+        0, JSONBENCH_DAY_US, docs, dtype=np.int64))
+    iso = [s + "Z" for s in np.datetime_as_string(
+        time_us.astype("datetime64[us]").astype("datetime64[ms]"),
+        unit="ms").tolist()]
+    kind = _draw(rng, docs, JSONBENCH_KINDS)
+    op = _draw(rng, docs, JSONBENCH_OPERATIONS)
+    w = np.arange(1, len(JSONBENCH_COLLECTIONS) + 1,
+                  dtype=np.float64) ** -JSONBENCH_COLLECTION_POWER
+    coll = rng.choice(len(w), docs, p=w / w.sum())
+    rev, rkey, rkey2 = (_b32_strings(rng, docs, 11) for _ in range(3))
+    cid, cid2 = (_b32_strings(rng, docs, 52) for _ in range(2))
+    n_words = rng.integers(3, 13, docs)
+    words = rng.integers(0, len(JSONBENCH_WORDS), (docs, 12))
+    active = rng.random(docs) < 0.9
+    out = []
+    for i in range(docs):
+        did, t = dids[who[i]], int(time_us[i])
+        head = f'{{"did":"{did}","time_us":{t},'
+        if kind[i] == 1:
+            out.append(
+                head + f'"kind":"identity","identity":{{"did":"{did}",'
+                f'"handle":"user{who[i]}.bsky.social","seq":{i},'
+                f'"time":"{iso[i]}"}}}}')
+            continue
+        if kind[i] == 2:
+            out.append(
+                head + f'"kind":"account","account":{{"active":'
+                f'{"true" if active[i] else "false"},"did":"{did}",'
+                f'"seq":{i},"time":"{iso[i]}"}}}}')
+            continue
+        c = JSONBENCH_COLLECTIONS[coll[i]]
+        operation = JSONBENCH_OPERATIONS[op[i]][0]
+        commit = (f'"rev":"3l{rev[i]}","operation":"{operation}",'
+                  f'"collection":"{c}","rkey":"3l{rkey[i]}"')
+        if operation != "delete":
+            record = f'"$type":"{c}","createdAt":"{iso[i]}"'
+            if coll[i] in (0, 3):  # like, repost
+                record += (f',"subject":{{"cid":"bafyrei{cid2[i]}","uri":'
+                           f'"at://{dids[other[i]]}/app.bsky.feed.post/'
+                           f'3l{rkey2[i]}"}}')
+            elif coll[i] == 2:  # post
+                text = " ".join(JSONBENCH_WORDS[x]
+                                for x in words[i, :n_words[i]])
+                record += f',"langs":["en"],"text":"{text}"'
+            elif coll[i] in (1, 4):  # follow, block
+                record += f',"subject":"{dids[other[i]]}"'
+            commit += f',"record":{{{record}}},"cid":"bafyrei{cid[i]}"'
+        out.append(head + f'"kind":"commit","commit":{{{commit}}}}}')
+    return out
+
+
+def bluesky_variant(texts: List[str], device=None):
+    """The JSON texts as a Variant column on `device` (None: the card),
+    parsed and encoded on the host (`variant.batch_json_to_variant`), then
+    shredded to JSONBENCH_SHRED (`variant.shred_variant`).  -> the
+    shredded VariantColumn."""
+    from . import variant
+
+    vc = variant.batch_json_to_variant(texts, resolve_device(device))
+    return variant.shred_variant(vc, JSONBENCH_SHRED)
+
+
+def bluesky_batch(vc) -> bt.RecordBatch:
+    """The five columns JSONBench's queries read, by `variant_get` of
+    their paths as their types (JSONBENCH_COLUMNS): on a column shredded
+    to JSONBENCH_SHRED each is a typed column of the shredded form itself
+    (the columnar path), with no row decoded."""
+    from . import variant
+
+    return bt.record_batch({
+        name: variant.variant_get(vc, list(path), as_dtype=dtype)
+        for name, (path, dtype) in JSONBENCH_COLUMNS.items()})
+
+
+def _equals(c: col.Column, text: str) -> col.BooleanColumn:
+    """c = 'text' (a string literal with no LIKE wildcard, matched as the
+    pattern it is)."""
+    if "%" in text or "_" in text:
+        raise ValueError(f"{text!r} holds a LIKE wildcard")
+    return ops.like(c, text)
+
+
+def _created(batch: bt.RecordBatch) -> col.BooleanColumn:
+    """kind = 'commit' AND commit.operation = 'create' (Kleene)."""
+    return ops.and_kleene(_equals(batch["kind"], "commit"),
+                          _equals(batch["operation"], "create"))
+
+
+def _rows(batch: bt.RecordBatch, names) -> list:
+    return list(zip(*(batch[n].to_pylist() for n in names)))
+
+
+def jsonbench_step(batch: bt.RecordBatch, q: int) -> list:
+    """JSONBench query q (1-5, `JSONBENCH_QUERIES`) over `bluesky_batch`'s
+    columns on their device, ending in its rows on the host.  Ties in
+    ORDER BY are broken by the event (nulls first) or the user id,
+    ascending, as `jsonbench_oracle` breaks them.
+      1: [(collection or None, count)]
+      2: [(collection, count, users)]: the (collection, did) pairs with
+         their counts, then those counts' sum and count by collection (two
+         group-bys)
+      3: [(collection, hour, count)]: the hour of time_us as a UTC
+         microsecond timestamp (`date_part`)
+      4: [(did, first time_us)]
+      5: [(did, span in ms)]: floor(max / 1000) - floor(min / 1000), as
+         ClickHouse's date_diff('milliseconds') counts."""
+    from .config import SortOptions
+
+    desc, asc = SortOptions(descending=True), SortOptions()
+    if q == 1:
+        g = gb.group_by(_pick(batch, ["collection", "time_us"]),
+                        ["collection"], [("time_us", "count")])
+        top = ops.sort_batch(g, ["count_time_us", "collection"], [desc, asc])
+        return _rows(top, ["collection", "count_time_us"])
+    created = _created(batch)
+    if q == 2:
+        kept = ops.filter_record_batch(
+            _pick(batch, ["collection", "did", "time_us"]), created)
+        pairs = gb.group_by(kept, ["collection", "did"],
+                            [("time_us", "count")])
+        g = gb.group_by(pairs, ["collection"], [("count_time_us", "sum"),
+                                                ("count_time_us", "count")])
+        top = ops.sort_batch(g, ["sum_count_time_us", "collection"],
+                             [desc, asc])
+        return _rows(top, ["collection", "sum_count_time_us",
+                           "count_count_time_us"])
+    if q == 3:
+        coll = batch["collection"]
+        listed = _equals(coll, JSONBENCH_Q3_COLLECTIONS[0])
+        for name in JSONBENCH_Q3_COLLECTIONS[1:]:
+            listed = ops.or_kleene(listed, _equals(coll, name))
+        kept = ops.filter_record_batch(
+            _pick(batch, ["collection", "time_us"]),
+            ops.and_kleene(created, listed))
+        stamp = dataclasses.replace(kept["time_us"],
+                                    dtype=st.Timestamp("us"))
+        hours = bt.record_batch({"collection": kept["collection"],
+                                 "hour": ops.date_part(stamp, "hour")})
+        g = gb.group_by(hours, ["collection", "hour"], [("hour", "count")])
+        top = ops.sort_batch(g, ["hour", "collection"], [asc, asc])
+        return _rows(top, ["collection", "hour", "count_hour"])
+    if q in (4, 5):
+        kept = ops.filter_record_batch(
+            _pick(batch, ["did", "time_us"]),
+            ops.and_kleene(created, _equals(batch["collection"],
+                                            JSONBENCH_POST)))
+        g = gb.group_by(kept, ["did"], [("time_us", "min"),
+                                        ("time_us", "max")])
+        if q == 4:
+            top = ops.sort_batch(g, ["min_time_us", "did"], [asc, asc],
+                                 limit=JSONBENCH_LIMIT)
+            return _rows(top, ["did", "min_time_us"])
+        span = ops.sub(ops.div(g["max_time_us"], 1000),
+                       ops.div(g["min_time_us"], 1000))
+        spans = bt.record_batch({"did": g["did"], "span": span})
+        top = ops.sort_batch(spans, ["span", "did"], [desc, asc],
+                             limit=JSONBENCH_LIMIT)
+        return _rows(top, ["did", "span"])
+    raise ValueError(f"no JSONBench query {q}")
+
+
+def _ordered(rows, key, limit=None) -> list:
+    rows = sorted(rows, key=key)
+    return rows if limit is None else rows[:limit]
+
+
+def jsonbench_oracle(texts: List[str], q=None):
+    """JSONBench's queries over the JSON texts, parsed by Python's `json`
+    (no part of `variant/`), in plain Python: query q's rows as
+    `jsonbench_step` gives them, or (q None) {q: rows} for all five, the
+    texts parsed once."""
+    import json as _json
+
+    qs = sorted(JSONBENCH_QUERIES) if q is None else [q]
+    by_coll: Dict[Optional[str], int] = {}
+    created = []  # (collection, did, time_us) of the created commits
+    for text in texts:
+        d = _json.loads(text)
+        commit = d.get("commit")
+        c = commit["collection"] if commit else None
+        by_coll[c] = by_coll.get(c, 0) + 1
+        if d["kind"] == "commit" and commit["operation"] == "create":
+            created.append((c, d["did"], d["time_us"]))
+    out = {}
+    for x in qs:
+        if x == 1:
+            out[x] = _ordered(by_coll.items(), lambda r: (
+                -r[1], r[0] is not None, r[0] or ""))
+        elif x == 2:
+            count: Dict[str, int] = {}
+            users: Dict[str, set] = {}
+            for c, did, _ in created:
+                count[c] = count.get(c, 0) + 1
+                users.setdefault(c, set()).add(did)
+            out[x] = _ordered([(c, n, len(users[c]))
+                               for c, n in count.items()],
+                              lambda r: (-r[1], r[0]))
+        elif x == 3:
+            cells: Dict[Tuple[str, int], int] = {}
+            for c, _, t in created:
+                if c in JSONBENCH_Q3_COLLECTIONS:
+                    key = (c, t // 3_600_000_000 % 24)
+                    cells[key] = cells.get(key, 0) + 1
+            out[x] = _ordered([(c, h, n) for (c, h), n in cells.items()],
+                              lambda r: (r[1], r[0]))
+        else:
+            lo: Dict[str, int] = {}
+            hi: Dict[str, int] = {}
+            for c, did, t in created:
+                if c == JSONBENCH_POST:
+                    lo[did] = min(lo.get(did, t), t)
+                    hi[did] = max(hi.get(did, t), t)
+            if x == 4:
+                out[x] = _ordered(lo.items(), lambda r: (r[1], r[0]),
+                                  JSONBENCH_LIMIT)
+            else:
+                out[x] = _ordered(
+                    [(did, hi[did] // 1000 - lo[did] // 1000) for did in lo],
+                    lambda r: (-r[1], r[0]), JSONBENCH_LIMIT)
+    return out if q is None else out[q]
+
+
+def check_jsonbench(got, want, q: int):
+    """Raise unless query q's rows equal the oracle's, exactly."""
+    if got != want:
+        raise AssertionError(f"JSONBench Q{q}: {got!r} != {want!r}")
+    return got

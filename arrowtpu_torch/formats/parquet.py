@@ -867,8 +867,9 @@ def _column_meta_thrift(m) -> bytes:
 def _file_metadata(schema: st.Schema, row_groups, props: WriterProperties,
                    encryptor=None) -> bytes:
     from .geospatial import geo_annotation
-    from .parquet_nested import (EXTENSION_NAME_KEY, count_schema_elements,
-                                 leaf_count, write_schema_elements)
+    from ..extension import EXTENSION_NAME_KEY
+    from .parquet_nested import (count_schema_elements, leaf_count,
+                                 write_schema_elements)
 
     w = thrift.Writer()
     w.struct_begin()

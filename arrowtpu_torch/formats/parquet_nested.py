@@ -39,12 +39,10 @@ from .. import schema as st
 from ..config import round_up
 from ..core import bitmap as bm
 from ..core import column as col
+from ..extension import EXTENSION_NAME_KEY
 from .geospatial import GEO_CRS_KEY, GEO_KEY
 
 I32 = np.int32
-
-# the field metadata key of the JAX package's extension module
-EXTENSION_NAME_KEY = "ARROW:extension:name"
 
 
 @dataclasses.dataclass

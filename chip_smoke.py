@@ -359,6 +359,24 @@ Phases (each raises on failure; the exit code is then non-zero):
      of 3) and the K1 / K2 / dense_agg calls by calling module.  Cuts:
      16,777,216 and 1,048,576 rows of the 99,997,497, for the host's
      decode and parse times.
+  27. (last, after phase 14) JSONBench's Bluesky events as a shredded
+     Variant column (`jsonbench_phase`): 524,288 documents of Jetstream's
+     shape drawn by `entry.example_bluesky_docs` (the cut: JSONBench's 1m
+     size less its host time, the Python parse and shred), parsed and
+     encoded on the host (`variant.batch_json_to_variant`) and shredded to
+     (kind, did, time_us, commit.operation, commit.collection)
+     (`variant.shred_variant`), the stages' host seconds, uploads and busy
+     shares apart; `variant_get` of the five paths, each the shredded
+     typed column itself with no row decoded, and commit.rkey from the
+     residual by the host fallback; JSONBench's five queries exact against
+     `entry.jsonbench_oracle` (Python's json), K1 at 16 and 8 bytes in
+     Q2-Q5, every K1 / K2 / dense_agg call held to plain, each query's ms;
+     the column through Parquet and back (its columns equal, Q1 exact) and
+     `python -m arrowtpu_torch.cli` rowcount / schema / cat over the file;
+     65,536 rows through the archery JSON format and `json-integration`
+     (the cut: a conformance format, not a data path); `cli bench` on the
+     card (K1 / K2 held to plain); a FixedShapeTensor over phase 14's
+     fixed_size_list<float32, 4> as a Tensor (n, 2, 2), equal to numpy.
 
 The line before the last lists the kernels as JSON (`launches` from the
 flagship step for K1 and K2, from K3's entry point for K3, from
@@ -366,14 +384,16 @@ run_probes for the probe kernels, from config 4 at 100 keys for
 dense_agg and from the Q6 step for K1's 16-byte words; every path's counts under `launches_by_path`, the skewed
 step's filters as a path of their own, TPC-H Q1, the text join step, the
 lineitem exchange, the distributed Q1, Q14, Q19, the external sort, Q3,
-ClickBench's eight queries, phases 23's and 25's steps and phase 26's
-queries and FlightSQL statement too; the
+ClickBench's eight queries, phases 23's and 25's steps, phase 26's
+queries and FlightSQL statement and phase 27's variant_get, JSONBench
+queries and `cli bench` too; the
 flagship, join
 and skewed join steps, int64-keyed, must launch no dense_agg; K1's 16-byte
 row carries its Q1 calls), after the Q1 step's, the l_comment sort's,
 the LIKE lines', the Q14 and Q19 steps', the external sort's, the Q3
 step's, phase 24's, the eight ClickBench steps', phase 23's, phase
-25's and phase 26's JSON lines and the card's line; the last line is
+25's, phase 26's and phase 27's JSON lines and the card's line; the last
+line is
 {"ok": true, "device": {...}}.
 Without a CUDA device the script exits with an error and prints no
 result.
@@ -2375,15 +2395,17 @@ def profiled_once(fn):
 
 
 @contextlib.contextmanager
-def stage_seconds(mod, attr):
-    """Yields a dict whose "s" adds up the seconds spent in mod.<attr>
-    (the card synchronized after each call)."""
+def stage_seconds(mod, attr, sync=True):
+    """Yields a dict whose "s" adds up the seconds spent in mod.<attr> and
+    "calls" counts them (the card synchronized after each call, unless
+    the calls are host work: sync=False)."""
     fn, total = getattr(mod, attr), {"s": 0.0, "calls": 0}
 
     def timed_call(*args, **kwargs):
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
-        torch.cuda.synchronize()
+        if sync:
+            torch.cuda.synchronize()
         total["s"] += time.perf_counter() - t0
         total["calls"] += 1
         return out
@@ -3937,6 +3959,296 @@ def nested_phase(ops, k1, k2, build, dev):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 27: JSONBench's Bluesky events as a shredded Variant column
+# 524,288 of JSONBench's 1,000,000 documents (entry.JSONBENCH_DOCS): the
+# only cut, for the host's parse, encode and shred, which are Python (the
+# phase took 280.7 s at 1,000,000 on the H100's host)
+JSONBENCH_DOCS = 1 << 19
+JSONBENCH_REPS = 3
+INTEGRATION_ROWS = 65_536  # a conformance format, not a data path
+CLI_BENCH_ROWS = 8_388_608
+CLI_MAX_ROWS = 40  # `cat`'s default
+
+
+@contextlib.contextmanager
+def copies_to_card():
+    """Yields a dict of the host-to-card copies made by Tensor.to while
+    active: "s" (each copy synchronized), "bytes" and "calls"."""
+    real, total = torch.Tensor.to, {"s": 0.0, "bytes": 0, "calls": 0}
+
+    def to(self, *args, **kwargs):
+        if self.device.type != "cpu":
+            return real(self, *args, **kwargs)
+        t0 = time.perf_counter()
+        out = real(self, *args, **kwargs)
+        if out.device.type == "cuda":
+            torch.cuda.synchronize()
+            total["s"] += time.perf_counter() - t0
+            total["bytes"] += self.numel() * self.element_size()
+            total["calls"] += 1
+        return out
+
+    torch.Tensor.to = to
+    try:
+        yield total
+    finally:
+        torch.Tensor.to = real
+
+
+def typed_leaf(vc, path):
+    """The typed_value column of a shredded path (its group's own)."""
+    c = vc.typed_value
+    for name in path:
+        c = c.field(name).field("typed_value")
+    return c
+
+
+def cli_out(cli, argv) -> str:
+    """`python -m arrowtpu_torch.cli ARGV` in this process: its stdout."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    return buf.getvalue()
+
+
+def jsonbench_phase(pe, ops, k1, k2, build, dev):
+    """Phase 27: JSONBench's Bluesky events (JSONBENCH_DOCS documents,
+    `example_bluesky_docs`; cut from JSONBench's 1m size for the host's
+    Python parse and shred) as a Variant column on the card.  (a) The JSON
+    texts parsed and encoded on the host (`batch_json_to_variant`), then
+    shredded to pe.JSONBENCH_SHRED (`shred_variant`): each stage's host
+    seconds, its parse and host-to-card copies apart, and the card's busy
+    share.  (b) `bluesky_batch`: variant_get of the five paths, each of
+    which must be the shredded typed column itself with no row decoded
+    (no metadata read); commit.rkey, in the residual, by the host fallback,
+    equal to the texts.  (c) JSONBench's five queries (`jsonbench_step`)
+    exact against `jsonbench_oracle` (Python's json and plain Python), the
+    launch counts set to 0 around each, every K1 / K2 / dense_agg call held
+    to plain, K1 in Q2-Q5 at 16 bytes (the views) and 8 bytes in Q2-Q5's
+    filters that move time_us; each query's ms (CUDA events, median of
+    JSONBENCH_REPS).  (d) The shredded column through Parquet
+    (`write_parquet`, a VARIANT-annotated group) read back onto the card
+    into a VariantColumn: variant_get's five columns again by the columnar
+    path, equal to (b)'s on the card, and Q1 on them exact; `rowcount`,
+    `schema` and `cat` of `python -m arrowtpu_torch.cli` over the file
+    against the batch written.  (e) The first INTEGRATION_ROWS rows of
+    (b)'s batch as an archery JSON file, `json-integration` JSON_TO_ARROW
+    then VALIDATE (equal_batches on the card), and the file read back equal
+    to those rows; `cli bench --rows CLI_BENCH_ROWS` on the card (its K1 /
+    K2 calls held to plain on one run, its line from another); a
+    FixedShapeTensor (2, 2) over phase 14's fixed_size_list<float32, 4>
+    column as a Tensor (n, 2, 2) on the card, equal to numpy's reshape,
+    and with the permutation (1, 0) to numpy's transpose.  -> ({path:
+    launches}, {part: line})."""
+    import os
+    import shutil
+    import tempfile
+
+    from arrowtpu_torch import cli, extension, integration, tensor, variant
+    from arrowtpu_torch import schema as st
+    from arrowtpu_torch.core import batch as bt
+    from arrowtpu_torch.formats import parquet
+    from arrowtpu_torch.kernels import dense_agg as dk
+    from arrowtpu_torch.utils.pretty import pretty_format_batches
+    from arrowtpu_torch.variant import get as vget
+    from arrowtpu_torch.variant import json as vjson
+
+    n = JSONBENCH_DOCS
+    launches, lines = {}, {}
+    texts, draw_s = host_s(lambda: pe.example_bluesky_docs(n))
+    text_bytes = sum(len(t) for t in texts)
+    log(f"jsonbench: {n} Bluesky documents drawn in {draw_s:.2f} s, "
+        f"{text_bytes} bytes of JSON text")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+
+    # (a) parse and encode, then shred, on the host; the columns uploaded
+    with stage_seconds(vjson, "json_to_variant", sync=False) as parse, \
+            copies_to_card() as up1:
+        vc, encode_s, encode_busy = profiled_once(
+            lambda: variant.batch_json_to_variant(texts, dev))
+    arena_bytes = sum(c.arena.numel() + c.views.numel() * 4
+                      for c in (vc.metadata, vc.value))
+    with copies_to_card() as up2:
+        sh, shred_s, shred_busy = profiled_once(
+            lambda: variant.shred_variant(vc, pe.JSONBENCH_SHRED))
+    del vc
+    lines["shred"] = {
+        "docs": n, "json_text_bytes": text_bytes,
+        "variant_arena_bytes": arena_bytes, "draw_s": draw_s,
+        "json_to_variant_s": encode_s, "parse_s": parse["s"],
+        "encode_s": encode_s - parse["s"] - up1["s"], "upload_s": up1["s"],
+        "upload_bytes": up1["bytes"], "busy_share": encode_busy,
+        "shred_variant_s": shred_s, "shred_upload_s": up2["s"],
+        "shred_upload_bytes": up2["bytes"],
+        "shred_host_s": shred_s - up2["s"], "shred_busy_share": shred_busy}
+    log(f"jsonbench (a): {json.dumps(lines['shred'])}")
+
+    # (b) the five columns by the columnar path, rkey by the fallback
+    with stage_seconds(vget, "MetadataNames", sync=False) as meta_reads, \
+            counted(k1, k2, build, dk) as run:
+        batch, get_s = host_s(lambda: pe.bluesky_batch(sh))
+    if meta_reads["calls"]:
+        raise AssertionError("variant_get decoded rows on a shredded path")
+    for name, (path, _) in pe.JSONBENCH_COLUMNS.items():
+        leaf = typed_leaf(sh, path)
+        if batch[name] is not leaf:
+            raise AssertionError(f"variant_get of {path}: not the typed "
+                                 "column itself")
+    launches["JSONBench variant_get"] = run
+    with stage_seconds(vget, "MetadataNames", sync=False) as meta_reads:
+        rkey, rkey_s = host_s(lambda: vget.variant_get(
+            sh, ["commit", "rkey"], as_dtype=st.utf8))
+    want_rkey = []
+    for t in texts:
+        at = t.find('"rkey":"')
+        want_rkey.append(None if at < 0 else t[at + 8:t.index('"', at + 8)])
+    if meta_reads["calls"] != 1 or rkey.to_pylist() != want_rkey:
+        raise AssertionError("variant_get of commit.rkey (the residual) "
+                             "differs from the documents")
+    lines["variant_get"] = {"columnar_s": get_s, "residual_rkey_s": rkey_s,
+                            "launches": run}
+    log(f"jsonbench (b): the five columns are the shredded typed columns "
+        f"(no row decoded); commit.rkey by the host fallback equal to the "
+        f"texts; {json.dumps(lines['variant_get'])}")
+    del rkey, want_rkey
+
+    # (c) the five queries
+    want, oracle_s = host_s(lambda: pe.jsonbench_oracle(texts))
+    ms, callers = {}, {}
+    for q in sorted(pe.JSONBENCH_QUERIES):
+        args = {}
+        with counted(k1, k2, build, dk, args) as run:
+            got = pe.jsonbench_step(batch, q)
+        pe.check_jsonbench(got, want[q], q)
+        if q >= 2 and not (run.get("K1_16") and run.get("K1_8")):
+            raise AssertionError(f"JSONBench Q{q}: K1 must launch at 16 "
+                                 f"and 8 bytes ({run})")
+        launches[f"JSONBench Q{q}"] = run
+        callers[q] = {f"{k}.{m}.{w}B": c for (k, m, w), c in
+                      by_caller(args, build).items()}
+        if run["dense_agg"]:
+            callers[q]["dense_agg"] = run["dense_agg"]
+        ms[q] = timed(lambda: pe.jsonbench_step(batch, q),
+                      reps=JSONBENCH_REPS)
+    lines["queries"] = {
+        "oracle_s": oracle_s, "query_ms": ms, "launches_by_caller": callers,
+        "rows": {q: len(r) for q, r in want.items()},
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "held_before_gib": held / 2**30}
+    log(f"jsonbench (c): Q1-Q5 exact against jsonbench_oracle; "
+        f"{json.dumps(lines['queries'])}")
+
+    # (d) through Parquet, then the CLI over the file
+    written = bt.RecordBatch(st.Schema((variant.variant_field(
+        "v", sh.typed_value.dtype),)), (sh.inner,))
+    data, write_s = host_s(lambda: parquet.write_parquet(written))
+    read, read_s = host_s(lambda: parquet.read_parquet(data, device=dev))
+    back = variant.VariantColumn(read["v"])
+    with stage_seconds(vget, "MetadataNames", sync=False) as meta_reads:
+        scanned = pe.bluesky_batch(back)
+    if meta_reads["calls"] or scanned.device != dev or \
+            not bool(ops.equal_batches(scanned, batch)):
+        raise AssertionError("Parquet: the scanned variant's columns "
+                             "differ or were decoded")
+    args = {}
+    with counted(k1, k2, build, dk, args) as run:
+        got = pe.jsonbench_step(scanned, 1)
+    pe.check_jsonbench(got, want[1], 1)
+    launches["JSONBench Q1 after Parquet"] = run
+    tmp = tempfile.mkdtemp(prefix="jsonbench")
+    try:
+        path = os.path.join(tmp, "bluesky.parquet")
+        with open(path, "wb") as f:
+            f.write(data)
+        first = ops.take_record_batch(written, pe.column_from_numpy(
+            np.arange(CLI_MAX_ROWS), None, device=dev))
+        expect = {
+            "rowcount": f"{n}\n",
+            "schema": "".join(f"{f.name}: {f.dtype}"
+                              f"{'' if f.nullable else ' NOT NULL'}\n"
+                              for f in written.schema.fields),
+            "cat": pretty_format_batches(first, CLI_MAX_ROWS) + "\n"}
+        cli_s = {}
+        for cmd, text in expect.items():
+            out, cli_s[cmd] = host_s(lambda: cli_out(cli, [cmd, path]))
+            if out != text:
+                raise AssertionError(f"cli {cmd}: {out[:300]!r} != "
+                                     f"{text[:300]!r}")
+        lines["parquet"] = {"bytes": len(data), "write_s": write_s,
+                            "read_s": read_s, "cli_s": cli_s}
+        log(f"jsonbench (d): the shredded column through Parquet, read "
+            f"back: the five columns equal (columnar path), Q1 exact; "
+            f"rowcount, schema, cat equal the batch; "
+            f"{json.dumps(lines['parquet'])}")
+        del read, back, scanned, written, first, data
+
+        # (e) the integration format, cli bench, FixedShapeTensor
+        head = ops.slice_batch(batch, 0, INTEGRATION_ROWS)
+        jpath, apath = (os.path.join(tmp, x) for x in ("t.json", "t.arrow"))
+        _, json_s = host_s(lambda: integration.write_json_file([head], jpath))
+        to_arrow = cli_out(cli, ["json-integration", "--mode",
+                                 "JSON_TO_ARROW", "--json", jpath, "--arrow",
+                                 apath])
+        valid_out = cli_out(cli, ["json-integration", "--mode", "VALIDATE",
+                                  "--json", jpath, "--arrow", apath])
+        _, from_json = integration.read_json_file(jpath, dev)
+        if not to_arrow.startswith("wrote") or \
+                valid_out.strip() != "validation OK" or \
+                not bool(ops.equal_batches(from_json[0], head)):
+            raise AssertionError("json-integration: the round trip differs")
+        lines["integration"] = {"rows": INTEGRATION_ROWS,
+                                "json_bytes": os.path.getsize(jpath),
+                                "write_json_s": json_s}
+        log(f"jsonbench (e): {INTEGRATION_ROWS} rows through the archery "
+            f"JSON format: JSON_TO_ARROW, VALIDATE OK, equal on the card; "
+            f"{json.dumps(lines['integration'])}")
+        del head, from_json
+    finally:
+        shutil.rmtree(tmp)
+
+    bench_argv = ["bench", "--rows", str(CLI_BENCH_ROWS)]
+    args = {}
+    with counted(k1, k2, build, dk, args) as run:
+        cli_out(cli, bench_argv)
+    if not run.get("K1_8"):
+        raise AssertionError(f"cli bench: K1 did not launch at 8 bytes "
+                             f"({run})")
+    launches["cli bench"] = run
+    bench = json.loads(cli_out(cli, bench_argv).strip().splitlines()[-1])
+    if bench["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"cli bench ran on {bench['device']}")
+    lines["cli_bench"] = dict(bench, launches_by_caller={
+        f"{k}.{m}.{w}B": c for (k, m, w), c in by_caller(args, build).items()})
+    log(f"jsonbench (e): cli bench, every K1 / K2 call held to plain: "
+        f"{json.dumps(lines['cli_bench'])}")
+
+    fl = nested_batch(NESTED_ROWS, dev, np.random.default_rng(8))["fl"]
+    flat = fl.child.values[:NESTED_ROWS * 4].cpu().numpy()
+    for perm, want_t in ((None, flat.reshape(-1, 2, 2)),
+                         ((1, 0), flat.reshape(-1, 2, 2).transpose(0, 2, 1))):
+        field = extension.extension_field("fl", extension.FixedShapeTensor(
+            st.float32, (2, 2), perm))
+        ext = extension.REGISTRY.lookup(field)
+        t = tensor.from_fixed_shape_tensor(fl, ext)
+        if t.device != dev or t.shape != (NESTED_ROWS, 2, 2) or \
+                not np.array_equal(t.to_numpy(), want_t) or not torch.equal(
+                    t.as_strided().cpu(), torch.from_numpy(want_t)):
+            raise AssertionError(f"FixedShapeTensor (permutation {perm}): "
+                                 "the Tensor differs from numpy")
+    log(f"jsonbench (e): FixedShapeTensor (2, 2) over phase 14's "
+        f"fixed_size_list<float32, 4> ({NESTED_ROWS} rows) as a Tensor "
+        f"{t.shape} on {t.device}, equal to numpy (permutations none and "
+        f"(1, 0))")
+    del fl, t, flat, batch, sh
+    torch.cuda.empty_cache()
+    return launches, lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4333,6 +4645,14 @@ def main() -> int:
     nested_launches = nested_phase(ops, k1, k2, _build, dev)
     log(f"phase 14 (nested classes): {time.perf_counter() - t0:.1f} s")
 
+    # phase 27: JSONBench's Bluesky events as a shredded Variant column
+    t0 = time.perf_counter()
+    jsonbench_launches, jsonbench_timing = jsonbench_phase(
+        pe, ops, k1, k2, _build, dev)
+    log(f"phase 27 (JSONBench, {JSONBENCH_DOCS} Bluesky documents as a "
+        f"shredded Variant; Parquet, integration format, CLI, Tensor): "
+        f"{time.perf_counter() - t0:.1f} s")
+
     kernels_rows["K1"]["group_by_calls"] = group_by_rows
     kernels_rows["K1"]["join_calls"] = join_k1_rows
     kernels_rows["K1"]["config4_calls"] = agg_k1_rows
@@ -4431,7 +4751,7 @@ def main() -> int:
                **query_launches, "external sort": sort_launches,
                **q3_launches, **ipc_launches, **clickbench_launches,
                **{f"hits pk: {p}": c for p, c in hits_pk_launches.items()},
-               **parquet_launches, **row_launches}
+               **parquet_launches, **row_launches, **jsonbench_launches}
     kernels = []
     for key in ("K1", "K2", "K3", *shown, "dense_agg", "K1_16"):
         row = kernels_rows[key]
@@ -4470,6 +4790,8 @@ def main() -> int:
         log(f"hits through Parquet, {step}: {json.dumps(line)}")
     for fmt, line in row_timing.items():
         log(f"hits through {fmt}: {json.dumps(line)}")
+    for part, line in jsonbench_timing.items():
+        log(f"JSONBench {part}: {json.dumps(line)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

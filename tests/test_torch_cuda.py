@@ -2389,3 +2389,77 @@ def test_execute_select_on_card_matches_cpu(cuda):
         _same_column(b, w)
     keep = (arrays["AdvEngineID"] != 0) & (arrays["RegionID"] < 300)
     assert want["UserID"].to_pylist() == arrays["UserID"][keep].tolist()
+
+
+def test_variant_get_fast_path_gives_the_typed_column_on_card(cuda):
+    """variant_get of a fully shredded primitive path on a VariantColumn on
+    the card is the shredded typed column itself (its own device tensor),
+    with no row decoded; a residual path falls back to the host and equals
+    the CPU's."""
+    from arrowtpu_torch import variant
+    from arrowtpu_torch.variant import get as vget
+
+    vals = [{"a": i, "b": f"s{i}", "c": [i]} for i in range(300)] + [
+        None, {"b": "only b"}]
+    target = st.Struct((st.Field("a", st.int64), st.Field("b", st.utf8)))
+    sh = variant.shred_variant(variant.variant_array(vals, cuda), target)
+    real, made = vget.MetadataNames, []
+    vget.MetadataNames = lambda m: made.append(m) or real(m)
+    try:
+        got = variant.variant_get(sh, ["a"], as_dtype=st.int64)
+        assert not made
+        typed = sh.typed_value.field("a").field("typed_value")
+        assert got.values.data_ptr() == typed.values.data_ptr()
+        assert got.device.type == "cuda"
+        assert got.to_pylist() == [v.get("a") if v else None for v in vals]
+        resid = variant.variant_get(sh, ["c", 0], as_dtype=st.int64)
+        assert len(made) == 1 and resid.device.type == "cuda"
+    finally:
+        vget.MetadataNames = real
+    cpu = variant.shred_variant(variant.variant_array(vals, "cpu"), target)
+    assert resid.to_pylist() == variant.variant_get(
+        cpu, ["c", 0], as_dtype=st.int64).to_pylist()
+
+
+def test_cli_bench_on_card_holds_k1_to_plain(cuda, capsys):
+    """`python -m arrowtpu_torch.cli bench` runs its filter on the card by
+    default: K1 launches at 8 bytes, each call equal to the plain version,
+    and the line names the card."""
+    import json
+
+    from arrowtpu_torch import cli
+
+    real, calls = k1.compact_planes, []
+
+    def held(planes, keep, pre=None, out_rows=None):
+        got = real(planes, keep, pre, out_rows)
+        want = k1.compact_planes_plain(planes, keep, out_rows)
+        calls.append(all(torch.equal(a, b) for a, b in zip(got, want)))
+        return got
+
+    k1.launches = 0
+    k1.compact_planes = held
+    try:
+        cli.main(["bench", "--rows", "300000"])
+    finally:
+        k1.compact_planes = real
+    torch.cuda.synchronize()
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["device"] == torch.cuda.get_device_name(0)
+    assert line["rows"] == 300_000 and line["seconds"] > 0
+    assert k1.launches >= 1 and calls and all(calls)
+
+
+def test_jsonbench_on_card_against_oracle(cuda):
+    """A small JSONBench draw shredded onto the card: the five columns by
+    the columnar path, and the five queries exact against the oracle."""
+    from arrowtpu_torch.entry import (bluesky_batch, bluesky_variant,
+                                      check_jsonbench, example_bluesky_docs,
+                                      jsonbench_oracle, jsonbench_step)
+
+    texts = example_bluesky_docs(5_000)
+    batch = bluesky_batch(bluesky_variant(texts, cuda))
+    assert batch.device.type == "cuda"
+    want = jsonbench_oracle(texts)
+    for q in range(1, 6):
+        check_jsonbench(jsonbench_step(batch, q), want[q], q)

@@ -24,7 +24,9 @@ for name in ("kernels.compact2", "ops.join", "ops.take", "rowformat.hashing",
              "formats.parquet_record", "formats.parquet_nested",
              "formats.parquet_cdc", "formats.parquet_crypto", "formats.csv",
              "formats.json", "formats.avro", "formats.geospatial", "flight",
-             "flightsql", "flightsql_meta"):
+             "flightsql", "flightsql_meta", "extension", "tensor",
+             "integration", "cli", "variant.encoding", "variant.array",
+             "variant.shred", "variant.get", "variant.json"):
     assert "arrowtpu_torch." + name in sys.modules, name
 import torch
 assert not torch.cuda.is_available()
@@ -33,9 +35,11 @@ from arrowtpu_torch.entry import (agg_plan, agg_step, dryrun_multichip,
                                   example_lexsort_columns)
 from arrowtpu_torch.parallel import run
 from arrowtpu_torch.probes import run_probes
+from arrowtpu_torch import cli, make_tensor, variant
 for call in (entry, example_batch, lambda: dryrun_multichip(1),
              lambda: run(print, 1), example_lexsort_columns, run_probes,
-             example_agg_batch):
+             example_agg_batch, lambda: variant.variant_array([1]),
+             lambda: make_tensor([1]), lambda: cli.main(["bench"])):
     try:
         call()
     except RuntimeError as e:
