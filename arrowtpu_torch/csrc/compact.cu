@@ -4,7 +4,9 @@
 //
 // Replaces two Pallas TPU kernels of the JAX package, both now
 // tile_compact_kernel (tile_rank.cuh, which gives the design and the
-// bound), the port's one compaction kernel:
+// bound) but for K1's 16-byte words in the look-back frame, which run
+// compact16_kernel (compact16.cuh, its own design and bound, and the
+// readings that chose between the two for each frame):
 //   * arrowtpu/pallas/compact3.py, _compact3_kernel (entry compact_planes):
 //     the u32 plane compaction of the filter and of group extraction (K1),
 //     here at uint32, uint64 and 16-byte (uint4) words, so 8-byte columns
@@ -36,14 +38,16 @@
 // Zeros past out_rows (the filter and group extraction cut the output near
 // the count) are never written.
 //
-// The Stage parameter (tile_rank.cuh) serves the stage ablation of the TPU
-// probe scripts/prof_kernel.py (P8): the entry points of K1 and K2
-// instantiate only kStageFull; arrowtpu_compact_tiles_stage runs K1's other
-// stages at 4-byte words in kFrameOffs.
+// The Stage parameter (tile_rank.cuh) serves the stage ablations: of the
+// TPU probe scripts/prof_kernel.py (P8) at 4-byte words, and of K1's
+// 16-byte word, compact16_kernel beside tile_compact_kernel<uint4>.  The
+// entry points of K1 and K2 instantiate only kStageFull;
+// arrowtpu_compact_tiles_stage runs the other stages in kFrameOffs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "compact16.cuh"
 #include "tile_rank.cuh"
 
 namespace {
@@ -152,45 +156,79 @@ int arrowtpu_compact_tiles(int word_bytes, const void* keep, int64_t n,
     case 17:
       return launch_tile_compact<uint64_t, kFrameLookback, kStageFull>(
           keep, n, nullptr, num_planes, in, out, out_rows, scratch, count, s);
-    case 32:
+    case 32:  // the sparse gather's cp.async staging is faster here
       return launch_tile_compact<uint4, kFrameOffs, kStageFull>(
           keep, n, offs, num_planes, in, out, out_rows, nullptr, nullptr, s);
     case 33:
-      return launch_tile_compact<uint4, kFrameLookback, kStageFull>(
+      return arrowtpu::launch_compact16<kFrameLookback, kStageFull>(
           keep, n, nullptr, num_planes, in, out, out_rows, scratch, count, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The stage ablation of K1 at 4-byte words in kFrameOffs: as
-// arrowtpu_compact_tiles with out_rows = n, for a Stage of tile_rank.cuh
-// other than kLookback (K1's offsets there come from its count pass and
-// cumsum, separate launches); aux: (ceil(n / kTile),) int64 for kRank.
-// offs is read by kKept and kFull only.
-int arrowtpu_compact_tiles_stage(int stage, const void* keep, int64_t n,
+// The stage ablation of K1 in kFrameOffs: as arrowtpu_compact_tiles (4-byte
+// words with out_rows = n), for a Stage of tile_rank.cuh other than
+// kLookback (K1's offsets there come from its count pass and cumsum,
+// separate launches).
+// word_bytes 4: tile_compact_kernel<uint32>, every stage; 16: body 0 is
+// compact16_kernel, body 1 tile_compact_kernel<uint4>, kRank, kKept and
+// kFull, whose kRank copies no plane.  aux: (ceil(n / kTile),) int64 for
+// kRank.  offs is read by kKept and kFull only.
+int arrowtpu_compact_tiles_stage(int stage, int word_bytes, int body,
+                                 const void* keep, int64_t n,
                                  const void* offs, int num_planes,
                                  const void* const* in, void* const* out,
-                                 void* aux, void* stream) {
+                                 int64_t out_rows, void* aux, void* stream) {
   using arrowtpu::kFrameOffs;
+  using arrowtpu::kStageCopy;
+  using arrowtpu::kStageFull;
+  using arrowtpu::kStageKept;
+  using arrowtpu::kStageRank;
+  using arrowtpu::launch_compact16;
   using arrowtpu::launch_tile_compact;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (stage) {
-    case arrowtpu::kStageCopy:
-      return launch_tile_compact<uint32_t, kFrameOffs, arrowtpu::kStageCopy>(
-          keep, n, offs, num_planes, in, out, n, nullptr, aux, s);
-    case arrowtpu::kStageRank:
-      return launch_tile_compact<uint32_t, kFrameOffs, arrowtpu::kStageRank>(
-          keep, n, offs, num_planes, in, out, n, nullptr, aux, s);
-    case arrowtpu::kStageKept:
-      return launch_tile_compact<uint32_t, kFrameOffs, arrowtpu::kStageKept>(
-          keep, n, offs, num_planes, in, out, n, nullptr, aux, s);
-    case arrowtpu::kStageFull:
-      return launch_tile_compact<uint32_t, kFrameOffs, arrowtpu::kStageFull>(
-          keep, n, offs, num_planes, in, out, n, nullptr, aux, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (word_bytes == 4 && body == 0) {
+    switch (stage) {
+      case kStageCopy:
+        return launch_tile_compact<uint32_t, kFrameOffs, kStageCopy>(
+            keep, n, offs, num_planes, in, out, n, nullptr, aux, s);
+      case kStageRank:
+        return launch_tile_compact<uint32_t, kFrameOffs, kStageRank>(
+            keep, n, offs, num_planes, in, out, n, nullptr, aux, s);
+      case kStageKept:
+        return launch_tile_compact<uint32_t, kFrameOffs, kStageKept>(
+            keep, n, offs, num_planes, in, out, n, nullptr, aux, s);
+      case kStageFull:
+        return launch_tile_compact<uint32_t, kFrameOffs, kStageFull>(
+            keep, n, offs, num_planes, in, out, n, nullptr, aux, s);
+    }
+  } else if (word_bytes == 16 && body == 0) {
+    switch (stage) {
+      case kStageRank:
+        return launch_compact16<kFrameOffs, kStageRank>(
+            keep, n, offs, num_planes, in, out, out_rows, nullptr, aux, s);
+      case kStageKept:
+        return launch_compact16<kFrameOffs, kStageKept>(
+            keep, n, offs, num_planes, in, out, out_rows, nullptr, aux, s);
+      case kStageFull:
+        return launch_compact16<kFrameOffs, kStageFull>(
+            keep, n, offs, num_planes, in, out, out_rows, nullptr, aux, s);
+    }
+  } else if (word_bytes == 16 && body == 1) {
+    switch (stage) {
+      case kStageRank:
+        return launch_tile_compact<uint4, kFrameOffs, kStageRank>(
+            keep, n, offs, num_planes, in, out, out_rows, nullptr, aux, s);
+      case kStageKept:
+        return launch_tile_compact<uint4, kFrameOffs, kStageKept>(
+            keep, n, offs, num_planes, in, out, out_rows, nullptr, aux, s);
+      case kStageFull:
+        return launch_tile_compact<uint4, kFrameOffs, kStageFull>(
+            keep, n, offs, num_planes, in, out, out_rows, nullptr, aux, s);
+    }
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -1,11 +1,12 @@
 // The compaction kernels' tile body: the tile shape, the plane pointers
 // passed by value, the in-block ranking of a tile's kept rows, the
-// decoupled look-back, and tile_compact_kernel, the one compaction kernel
-// of the port: K1 (csrc/compact.cu, 4- and 8-byte words), K2 (the same
-// source, 1- and 4-byte words) and K3 (csrc/compact2.cu).  K1 also moves
-// 16-byte words (uint4): a row of a (n, 4) int32 tensor (a Decimal128, an
-// interval month_day_nano, a string view) is one word, loaded and stored
-// whole, with no transpose into 4-byte planes.
+// decoupled look-back, the zero fill, and tile_compact_kernel, the
+// compaction kernel of K1 (csrc/compact.cu; 4-, 8- and, with tile offsets,
+// 16-byte words: a row of a (n, 4) int32 tensor, a Decimal128, an interval
+// month_day_nano, a string view), K2 at 1- and 4-byte words (the same
+// source) and K3 (csrc/compact2.cu).  K1's 16-byte words without tile
+// offsets (the look-back frame) run compact16_kernel (csrc/compact16.cuh),
+// which shares the tile shape, the frames, the look-back and the zero fill.
 //
 // A block owns one tile of kTile = 4096 rows.  Row order inside a tile is
 // (round, warp, lane): row = tile + r*256 + tid, so a warp touches 32
@@ -476,6 +477,9 @@ tile_compact_kernel(const uint8_t* __restrict__ keep, int64_t n,
       unsigned ballots[kRounds];
       const int aggregate = rank_tile(keep, n, tile, ranks, ballots);
       if (threadIdx.x == 0) aux[t] = aggregate;
+      // 16-byte words' rank stage stands beside compact16_kernel's, which
+      // copies no plane (kernels/probes.py compaction_stages, "k1_tile")
+      if constexpr (kWord == 16) return;
     }
     copy_tile(n, num_planes, planes, tile);
     return;

@@ -111,7 +111,8 @@ def library() -> ctypes.CDLL:
         i32, vp, i64, i32, ctypes.POINTER(vp), ctypes.POINTER(vp), vp, vp, vp]
     lib.arrowtpu_compact2_stage.restype = i32
     lib.arrowtpu_compact_tiles_stage.argtypes = [
-        i32, vp, i64, vp, i32, ctypes.POINTER(vp), ctypes.POINTER(vp), vp, vp]
+        i32, i32, i32, vp, i64, vp, i32, ctypes.POINTER(vp),
+        ctypes.POINTER(vp), i64, vp, vp]
     lib.arrowtpu_compact_tiles_stage.restype = i32
     lib.arrowtpu_stream.argtypes = [vp, vp, vp, i64, i64, vp]
     lib.arrowtpu_stream.restype = i32
@@ -121,10 +122,11 @@ def library() -> ctypes.CDLL:
     lib.arrowtpu_tile_gather.restype = i32
     lib.arrowtpu_dense_agg.argtypes = [
         i32, vp, vp, vp, i32, i32, i64, i32, ctypes.POINTER(vp),
-        ctypes.POINTER(vp), ctypes.POINTER(i32), i32, vp, vp]
+        ctypes.POINTER(vp), ctypes.POINTER(i32), vp, vp, vp]
     lib.arrowtpu_dense_agg.restype = i32
     for fn in (lib.arrowtpu_dense_agg_max_cols,
-               lib.arrowtpu_dense_agg_max_buckets):
+               lib.arrowtpu_dense_agg_max_buckets,
+               lib.arrowtpu_dense_agg_acc_words):
         fn.argtypes, fn.restype = [], i32
     if (lib.arrowtpu_compact_tile_rows(), lib.arrowtpu_compact_max_planes()) \
             != (TILE_ROWS, MAX_PLANES):

@@ -7,7 +7,12 @@ Counterpart of `arrowtpu/pallas/compact3.py` (`compact_planes` ->
 words, so int64 columns move as whole 8-byte words and a row of four
 int32 words (a Decimal128, an interval month_day_nano, a string view) as
 one 16-byte word, where the JAX package transposes it into four u32
-planes.  Its design and its bound on the card are in those files' headers.
+planes; 16-byte words without tile offsets run `compact16_kernel`
+(`csrc/compact16.cuh`: no shared staging, a sparse tile's kept words
+loaded into registers, more blocks an SM for the look-back's chain).
+Their designs and bounds on the card are in those files' headers: at
+1.9 % kept a 16-byte compaction is held by its kept words' random 32-byte
+sectors.
 
 Contract: (P, n) planes of one dtype and an (n,) uint8 0/1 (or bool) keep
 mask -> (P, out_rows) planes whose first `count` words are the kept words

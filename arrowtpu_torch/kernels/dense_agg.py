@@ -5,7 +5,11 @@ engine (`_dense_group_by`'s bucket presence counts and
 `_dense_agg_column`'s per-bucket count, sum, min and max): not a Pallas
 kernel there, about NB masked reductions per output that XLA fuses into one
 pass over the rows.  Here it is `dense_agg_kernel` (`csrc/dense_agg.cu`,
-whose header gives the design and the bound on the card).
+whose header gives the design and the bound on the card): one launch on a
+persistent grid, 4 rows a thread a step, shared-memory buckets a block
+(sums as two 32-bit atomic halves with a carry), merged into a per-device,
+per-stream accumulator (`_accumulator`) by the blocks' global atomics; the
+last block writes the output and resets the accumulator.
 
 Contract: a key column (int8/16/32 or uint8/16/32, (capacity,) values and
 an optional LSB validity bitmap), `kmin` as a one-element int64 tensor on
@@ -113,6 +117,27 @@ def cols_per_launch(nb: int) -> int:
     return max(1, min(MAX_COLS, (SMEM_BUDGET - 4 * nb) // (28 * nb)))
 
 
+# the kernel's accumulators, one per (device, stream): int64 words of
+# (1 + 4 MAX_COLS) rows of MAX_BUCKETS (rows; per column count, sum, min,
+# max) at the identity, then the ticket word at 0.  Each launch leaves its
+# accumulator so; launches on one stream run in turn.
+_accs = {}
+
+
+def _accumulator(device: torch.device) -> torch.Tensor:
+    """The accumulator of `device`'s current stream, made on first use."""
+    handle = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    acc = _accs.get(handle)
+    if acc is None:
+        words = _build.library().arrowtpu_dense_agg_acc_words()
+        acc = torch.zeros(words, dtype=torch.int64, device=device)
+        stats = acc[MAX_BUCKETS:words - 1].view(MAX_COLS, 4, MAX_BUCKETS)
+        stats[:, 2] = _I64.max
+        stats[:, 3] = _I64.min
+        _accs[handle] = acc
+    return acc
+
+
 def dense_aggregate(key: torch.Tensor, key_validity: Optional[torch.Tensor],
                     kmin: torch.Tensor, off: int, nb: int, n: int,
                     values: Sequence[Value]
@@ -132,6 +157,7 @@ def dense_aggregate(key: torch.Tensor, key_validity: Optional[torch.Tensor],
     rows = None
     lib = _build.library()
     with torch.cuda.device(key.device):
+        acc = _accumulator(key.device)
         for i in range(0, max(len(values), 1), step):
             chunk = values[i:i + step]
             out = torch.empty((1 + 4 * len(chunk), nb), dtype=torch.int64,
@@ -144,7 +170,7 @@ def dense_aggregate(key: torch.Tensor, key_validity: Optional[torch.Tensor],
                 kmin.data_ptr(), off, nb, n, len(chunk),
                 _build.plane_ptrs([v for v, _ in chunk]),
                 _build.plane_ptrs([ok for _, ok in chunk]), codes,
-                int(rows is None), out.data_ptr(), _build._stream(key)),
+                acc.data_ptr(), out.data_ptr(), _build._stream(key)),
                 "dense_agg_kernel")
             launches += 1
             if rows is None:

@@ -5,8 +5,10 @@ kernels are in `csrc/probes.cu` (`stream`, `lane_roll`, `tile_gather`) and,
 for `compaction_stages`, the Stage-templated `tile_compact_kernel` of
 `csrc/tile_rank.cuh` as K1 launches it (`csrc/compact.cu`, tile offsets
 from its count pass and cumsum) and as K3 does (`csrc/compact2.cu`,
-look-back).  Each file's header gives the
-design and the bound on the card.
+look-back), and at 16-byte words `compact16_kernel` (`csrc/compact16.cuh`,
+K1's look-back frame) beside `tile_compact_kernel<uint4>` (K1's offs
+frame), both with tile offsets.  Each file's header gives the design and
+the bound on the card.
 
   stream(planes, keep=None)        (P, n) 4-byte words: planes + keep[i], or
                                    a copy (P4, and the copies of P1-P3)
@@ -17,13 +19,15 @@ design and the bound on the card.
                                    memory; P3's round trip one launch)
   compaction_stages(planes, keep, stage, kernel)
                                    K3 or K1 cut after one of its stages
-                                   (P7's K3 ablation, P8)
+                                   (P7's K3 ablation, P8; K1's two
+                                   16-byte kernels)
 
 Each has a plain PyTorch version beside it (`*_plain`).  A CPU tensor takes
 the plain version; a CUDA tensor launches the kernel or raises.
 `launches[name]` counts each kernel's launches (`stages_k3` and
-`stages_k1` those of compaction_stages).  Words are any 4-byte
-dtype: sums wrap at 32 bits, comparisons are of the unsigned words.
+`stages_k1` those of compaction_stages, K1's at every word size).  Words
+are any 4-byte dtype: sums wrap at 32 bits, comparisons are of the
+unsigned words.
 """
 
 from __future__ import annotations
@@ -269,57 +273,92 @@ def tile_gather(x: torch.Tensor, pattern: str, idx: torch.Tensor = None):
 # ---------------------------------------------------------------------------
 
 KERNELS = ("k3", "k1")
+# at 16-byte words ((P, n, 4) int32 planes): compact16_kernel ("k1") and
+# tile_compact_kernel<uint4> ("k1_tile"), three stages
+KERNELS16 = ("k1", "k1_tile")
+STAGES16 = ("rank", "kept", "full")
+_BODIES16 = {"k1": 0, "k1_tile": 1}
 
 
-def _stage_operands(planes, keep, stage, kernel) -> None:
-    if kernel not in KERNELS:
-        raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
-    if stage not in STAGES or (kernel == "k1" and stage == "lookback"):
-        raise ValueError(f"no stage {stage!r} for {kernel}: K1's look-back "
-                         "is its count pass and cumsum")
-    if not isinstance(planes, torch.Tensor) or planes.dim() != 2:
-        raise ValueError("compaction_stages takes a (P, n) tensor")
-    _build.check_operands(planes, keep, (4,))
+def _stage_operands(planes, keep, stage, kernel, out_rows=None) -> int:
+    """Check a compaction_stages call; -> the word bytes (4 or 16)."""
+    if not isinstance(planes, torch.Tensor) or planes.dim() not in (2, 3):
+        raise ValueError("compaction_stages takes a (P, n) or (P, n, 4) "
+                         "tensor")
+    w = planes.element_size() * (planes.shape[2] if planes.dim() == 3
+                                 else 1)
+    if w == 16:
+        if kernel not in KERNELS16 or stage not in STAGES16:
+            raise ValueError(f"16-byte words: kernel in {KERNELS16}, stage "
+                             f"in {STAGES16}, got {kernel!r}, {stage!r}")
+    else:
+        if kernel not in KERNELS:
+            raise ValueError(f"kernel must be one of {KERNELS}, got "
+                             f"{kernel!r}")
+        if stage not in STAGES or (kernel == "k1" and stage == "lookback"):
+            raise ValueError(f"no stage {stage!r} for {kernel}: K1's "
+                             "look-back is its count pass and cumsum")
+    if out_rows is not None and w != 16:
+        raise ValueError("out_rows is taken at 16-byte words only")
+    _build.check_operands(planes, keep, (4, 16))
+    _build.out_rows_of(keep, out_rows)
+    return w
 
 
 def compaction_stages_plain(planes: torch.Tensor, keep: torch.Tensor,
-                            stage: str, kernel: str = "k3"):
+                            stage: str, kernel: str = "k3",
+                            out_rows: int = None):
     """What each stage of compaction_stages computes:
-      copy, rank, lookback   the planes unchanged; rank's aux is the kept
+      copy, rank, lookback   the planes unchanged (at 16-byte words rank
+                             writes no plane: None); rank's aux is the kept
                              count of each 4096-row tile, lookback's the
                              tile's exclusive prefix of those counts;
       kept                   the kept words at [0, count) (the kernel
                              leaves the words past the count unwritten;
                              here they are 0);
-      full                   the compaction, zero tail included."""
-    _stage_operands(planes, keep, stage, kernel)
+      full                   the compaction, zero tail included.
+    At 16-byte words kept and full write out_rows rows (n by default)."""
+    w = _stage_operands(planes, keep, stage, kernel, out_rows)
     aux = None
     if stage in ("copy", "rank", "lookback"):
-        out = planes.clone()
+        out = None if w == 16 else planes.clone()
         if stage != "copy":
             counts = _build.tile_counts_plain(keep)
             aux = counts if stage == "rank" else torch.cumsum(counts, 0) - \
                 counts
         return out, aux
+    if w == 16:
+        from . import compact3 as k1
+        return k1.compact_planes_plain(planes, keep, out_rows), None
     from . import compact2 as k3
     return k3.compact_planes_plain(planes, keep), None
 
 
 def compaction_stages(planes: torch.Tensor, keep: torch.Tensor, stage: str,
-                      kernel: str = "k3"
-                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """K3 (`kernel="k3"`, csrc/compact2.cu) or K1 at 4-byte words with
-    tile offsets (`kernel="k1"`, csrc/compact.cu, after its count pass and
-    cumsum for kept and full) cut after `stage` (STAGES; K1 has no "lookback"), on
-    (P, n) 4-byte planes -> ((P, n) planes, aux): aux is the per-tile
-    int64 result that keeps the rank / lookback work live, else None.  See
+                      kernel: str = "k3", out_rows: int = None,
+                      offs: torch.Tensor = None
+                      ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """K3 (`kernel="k3"`, csrc/compact2.cu) or K1 with tile offsets
+    (`kernel="k1"`, csrc/compact.cu, after its count pass and cumsum for
+    kept and full) cut after `stage`, on (P, n) 4-byte planes (STAGES; K1
+    has no "lookback") or (P, n, 4) int32 planes of 16-byte words
+    (STAGES16; "k1" is compact16_kernel, "k1_tile" the tile body at 16-byte
+    words) -> (planes, aux): the (P, n) or (P, n, 4)
+    output (None for rank at 16-byte words; out_rows rows at 16-byte
+    words, n by default), and aux, the per-tile int64 result that keeps the
+    rank / lookback work live, else None.  K1's kept and full stages take
+    `offs`, the tile offsets, when the caller has them; else they run the
+    count pass and cumsum first, as the filter does.  See
     compaction_stages_plain for what each stage computes."""
     if keep.device.type == "cpu":
-        return compaction_stages_plain(planes, keep, stage, kernel)
+        return compaction_stages_plain(planes, keep, stage, kernel, out_rows)
     _build.require_cuda(keep, "probes.compaction_stages")
-    _stage_operands(planes, keep, stage, kernel)
-    P, n = planes.shape
-    out = torch.empty_like(planes)
+    w = _stage_operands(planes, keep, stage, kernel, out_rows)
+    P, n = planes.shape[:2]
+    rows = _build.out_rows_of(keep, out_rows)
+    out = None if (w, stage) == (16, "rank") else torch.empty(
+        (P, rows) + tuple(planes.shape[2:]), dtype=planes.dtype,
+        device=planes.device)
     tiles = -(-n // _build.TILE_ROWS)
     aux = torch.empty(max(tiles, 1), dtype=torch.int64, device=keep.device)
     if n == 0:
@@ -328,14 +367,19 @@ def compaction_stages(planes: torch.Tensor, keep: torch.Tensor, stage: str,
     code = STAGES[stage]
     if kernel == "k3":
         scratch = _build.lookback_scratch(keep)
+    elif code < STAGES["kept"]:
+        offs = aux
+    elif offs is None:
+        offs = _build.tile_offsets(keep)
     else:
-        offs = (_build.tile_offsets(keep) if code >= STAGES["kept"]
-                else aux)
+        _build._check_offs(offs, keep)
     step = _build.MAX_PLANES
     with torch.cuda.device(keep.device):
         for i in range(0, P, step):
             ins = _build.plane_ptrs(planes[i:i + step])
-            outs = _build.plane_ptrs(out[i:i + step])
+            # rank at 16-byte words writes no plane: its inputs stand in
+            outs = _build.plane_ptrs((planes if out is None else out)
+                                     [i:i + step])
             count = min(step, P - i)
             if kernel == "k3":
                 err = lib.arrowtpu_compact2_stage(
@@ -343,10 +387,11 @@ def compaction_stages(planes: torch.Tensor, keep: torch.Tensor, stage: str,
                     scratch.data_ptr(), aux.data_ptr(), _build._stream(keep))
             else:
                 err = lib.arrowtpu_compact_tiles_stage(
-                    code, keep.data_ptr(), n, offs.data_ptr(), count, ins,
-                    outs, aux.data_ptr(), _build._stream(keep))
+                    code, w, _BODIES16.get(kernel, 0) if w == 16 else 0,
+                    keep.data_ptr(), n, offs.data_ptr(), count, ins, outs,
+                    rows, aux.data_ptr(), _build._stream(keep))
             _build._check(err, f"{kernel} stage {stage}")
-            launches[f"stages_{kernel}"] += 1
+            launches["stages_k3" if kernel == "k3" else "stages_k1"] += 1
     if stage == "rank" or stage == "lookback":
         return out, aux
     return out, None

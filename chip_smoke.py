@@ -8,8 +8,11 @@ Phases (each raises on failure; the exit code is then non-zero):
      CUDA kernels from the repository's sources, with the `-Xptxas -v`
      lines (registers, spills, shared memory) of every instantiation of
      tile_compact_kernel (the kernel of K1, K2 and K3; K2's uint8 ones
-     included), of tile_gather's round trip and staged sublane gather and
-     of lane_roll_kernel;
+     included) and of compact16_kernel (K1's 16-byte words in the
+     look-back frame; the ones the stage ablation launches too), of
+     tile_gather's round
+     trip and staged sublane gather, of lane_roll_kernel and of
+     dense_agg_kernel;
   2. every kernel against its plain PyTorch version on the card, bit-exact:
      K1 (kernels/compact3.py) at uint32 with P in {1, 2, 4, 8, 16}, at
      uint64 with P in {1, 2} and at 16-byte words ((P, n, 4) int32, P in
@@ -135,10 +138,15 @@ Phases (each raises on failure; the exit code is then non-zero):
      past its plan (K1 alone: no transpose or copy feeds it); the step's
      time (CUDA events, median of 10), its stages (predicate, plan,
      filter, revenue), busy share and peak memory; K1's 16-byte launch at
-     its call shape beside its bytes bound (3.35 TB/s and the copy floor),
-     its plain version and the library's boolean index, and at 50 / 96 %
-     kept; then `take_record_batch` of 1,000,000 uniform ids (1 % null, 1
-     % past the end) held to a numpy gather of every column, and timed;
+     its call shape held to plain in both frames on poisoned outputs and
+     timed beside its bytes bound (3.35 TB/s and the copy floor), its
+     sector floor, its plain version and the library's boolean index, and
+     at 50 / 96 % kept; the stage ablation at that call (rank, kept, full
+     of compact16_kernel and of tile_compact_kernel<uint4>, each held to
+     its plain stage; compact16_kernel's kept stage at P = 1 too); then
+     `take_record_batch` of 1,000,000 uniform
+     ids (1 % null, 1 % past the end) held to a numpy gather of every
+     column, and timed;
   14. the nested classes at config 1's 8,000,000 rows
      (list_view<int64> of 0-7 items, struct<i: int32, s: utf8> with
      strings of 0-20 bytes, fixed_size_list<float32, 4>, bool; 10 % nulls
@@ -253,7 +261,8 @@ Phases (each raises on failure; the exit code is then non-zero):
      group-by; per query the launch counts set to 0 just before the step
      and read just after (K1 must launch at 8 bytes in queries 4, 7 and 8
      and K2 at one byte in query 6's filter), every K1 and K2 call held to
-     plain and every dense_agg call to `dense_aggregate_plain`; every
+     plain and every dense_agg call to `dense_aggregate_plain` (and timed
+     at its call beside its plain version); every
      query exact against `entry.clickbench_oracle` (numpy on a host
      thread; AVG(UserID) within a relative 1e-12 of the exact mean); each
      step's time (CUDA events, median of 5 with min and max), its stages,
@@ -544,6 +553,9 @@ def _kernel_label(mangled: str):
     if t:
         return (f"tile_compact_kernel<{WORDS.get(t[1], t[1])}, "
                 f"{FRAMES[t[2]]}, {STAGE_NAMES[t[3]]}>")
+    t = re.search(r"compact16_kernelILi(\d)ELi(\d)E", mangled)
+    if t:
+        return f"compact16_kernel<{FRAMES[t[1]]}, {STAGE_NAMES[t[2]]}>"
     t = re.search(r"sublane_gather_kernelILi(\d+)E", mangled)
     if t:
         return f"sublane_gather_kernel<W={t[1]}>"
@@ -558,8 +570,9 @@ def _kernel_label(mangled: str):
 
 
 def ptxas_reports(build_log: str):
-    """The `-Xptxas -v` report of each instantiation of tile_compact_kernel,
-    of tile_gather's round trip and staged sublane gather, of
+    """The `-Xptxas -v` report of each instantiation of tile_compact_kernel
+    and compact16_kernel, of tile_gather's round trip and staged sublane
+    gather, of
     lane_roll_kernel and of dense_agg_kernel: [(label, [its register /
     spill / shared memory lines])]."""
     import re
@@ -2236,6 +2249,15 @@ def clickbench_phase(pe, ops, k1, k2, build, dev):
             if not all(torch.equal(a, b) for a, b in zip(out, plain)):
                 raise AssertionError(f"ClickBench Q{q}: dense_agg differs "
                                      "from its plain version")
+            saved = dk.launches
+            log(f"  dense_agg at ClickBench Q{q}'s call (n={d_args[5]}, "
+                f"{d_args[0].dtype} key, {d_args[4]} buckets, "
+                f"{len(d_args[6])} value column(s)): "
+                f"{cold_ms(lambda: dk.dense_aggregate(*d_args)):.4f} ms, "
+                f"plain "
+                f"{cold_ms(lambda: dk.dense_aggregate_plain(*d_args)):.4f} "
+                f"ms")
+            dk.launches = saved
         if q in (4, 7, 8) and not run.get("K1_8"):
             raise AssertionError(f"ClickBench Q{q}: K1 did not launch at 8 "
                                  f"bytes ({run})")
@@ -3631,14 +3653,27 @@ def q6_phase(pe, ops, k1, k2, build, dev, floor_bytes_per_s):
     row.update(launches=run["K1_16"], floor_ms=nbytes / floor_bytes_per_s
                * 1e3, shape=f"P={len(planes)} x n={keep.shape[0]} x 16 B "
                f"-> {rows} rows, kept {int(keep.sum())}")
-    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-              for a, b in zip(k1.compact_planes(planes, keep, offs, rows),
-                              k1.compact_planes_plain(planes, keep, rows)))
+    from arrowtpu_torch.probes import fresh_call
+
+    want = k1.compact_planes_plain(planes, keep, rows)
+    err = 0
+    for o in (offs, None):  # both frames, on poisoned outputs
+        got = fresh_call(lambda: k1.compact_planes(planes, keep, o, rows),
+                         want)
+        torch.cuda.synchronize()
+        err = max([err] + [int((a.to(torch.int64) - b.to(torch.int64)
+                                ).abs().max()) for a, b in zip(got, want)])
+    del want, got
     if err:
         raise AssertionError("K1 16-byte: differs at the Q6 call")
     row["max_abs_err"] = float(err)
-    log(f"  K1 16-byte at the Q6 call: bound at the copy floor "
-        f"{row['floor_ms']:.4f} ms")
+    kept16 = int(keep.sum())
+    row["sector_floor_ms"] = bytes_bound_ms(
+        keep.shape[0] + 32 * len(planes) * kept16 + 16 * len(planes) * rows)
+    log(f"  K1 16-byte at the Q6 call: both frames bit-exact against plain; "
+        f"bound at the copy floor {row['floor_ms']:.4f} ms, sector floor "
+        f"{row['sector_floor_ms']:.4f} ms")
+    row["stages"] = k1_16_stages(planes, keep, offs, rows)
     for density in (0.5, 0.96):  # the same planes, denser masks
         dense = torch.rand(keep.shape[0], device=dev) < density
         offs_d = k1.tile_offsets(dense)
@@ -3672,6 +3707,63 @@ def q6_phase(pe, ops, k1, k2, build, dev, floor_bytes_per_s):
         f"{take_ms:.3f} ms")
     del taken, out
     return run, row, arrays, batch
+
+
+def k1_16_stages(planes, keep, offs, rows) -> dict:
+    """K1's 16-byte word at one call cut after each stage (kernels/probes.py
+    compaction_stages: rank, kept, full, given the call's tile offsets),
+    for compact16_kernel ("k1") and the tile body it replaced ("k1_tile"),
+    each held to its plain stage (rank's tile counts; kept's first `count`
+    rows; full) and timed (cold_ms) beside the stage's bytes at 3.35 TB/s:
+    rank reads the mask; kept also reads and writes the kept words; full
+    also writes the rest of the rows.  -> {"kernel stage": ms}."""
+    from arrowtpu_torch.kernels import probes as kp
+
+    stacked = torch.stack(planes)
+    n, P, count = keep.shape[0], len(planes), int(keep.sum())
+    nbytes = {"rank": n, "kept": n + 32 * P * count,
+              "full": n + 16 * P * (count + rows)}
+    saved = kp.launches["stages_k1"]
+    out = {}
+    for kernel in kp.KERNELS16:
+        for stage in kp.STAGES16:
+            def fn():
+                return kp.compaction_stages(stacked, keep, stage, kernel,
+                                            rows, offs)
+
+            got, aux = fn()
+            want, waux = kp.compaction_stages_plain(stacked, keep, stage,
+                                                    kernel, rows)
+            torch.cuda.synchronize()
+            ok = (torch.equal(aux, waux) if stage == "rank" else
+                  torch.equal(got[:, :count], want[:, :count])
+                  if stage == "kept" else torch.equal(got, want))
+            if not ok:
+                raise AssertionError(f"K1 16-byte stage {kernel} {stage}: "
+                                     "differs from its plain version")
+            del got, want
+            ms = cold_ms(fn)
+            out[f"{kernel} {stage}"] = ms
+            log(f"  K1 16-byte stage {kernel} {stage}: {ms:.4f} ms, bytes "
+                f"bound {bytes_bound_ms(nbytes[stage]):.4f} ms")
+    # the kept stage at one plane: the gather's share grows with the kept
+    # words
+    one = stacked[:1]
+    got, _ = kp.compaction_stages(one, keep, "kept", "k1", rows, offs)
+    want, _ = kp.compaction_stages_plain(one, keep, "kept", "k1", rows)
+    torch.cuda.synchronize()
+    if not torch.equal(got[:, :count], want[:, :count]):
+        raise AssertionError("K1 16-byte stage k1 kept P=1: differs from its "
+                             "plain version")
+    del got, want
+    ms = cold_ms(lambda: kp.compaction_stages(one, keep, "kept", "k1", rows,
+                                              offs))
+    out["k1 kept P=1"] = ms
+    log(f"  K1 16-byte stage k1 kept P=1: {ms:.4f} ms, bytes bound "
+        f"{bytes_bound_ms(n + 32 * count):.4f} ms")
+    kp.launches["stages_k1"] = saved
+    del stacked, one
+    return out
 
 
 Q1_REPS = 5  # 10 before phases 16-17 were added
@@ -4280,8 +4372,9 @@ def main() -> int:
     labels = " ".join(label for label, _ in reports)
     for want in ("tile_compact_kernel<u8, offs, full>",
                  "tile_compact_kernel<u8, look-back, full>",
+                 "compact16_kernel<offs, full>",
+                 "compact16_kernel<look-back, full>",
                  "tile_compact_kernel<16 B, offs, full>",
-                 "tile_compact_kernel<16 B, look-back, full>",
                  "sublane_gather_kernel", "tile_gather_kernel<roundtrip",
                  "lane_roll_kernel", "dense_agg_kernel<i32 key>"):
         if want not in labels:
@@ -4691,8 +4784,9 @@ def main() -> int:
                              "XLA-fused; no pallas_call)"}
     names = {"K1": "compact3 (tile_compact_kernel, u32/u64, tile offsets "
                    "or look-back)",
-             "K1_16": "compact3 16-byte words (tile_compact_kernel<uint4>, "
-                      "tile offsets or look-back)",
+             "K1_16": "compact3 16-byte words (tile_compact_kernel<uint4> "
+                      "with tile offsets, compact16_kernel in the look-back "
+                      "frame)",
              "K2": "compact (tile_compact_kernel, u8/u32, tile offsets "
                    "or look-back)",
              "K3": "compact2 (tile_compact_kernel, u32, look-back)",
@@ -4770,7 +4864,8 @@ def main() -> int:
                 if "tile_counts" in c}} if key == "K1" else {}),
             **{k: row[k] for k in ("group_by_calls", "join_calls",
                                    "config4_calls", "q1_calls",
-                                   "redesigned_lines",
+                                   "redesigned_lines", "stages",
+                                   "sector_floor_ms",
                                    "library", "floor_ms") if k in row}})
     log(f"TPC-H Q1 step: {json.dumps(q1_timing)}")
     log(f"text join step: {json.dumps(text_timing)}")

@@ -755,6 +755,54 @@ def test_dense_agg_launch_splits(cuda, nb, ncols, launches):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _dense_law_inputs(nb, n, law, device, seed):
+    """Keys by `law` ("one bucket": every row in bucket nb - 1, the worst
+    contention; "zipf": bucket ranks by 1/rank over nb + 4 values around
+    kmin, so some fall outside; "all null": a key bitmap of zeros, every
+    row in the null bucket 0), values of every width (8 to 64 bits, signed
+    and unsigned) with their extremes, every other column nullable."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    cap = -(-n // 64) * 64
+    kmin = 5
+    if law == "one bucket":
+        key = torch.full((cap,), kmin + nb - 1, dtype=torch.int32,
+                         device=device)
+    else:
+        w = 1.0 / torch.arange(1, nb + 5, dtype=torch.float64, device=device)
+        key = (kmin - 2 + torch.multinomial(w, cap, replacement=True,
+                                            generator=g)).to(torch.int32)
+    key_valid = (torch.zeros(cap // 8, dtype=torch.uint8, device=device)
+                 if law == "all null" else None)
+    values = []
+    for c, dt in enumerate(DENSE_VALUE_DTYPES):
+        lo, hi = ((0, 2**32 - 1) if dt == torch.uint32 else
+                  (torch.iinfo(dt).min, torch.iinfo(dt).max))
+        v = torch.randint(lo, hi, (cap,), dtype=torch.int64, generator=g,
+                          device=device)
+        v[:4] = torch.tensor([lo, hi, hi, lo])
+        ok = (bm.pack(torch.rand(cap, generator=g, device=device) > 0.3)
+              if c % 2 else None)
+        values.append((v.to(dt), ok))
+    return key, key_valid, torch.tensor([kmin], dtype=torch.int64,
+                                        device=device), values
+
+
+@pytest.mark.parametrize("n", [4097, 8_000_000])
+@pytest.mark.parametrize("law", ["one bucket", "zipf", "all null"])
+@pytest.mark.parametrize("nb", [1, 2, 128, 4096])
+def test_dense_agg_key_laws(cuda, nb, law, n):
+    """The worst contention, a skewed key and an all-null key at 1 to 4096
+    buckets, values of every width: bit for bit against the plain version
+    on poisoned outputs, twice in a row on one accumulator."""
+    key, key_valid, kmin, values = _dense_law_inputs(nb, n, law, cuda,
+                                                     nb + n)
+    off = int(law == "all null")
+    args = (key, key_valid, kmin, off, nb, n, values)
+    want = dk.dense_aggregate_plain(*args)
+    for _ in range(2):
+        _same(lambda: list(dk.dense_aggregate(*args)), list(want))
+
+
 def test_dense_agg_never_falls_back(cuda):
     key = torch.zeros(64, dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError):
@@ -910,6 +958,104 @@ def test_k1_16_byte_words_must_be_aligned(cuda):
     with pytest.raises(ValueError):  # 12-byte rows: no such word
         k1.compact_planes([torch.zeros(64, 3, dtype=torch.int32,
                                        device=cuda)], keep)
+
+
+# K1's 16-byte word (tile_compact_kernel<uint4> with tile offsets,
+# compact16_kernel in the look-back frame): the kept shares of the main
+# path's calls, both frames, every out_rows, every plane count, tiles either
+# side of the dense choice, more tiles than resident blocks
+
+WIDE_DENSITIES = [0.0, "one", 0.005, 0.019, 0.055, 0.5, 0.96, 1.0]
+
+
+def _wide_planes(P, n, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-2**31, 2**31 - 1, (P, n, 4), dtype=torch.int32,
+                         device=device, generator=g)
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4097, 1_000_003])
+@pytest.mark.parametrize("density", WIDE_DENSITIES)
+def test_k1_16_frames_and_out_rows(cuda, density, n):
+    """Both frames at every out_rows from the count to n, on outputs
+    poisoned with 0x5A: every word below out_rows written exactly once."""
+    planes = _wide_planes(3, n, cuda, n + 16)
+    keep = _edge_keep(n, density, cuda, n + 17)
+    count = int(keep.sum())
+    offs = k1.tile_offsets(keep)
+    for rows in _out_rows(n, count):
+        want = k1.compact_planes_plain(planes, keep, rows)
+        for o in (offs, None):
+            k1.launches = 0
+            _same(lambda: k1.compact_planes(planes, keep, o, rows), want)
+            assert k1.launches == 1
+
+
+@pytest.mark.parametrize("P", list(range(1, 17)))
+def test_k1_16_every_plane_count(cuda, P):
+    n = 65_539
+    planes = _wide_planes(P, n, cuda, P)
+    keep = _keep(n, 0.019, cuda, P)
+    want = k1.compact_planes_plain(list(planes), keep)
+    offs = k1.tile_offsets(keep)
+    for o in (offs, None):
+        _same(lambda: k1.compact_planes(list(planes), keep, o), want)
+
+
+def test_k1_16_either_side_of_the_dense_choice(cuda):
+    """Tiles of 2047, 2048 and 2049 kept rows in turn (both kernels take
+    bulk copies from half a tile kept) and sparse and empty tiles, in one
+    launch."""
+    n = 40 * 4096 + 123
+    g = torch.Generator(device=cuda).manual_seed(40)
+    keep = torch.zeros(n, dtype=torch.bool, device=cuda)
+    kept = [2047, 2048, 2049, 0, 78, 4096]
+    for t in range(-(-n // 4096)):
+        rows = min(4096, n - t * 4096)
+        k = min(kept[t % len(kept)], rows)
+        pick = torch.randperm(rows, device=cuda, generator=g)[:k]
+        keep[t * 4096 + pick] = True
+    planes = _wide_planes(5, n, cuda, 41)
+    want = k1.compact_planes_plain(planes, keep)
+    offs = k1.tile_offsets(keep)
+    for o in (offs, None):
+        _same(lambda: k1.compact_planes(planes, keep, o), want)
+
+
+def test_k1_16_look_back_twice_on_one_scratch(cuda):
+    """Two look-back launches in a row on one scratch (the C entry zeroes
+    it before each), the count written by the last tile."""
+    n = 1_000_003
+    planes = list(_wide_planes(2, n, cuda, 50))
+    scratch = None
+    for i, density in enumerate((0.019, 0.5)):
+        keep = _keep(n, density, cuda, 51 + i)
+        if scratch is None:
+            scratch = _build.lookback_scratch(keep)
+        want = k1.compact_planes_plain(planes, keep)
+        outs = [torch.full_like(p, 0x5A5A5A5A) for p in planes]
+        count = torch.full((), -1, dtype=torch.int64, device=cuda)
+        _build.tiles_cuda(planes, outs, keep, None, scratch, count)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, want))
+        assert int(count) == int(keep.sum())
+
+
+@pytest.mark.parametrize("density", [0.019, 0.5])
+@pytest.mark.parametrize("frame", ["offs", "look-back"])
+def test_k1_16_more_tiles_than_resident_blocks(cuda, frame, density):
+    """40M rows are 9,766 tiles, many times the blocks the card holds at
+    once (132 SMs x a few): blocks start as earlier ones finish, and in
+    the look-back frame a tile waits on tiles whose blocks started before
+    it, some still running."""
+    n = 40_000_003
+    planes = _wide_planes(1, n, cuda, 60)
+    keep = _keep(n, density, cuda, 61)
+    rows = -(-int(keep.sum()) // 64) * 64
+    want = k1.compact_planes_plain(planes, keep, rows)
+    offs = k1.tile_offsets(keep) if frame == "offs" else None
+    for _ in range(2):
+        _same(lambda: k1.compact_planes(planes, keep, offs, rows), want)
 
 
 def _bits(t):

@@ -414,3 +414,46 @@ def test_compaction_stages_check_their_operands():
         probes.compaction_stages(planes, keep, "nope")
     with pytest.raises(ValueError):
         probes.compaction_stages(planes.to(torch.int64), keep, "copy")
+    wide = torch.zeros((2, 100, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):  # 16-byte words: rank, kept, full
+        probes.compaction_stages(wide, keep, "copy", "k1")
+    with pytest.raises(ValueError):  # the old tile body only at 16 bytes
+        probes.compaction_stages(planes, keep, "full", "k1_tile")
+    with pytest.raises(ValueError):  # out_rows only at 16-byte words
+        probes.compaction_stages(planes, keep, "full", "k1", out_rows=50)
+
+
+@pytest.mark.parametrize("density", [0.0, 0.019, 0.5, 1.0])
+@pytest.mark.parametrize("kernel", probes.KERNELS16)
+def test_compaction_stages_at_16_byte_words_match_jax_k1(kernel, density):
+    """K1's 16-byte word (a (n, 4) int32 row: a Decimal128, a string view):
+    the plain stages held to the JAX package's K1 over the row's four u32
+    planes, as arrowtpu/ops/filter.py transposes such a value."""
+    rng = np.random.default_rng(16 + int(density * 1000))
+    planes = rng.integers(-2**31, 2**31, (2, N_STAGE, 4), dtype=np.int64
+                          ).astype(np.int32)
+    keep = rng.random(N_STAGE) < density
+    count = int(keep.sum())
+    tiles = np.add.reduceat(keep.astype(np.int64),
+                            np.arange(0, N_STAGE, 4096))
+    words = planes.view(np.uint32).transpose(0, 2, 1).reshape(8, N_STAGE)
+    jax_out = np.stack(jgb._compact_u32_planes(
+        [jnp.asarray(w) for w in words], jnp.asarray(keep), N_STAGE))
+    want = jax_out.reshape(2, 4, N_STAGE).transpose(0, 2, 1).view(np.int32)
+    for stage in probes.STAGES16:
+        out, aux = probes.compaction_stages(_t(planes), _t(keep), stage,
+                                            kernel)
+        if stage == "rank":
+            assert out is None
+            np.testing.assert_array_equal(aux.numpy(), tiles)
+            continue
+        assert aux is None
+        if stage == "kept":
+            np.testing.assert_array_equal(out.numpy()[:, :count],
+                                          want[:, :count])
+        else:
+            np.testing.assert_array_equal(out.numpy(), want)
+    rows = min(count + 3, N_STAGE)
+    out, _ = probes.compaction_stages(_t(planes), _t(keep), "full", kernel,
+                                      out_rows=rows)
+    np.testing.assert_array_equal(out.numpy(), want[:, :rows])
